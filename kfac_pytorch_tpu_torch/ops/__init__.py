@@ -1,0 +1,10 @@
+"""K-FAC numeric ops: factor statistics and symmetric linear algebra. The
+hand-written CUDA capture kernels are ``ops.capture_kernels`` (their
+library builds at first use)."""
+
+from kfac_pytorch_tpu_torch.ops.factors import (  # noqa: F401
+    compute_a_conv, compute_a_dense, compute_g_conv, compute_g_dense,
+    extract_patches, update_running_avg)
+from kfac_pytorch_tpu_torch.ops.linalg import (  # noqa: F401
+    add_scaled_identity, clamp_eigvals, identity_pad, masked_trace,
+    psd_inverse, sym_eig)
