@@ -1,17 +1,25 @@
-"""Smoke test of the PyTorch/CUDA port on one GPU: builds the capture
-kernels from ``kfac_pytorch_tpu_torch/csrc``, trains ResNet-32
-``eigen_dp`` with the fused capture kernels for 12 steps (counting each
-kernel's launches), profiles three steps, holds each kernel against its
-plain PyTorch version at every ResNet-32 batch-128 factor shape and at a
-few other layer geometries, and checks the fused path against the
-unfused one.
+"""Smoke test of the PyTorch/CUDA port on one GPU: builds the kernels
+from ``kfac_pytorch_tpu_torch/csrc`` (one ``nvcc`` per source, all at
+once), then drives both slices' main paths, counting each kernel's
+launches:
+
+- slice 1: ResNet-32 ``eigen_dp`` with the fused capture kernels (K1,
+  K2) for 12 steps, a 3-step profile, each capture kernel against its
+  plain PyTorch version at every factor shape and at off-path layer
+  geometries, and the fused path against the unfused one;
+- slice 2: the long-context TransformerLM ``eigen_dp`` trainer (4 layers,
+  d_model 256, L 2048, batch 4) with the flash-attention kernels (K4,
+  K5a, K5b) and the capture kernels for 12 steps, a 3-step profile, K2
+  at the LM's factor shapes, K4/K5a/K5b against their plain versions at
+  the trainer's attention shape and at off-path geometries, and the
+  kernel trainer in lockstep with the plain-attention one.
 
   python3 chip_smoke.py
 
 Needs a CUDA device (exits non-zero without one). Prints the kernel
 table, a ``{"kernels": [...]}`` JSON line, the GPU's name and power
-limit, and last ``{"ok": true, "device": {...}}``; the per-shape table
-and the profile also go to ``build/chip_smoke.json``. TF32 is off
+limit, and last ``{"ok": true, "device": {...}}``; the per-shape tables
+and the profiles also go to ``build/chip_smoke.json``. TF32 is off
 throughout, so every comparison is fp32 against fp32.
 """
 
@@ -49,6 +57,25 @@ TRAJ_FACTOR = 10
 TRAIN_STEPS = 12
 AGREE_STEPS = 3
 OUT_DIR = 'build'
+#: where the checks make their tensors
+DEVICE = 'cuda'
+#: kernel vs plain attention: tests/test_pallas_attention.py's tolerances
+#: (|got - want| <= tol * (1 + |want|)): m and l 1e-5, pv 1e-4, gradients
+#: 2e-4 (its fused-vs-recompute backward)
+ATTN_TOL = {'m': 1e-5, 'l': 1e-5, 'pv': 1e-4, 'dq': 2e-4, 'dk': 2e-4,
+            'dv': 2e-4}
+#: the LM trainer's attention block: (batch 4 x 8 heads, Lq, Lk, head dim),
+#: causal, starts (0, 0)
+ATTN_MAIN = (32, 2048, 2048, 32)
+#: attention geometries off the main path, checked but not timed:
+#: (BH, Lq, Lk, D, causal, starts, random key mask)
+ATTN_OFF_PATH = [
+    (4, 256, 256, 32, False, (64, 32), True),   # non-causal, offsets, mask
+    (4, 100, 100, 32, True, (0, 0), False),     # ragged length
+    (2, 100, 160, 64, True, (64, 32), True),    # ragged, offsets, D 64
+    (3, 72, 40, 16, False, (0, 0), True),       # Lq != Lk, D 16
+    (4, 128, 128, 32, True, (0, 128), True),    # fully future: all skipped
+]
 
 
 def fail(msg):
@@ -90,7 +117,7 @@ def time_ms(fn, reps=10, hide_host=True):
     to back, its device time. The spin doubles until the start event is
     still pending when ``fn`` returns. Without it the time also holds the
     wrapper's host work and launch latency."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device='cuda')
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
     fn()
     cycles = 1 << 20
     times = []
@@ -121,39 +148,78 @@ def gpu_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def counters():
+    """``{kernel name: wrapper}``; each wrapper counts its launches."""
+    from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
+    from kfac_pytorch_tpu_torch.ops import capture_kernels as ck
+    return {'K1 conv_a': ck.compute_a_conv, 'K2 stat_rows': ck._stat_rows,
+            'K4 flash_fwd': ak.flash_fwd,
+            'K5a flash_bwd_dq': ak.flash_bwd_dq,
+            'K5b flash_bwd_dkv': ak.flash_bwd_dkv}
+
+
+def reset_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in counters().items()}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: every kernel against its plain version at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def captured_shapes(tr):
-    """One captured (a, g) of ResNet-32 on a real batch, grouped into the
-    distinct (kernel, shape) launches of one factor step with their
-    multiplicity."""
+def captured_shapes(model, metas, x, loss_of):
+    """One captured (a, g) of ``model`` on input ``x`` (loss
+    ``loss_of(outputs)``), grouped into the distinct (kernel, shape)
+    launches of one factor step with their multiplicity. Dense captures
+    with sequence dims are mean-reduced first, as ``compute_a_dense`` /
+    ``compute_g_dense`` do before K2."""
     from kfac_pytorch_tpu_torch import capture
-    model = tr.state.model
-    batch = tr.to_device(next(tr.train_loader.epoch()))
     model.train()
-    with capture.Capture(model) as cap:
-        out = model(batch['input'].permute(0, 3, 1, 2))
-        torch.nn.functional.cross_entropy(out, batch['label']).backward()
+    with capture.Capture(model, metas) as cap:
+        loss_of(model(x)).backward()
     model.zero_grad(set_to_none=True)
     cases = {}
-    for meta in tr.precond.plan.metas:
+    for meta in metas:
         a = capture.layer_act(cap.acts, meta).contiguous()
         g = capture.layer_g(cap.gs, meta).contiguous()
         if meta.kind == 'conv':
             sides = [('K1 conv_a', 'conv A', a), ('K2 stat_rows', 'conv G', g)]
         else:
+            if a.ndim > 2:
+                a = a.mean(dim=tuple(range(1, a.ndim - 1)))
+                g = g.mean(dim=tuple(range(1, g.ndim - 1)))
             sides = [('K2 stat_rows', 'dense A', a),
                      ('K2 stat_rows', 'dense G', g)]
-        for kname, what, x in sides:
-            key = (kname, what, tuple(x.shape),
+        for kname, what, t in sides:
+            key = (kname, what, tuple(t.shape),
                    meta.strides if what == 'conv A' else None)
             if key not in cases:
                 cases[key] = {'kernel': kname, 'what': what, 'meta': meta,
-                              'x': x, 'count': 0}
+                              'x': t, 'count': 0}
             cases[key]['count'] += 1
     return list(cases.values())
+
+
+def resnet_cases(tr):
+    from kfac_pytorch_tpu_torch import training
+    batch = tr.to_device(next(tr.train_loader.epoch()))
+    model = tr.state.model
+    return captured_shapes(
+        model, tr.precond.plan.metas,
+        training.model_input(model, batch['input']),
+        lambda out: torch.nn.functional.cross_entropy(out, batch['label']))
+
+
+def lm_cases(tr):
+    from kfac_pytorch_tpu_torch import train_lm
+    batch = tr.to_device(next(tr.batches()))
+    return captured_shapes(tr.state.model, tr.precond.plan.metas,
+                           batch['input'],
+                           lambda out: train_lm.loss_fn(out, batch))
 
 
 def kernel_fns(case, x, ema):
@@ -181,7 +247,8 @@ def kernel_fns(case, x, ema):
                     (x.shape[0], x.shape[1] * x.shape[2]), False, ema),
                 r, r / r.shape[0])
     if what == 'dense A':
-        r = torch.cat([x.float(), x.new_ones(x.shape[0], 1).float()], 1)
+        r = factors._append_ones_column(x.float()) if meta.use_bias \
+            else x.float()
         return (lambda: ck.compute_a_dense(x, meta.use_bias, ema=ema),
                 lambda: ck._stat_rows_plain(x, x.shape[0], (),
                                             meta.use_bias, ema),
@@ -193,9 +260,8 @@ def kernel_fns(case, x, ema):
             r, r / x.shape[0])
 
 
-def check_kernels(tr):
-    cases = captured_shapes(tr)
-    gen = torch.Generator(device='cuda').manual_seed(0)
+def check_kernels(cases, path):
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows_out = []
     for case in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -204,8 +270,8 @@ def check_kernels(tr):
             x = case['x'].to(dtype)
             f = {'conv A': case['meta'].in_dim, 'dense A':
                  case['meta'].in_dim}.get(case['what'], x.shape[-1])
-            cur = torch.eye(f, device='cuda') + 0.01 * torch.randn(
-                f, f, device='cuda', generator=gen)
+            cur = torch.eye(f, device=DEVICE) + 0.01 * torch.randn(
+                f, f, device=DEVICE, generator=gen)
             errs = []
             scale = None
             for ema in (None, (cur, 0.95)):
@@ -223,7 +289,8 @@ def check_kernels(tr):
                          f'{dtype} ema={ema is not None}: max |err| {err:.3e} '
                          f'outside rtol {RTOL} atol {ATOL}')
                 errs.append(err)
-            row = {'kernel': case['kernel'], 'what': case['what'],
+            row = {'path': path, 'kernel': case['kernel'],
+                   'what': case['what'],
                    'shape': list(x.shape), 'dtype': str(dtype)[6:], 'F': f,
                    'per_step': case['count'], 'max_abs_err': max(errs)}
             if dtype == torch.float32:
@@ -261,7 +328,7 @@ def check_off_path():
     """K1 and K2 against their plain versions at OFF_PATH_* geometries,
     fp32 and bf16, with and without the EMA."""
     from kfac_pytorch_tpu_torch.ops import capture_kernels as ck
-    gen = torch.Generator(device='cuda').manual_seed(1)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
     cases = []
     for shape, ksize, strides, padding, bias in OFF_PATH_K1:
         args = (ksize, strides, padding, bias)
@@ -278,8 +345,8 @@ def check_off_path():
     worst = 0.0
     for shape, f, kern, plain in cases:
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(shape, device='cuda', generator=gen).to(dtype)
-            cur = torch.randn(f, f, device='cuda', generator=gen)
+            x = torch.randn(shape, device=DEVICE, generator=gen).to(dtype)
+            cur = torch.randn(f, f, device=DEVICE, generator=gen)
             scale = None
             for ema in (None, (cur, 0.95)):
                 got, want = kern(x, ema), plain(x, ema)
@@ -295,34 +362,52 @@ def check_off_path():
           f'max |err| {worst:.3e}', flush=True)
 
 
+#: kernel name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    'K1 conv_a': ('kfac_pytorch_tpu_torch/csrc/capture.cu',
+                  'kfac_pytorch_tpu/ops/pallas_capture.py:314'),
+    'K2 stat_rows': ('kfac_pytorch_tpu_torch/csrc/capture.cu',
+                     'kfac_pytorch_tpu/ops/pallas_capture.py:207'),
+    'K4 flash_fwd': ('kfac_pytorch_tpu_torch/csrc/attention.cu',
+                     'kfac_pytorch_tpu/ops/pallas_attention.py:56'),
+    'K5a flash_bwd_dq': ('kfac_pytorch_tpu_torch/csrc/attention.cu',
+                         'kfac_pytorch_tpu/ops/pallas_attention.py:270'),
+    'K5b flash_bwd_dkv': ('kfac_pytorch_tpu_torch/csrc/attention.cu',
+                          'kfac_pytorch_tpu/ops/pallas_attention.py:302'),
+}
+
+
 def kernel_summary(rows, launches):
-    """Per kernel: times summed over one factor step's launches (each
-    distinct shape times its count per step). ``ms`` is device time;
-    ``wrapper_ms`` the same calls timed with the wrapper's host work and
-    launch latency exposed."""
-    meta = {
-        'K1 conv_a': 'kfac_pytorch_tpu/ops/pallas_capture.py:314',
-        'K2 stat_rows': 'kfac_pytorch_tpu/ops/pallas_capture.py:207',
-    }
+    """Per kernel: times summed over the launches of one step of each main
+    path that runs it (each distinct shape times its count per step; a
+    factor step for K1/K2, a training step for K4/K5). ``ms`` is device
+    time; ``wrapper_ms`` the same calls timed with the wrapper's host work
+    and launch latency exposed. ``launches`` is the sum over the main
+    paths' runs (``launches_by_path``)."""
     out = []
-    for name, replaces in meta.items():
+    for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r['kernel'] == name]
         timed = [r for r in mine if 'ms' in r]
 
         def tot(k):
             return sum(r[k] * r['per_step'] for r in timed)
 
-        out.append({
-            'name': name, 'route': 'cuda',
-            'source': 'kfac_pytorch_tpu_torch/csrc/capture.cu',
-            'replaces': replaces, 'launches': launches[name],
+        by_path = {path: counts[name] for path, counts in launches.items()
+                   if counts[name]}
+        row = {
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': sum(by_path.values()),
+            'launches_by_path': by_path,
             'max_abs_err': max(r['max_abs_err'] for r in mine),
             'ms': tot('ms'), 'wrapper_ms': tot('wrapper_ms'),
-            'plain_ms': tot('plain_ms'),
-            'bound_ms': tot('bound_ms'),
+            'plain_ms': tot('plain_ms'), 'bound_ms': tot('bound_ms'),
             'bound_by': ('operations' if tot('ops_ms') >= tot('bytes_ms')
                          else 'bytes'),
-            'library_ms': tot('library_ms')})
+            'library_ms': tot('library_ms')}
+        if name.startswith('K5'):
+            row['library_note'] = ('scaled_dot_product_attention backward, '
+                                   'dq, dk and dv together (K5a + K5b)')
+        out.append(row)
     return out
 
 
@@ -339,14 +424,12 @@ def make_trainer(capture_impl):
 
 
 def run_trainer():
-    from kfac_pytorch_tpu_torch.ops import capture_kernels as ck
     tr = make_trainer('auto')
     layers = tr.precond.plan.metas
     n_conv = sum(m.kind == 'conv' for m in layers)
     n_dense = len(layers) - n_conv
     batches = tr.train_loader.epoch()
-    ck.compute_a_conv.launches = 0
-    ck._stat_rows.launches = 0
+    reset_counts()
     losses, times, decomp_steps = [], [], []
     for i in range(TRAIN_STEPS):
         batch = next(batches)
@@ -358,12 +441,12 @@ def run_trainer():
         losses.append(float(m['loss']))
         if 'decomp' in tr.step_fn.last_phases:
             decomp_steps.append(i)
-    launches = {'K1 conv_a': ck.compute_a_conv.launches,
-                'K2 stat_rows': ck._stat_rows.launches}
+    launches = read_counts()
     if not all(np.isfinite(losses)):
         fail(f'non-finite training loss: {losses}')
     want = {'K1 conv_a': n_conv * TRAIN_STEPS,
-            'K2 stat_rows': (n_conv + 2 * n_dense) * TRAIN_STEPS}
+            'K2 stat_rows': (n_conv + 2 * n_dense) * TRAIN_STEPS,
+            'K4 flash_fwd': 0, 'K5a flash_bwd_dq': 0, 'K5b flash_bwd_dkv': 0}
     if launches != want:
         fail(f'kernel launches {launches}, expected {want}')
     expect_decomp = [i for i in range(TRAIN_STEPS)
@@ -380,12 +463,25 @@ def run_trainer():
     return tr, launches, times
 
 
-def profile_steps(tr, steps=3):
+def kernel_group(name):
+    """The port's kernel body a profiler kernel name belongs to, or None
+    (the capture kernels' reduce + EMA serves both K1 and K2)."""
+    if 'partial_kernel' in name:
+        return 'K1 partial_kernel' if 'ConvRows' in name \
+            else 'K2 partial_kernel'
+    if 'reduce_ema_kernel' in name:
+        return 'reduce_ema_kernel'
+    for body in ('fwd_kernel', 'dq_kernel', 'dkv_kernel'):
+        if f'::{body}<' in name:
+            return f'attention {body}'
+    return None
+
+
+def profile_steps(tr, batches, label, steps=3):
     """Device time by kernel over ``steps`` factor-update steps without a
-    decomposition (torch.profiler), and the device's busy share of the
-    wall time. Returns the summary dict."""
+    decomposition (torch.profiler), after one warm step, and the device's
+    busy share of the wall time. Returns the summary dict."""
     from torch.profiler import ProfilerActivity, profile
-    batches = tr.train_loader.epoch()
     tr.train_step(next(batches))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -405,27 +501,24 @@ def profile_steps(tr, steps=3):
             rows.append((dev / steps, ev.count // steps, ev.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    # the capture kernels' own device time per step, by body (the reduce
-    # + EMA kernel serves both K1 and K2)
-    capture_ms = {'K1 partial_kernel': 0.0, 'K2 partial_kernel': 0.0,
-                  'reduce_ema_kernel': 0.0}
+    # the port's own kernels' device time per step, by body
+    ours = {}
     for ms, _, k in rows:
-        if 'partial_kernel' in k:
-            capture_ms['K1 partial_kernel' if 'ConvRows' in k
-                       else 'K2 partial_kernel'] += ms
-        elif 'reduce_ema_kernel' in k:
-            capture_ms['reduce_ema_kernel'] += ms
-    out = {'steps': steps, 'wall_ms_per_step': wall / steps,
-           'device_ms_per_step': busy, 'capture_kernels_ms': capture_ms,
+        group = kernel_group(k)
+        if group is not None:
+            ours[group] = ours.get(group, 0.0) + ms
+    out = {'path': label, 'steps': steps, 'wall_ms_per_step': wall / steps,
+           'device_ms_per_step': busy, 'port_kernels_ms': ours,
            'top': [{'name': k[:80], 'ms_per_step': ms, 'calls_per_step': n}
                    for ms, n, k in rows[:20]]}
     if busy == 0:
-        print('profile: torch.profiler saw no device time', flush=True)
+        print(f'profile ({label}): torch.profiler saw no device time',
+              flush=True)
         return out
-    print(f'profile: {steps} factor steps, wall {wall / steps:.2f} ms/step, '
-          f'device busy {busy:.2f} ms/step '
-          f'({100 * busy / (wall / steps):.1f}%), capture kernels ms/step '
-          f'{json.dumps(capture_ms)}', flush=True)
+    print(f'profile ({label}): {steps} factor steps, wall '
+          f'{wall / steps:.2f} ms/step, device busy {busy:.2f} ms/step '
+          f'({100 * busy / (wall / steps):.1f}%), port kernels ms/step '
+          f'{json.dumps(ours)}', flush=True)
     for ms, n, k in rows[:12]:
         print(f'  {ms:8.3f} ms {n:5d}x  {k[:90]}', flush=True)
     return out
@@ -463,7 +556,7 @@ def check_agreement():
         batch = ref.to_device(next(it))
         model = ref.state.model
         model.zero_grad(set_to_none=True)
-        with capture.Capture(model) as cap:
+        with capture.Capture(model, ref.precond.plan.metas) as cap:
             out = model(batch['input'].permute(0, 3, 1, 2))
             torch.nn.functional.cross_entropy(out, batch['label']).backward()
         grads = {k: p.grad for k, p in params_ref.items()}
@@ -603,31 +696,276 @@ def update_gap(p, p_ref, p0):
     return (num ** 0.5) / max(den ** 0.5, 1e-30), worst[0], worst[1]
 
 
+# ---------------------------------------------------------------------------
+# slice 2: the long-context LM trainer and the flash-attention kernels
+# ---------------------------------------------------------------------------
+
+def make_lm_trainer(attn_impl):
+    """The LM trainer at ``examples/longcontext_lm.py``'s defaults with
+    the capture kernels on."""
+    from kfac_pytorch_tpu_torch import train_lm
+    return train_lm.Trainer(train_lm.parse_args(
+        ['--device', 'cuda', '--kfac-capture-impl', 'auto', '--attn-impl',
+         attn_impl]))
+
+
+def run_lm_trainer():
+    tr = make_lm_trainer('auto')
+    n_layer = tr.args.n_layer
+    n_kfac = len(tr.precond.plan.metas)
+    batches = tr.batches()
+    reset_counts()
+    losses, times, decomp_steps = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m['loss']))
+        if 'decomp' in tr.step_fn.last_phases:
+            decomp_steps.append(i)
+    launches = read_counts()
+    if not all(np.isfinite(losses)):
+        fail(f'LM: non-finite training loss: {losses}')
+    # every step updates the factors (kfac_cov_update_freq 1): one K2
+    # launch per factor of every K-FAC layer; one attention block per
+    # layer and step
+    want = {'K1 conv_a': 0, 'K2 stat_rows': 2 * n_kfac * TRAIN_STEPS,
+            'K4 flash_fwd': n_layer * TRAIN_STEPS,
+            'K5a flash_bwd_dq': n_layer * TRAIN_STEPS,
+            'K5b flash_bwd_dkv': n_layer * TRAIN_STEPS}
+    if launches != want:
+        fail(f'LM kernel launches {launches}, expected {want}')
+    expect_decomp = [i for i in range(TRAIN_STEPS)
+                     if i % tr.precond.kfac_update_freq == 0]
+    if decomp_steps != expect_decomp:
+        fail(f'LM decomposition ran on steps {decomp_steps}, expected '
+             f'{expect_decomp}')
+    a = tr.args
+    print(f'trainer: transformer_lm L{a.seq_len} bs{a.batch_size} '
+          f'{n_layer}x{a.d_model} vocab {tr.vocab} eigen_dp '
+          f'capture_impl=auto attn=kernels, {TRAIN_STEPS} steps, losses '
+          f'{[round(x, 4) for x in losses]}, step ms median '
+          f'{float(np.median(times)):.3f} (first {times[0]:.1f}, '
+          f'decomposition step 10 {times[10]:.1f}), launches {launches}, '
+          f'{n_kfac} K-FAC layers, decomposition on steps {decomp_steps}',
+          flush=True)
+    return tr, launches, times
+
+
+def attn_inputs(bh, lq, lk, d, masked, gen):
+    """Random q/k/v, key mask (1 = attend, 20% masked when ``masked``)
+    and cotangents dl/dpv on the card."""
+    def randn(*shape):
+        return torch.randn(*shape, device=DEVICE, generator=gen)
+    mask = ((torch.rand(bh, lk, device=DEVICE, generator=gen) > 0.2).float()
+            if masked else torch.ones(bh, lk, device=DEVICE))
+    return (randn(bh, lq, d), randn(bh, lk, d), randn(bh, lk, d), mask,
+            randn(bh, lq), randn(bh, lq, d))
+
+
+def attn_calls(q, k, v, mask, dl, dpv, starts, causal):
+    """``{kernel: (kernel call, plain call, output names)}`` of one block;
+    the backward takes the plain forward's m."""
+    from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
+    scale = q.shape[-1] ** -0.5
+    m = ak._fwd_plain(q, k, v, mask, starts, scale, causal)[0]
+    fwd = (q, k, v, mask, starts, scale, causal)
+    bwd = (q, k, v, mask, m, dl, dpv, starts, scale, causal)
+    return {'K4 flash_fwd': (lambda: ak.flash_fwd(*fwd),
+                             lambda: ak._fwd_plain(*fwd), ('m', 'l', 'pv')),
+            'K5a flash_bwd_dq': (lambda: (ak.flash_bwd_dq(*bwd),),
+                                 lambda: (ak._bwd_dq_plain(*bwd),), ('dq',)),
+            'K5b flash_bwd_dkv': (lambda: ak.flash_bwd_dkv(*bwd),
+                                  lambda: ak._bwd_dkv_plain(*bwd),
+                                  ('dk', 'dv'))}
+
+
+def attn_bound(name, bh, lq, lk, d, starts, causal):
+    """(bytes ms, operations ms) of one launch: each input read once, each
+    output written once; 4D (K4), 6D (K5a) or 8D (K5b) fp32 operations per
+    (query, key) pair the causal mask keeps."""
+    if causal:
+        qpos = starts[0] + np.arange(lq)
+        pairs = bh * int(np.clip(qpos - starts[1] + 1, 0, lk).sum())
+    else:
+        pairs = bh * lq * lk
+    qkv = (bh * lq * d + 2 * bh * lk * d + bh * lk) * 4   # q, k, v, mask
+    if name == 'K4 flash_fwd':
+        nbytes, per_pair = qkv + (2 * bh * lq + bh * lq * d) * 4, 4
+    elif name == 'K5a flash_bwd_dq':
+        nbytes, per_pair = qkv + (2 * bh * lq + 2 * bh * lq * d) * 4, 6
+    else:
+        nbytes, per_pair = (qkv + (2 * bh * lq + bh * lq * d) * 4
+                            + 2 * bh * lk * d * 4), 8
+    return (nbytes / PEAK_BYTES * 1e3,
+            pairs * per_pair * d / PEAK_FP32 * 1e3)
+
+
+ATTN_KERNELS = ('K4 flash_fwd', 'K5a flash_bwd_dq', 'K5b flash_bwd_dkv')
+
+
+def check_attention(n_layer, n_head):
+    """K4/K5a/K5b against their plain versions at the LM trainer's block
+    (timed, with the bound and the library yardstick) and at ATTN_OFF_PATH
+    (checked). Returns the per-kernel rows of the main shape."""
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    worst = {name: 0.0 for name in ATTN_KERNELS}
+    cases = [ATTN_MAIN + (True, (0, 0), False)] + ATTN_OFF_PATH
+    rows = []
+    for ci, (bh, lq, lk, d, causal, starts, masked) in enumerate(cases):
+        inputs = attn_inputs(bh, lq, lk, d, masked, gen)
+        for name, (kern, plain, outs) in attn_calls(*inputs, starts,
+                                                    causal).items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            for o, g, w in zip(outs, got, want):
+                if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                    fail(f'{name} {o} {(bh, lq, lk, d)}: shape '
+                         f'{tuple(g.shape)} or non-finite output')
+                err, ok = close(g, w, ATTN_TOL[o], ATTN_TOL[o])
+                worst[name] = max(worst[name], err)
+                if not ok:
+                    fail(f'{name} {o} at (BH, Lq, Lk, D) {(bh, lq, lk, d)} '
+                         f'causal={causal} starts={starts}: max |err| '
+                         f'{err:.3e} outside {ATTN_TOL[o]}')
+            if ci:
+                continue
+            bytes_ms, ops_ms = attn_bound(name, bh, lq, lk, d, starts,
+                                          causal)
+            rows.append({'path': 'transformer_lm', 'kernel': name,
+                         'shape': [bh, lq, lk, d], 'causal': causal,
+                         'per_step': n_layer, 'ms': time_ms(kern),
+                         'wrapper_ms': time_ms(kern, hide_host=False),
+                         'plain_ms': time_ms(plain), 'bytes_ms': bytes_ms,
+                         'ops_ms': ops_ms,
+                         'bound_ms': max(bytes_ms, ops_ms)})
+        if ci == 0:
+            library = library_attention_ms(*inputs[:3], n_head)
+            for r in rows:
+                r['library_ms'] = library['fwd' if r['kernel'].startswith(
+                    'K4') else 'bwd']
+    for r in rows:
+        r['max_abs_err'] = worst[r['kernel']]
+        print(json.dumps(r), flush=True)
+    print(f'attention kernels vs plain: the main shape and '
+          f'{len(ATTN_OFF_PATH)} off-path geometries, max |err| '
+          f'{json.dumps(worst)}', flush=True)
+    return rows
+
+
+def library_attention_ms(q, k, v, heads):
+    """The library yardstick (never called by the port): one
+    ``scaled_dot_product_attention`` call, causal, on the same q/k/v as
+    ``[B, H, L, D]``, forward and (separately) backward. It returns the
+    normalized output, not the kernels' (m, l, pv)."""
+    F = torch.nn.functional
+    bh, lq, d = q.shape
+    q4, k4, v4 = (t.reshape(bh // heads, heads, t.shape[1], d)
+                  .detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    dout = torch.randn_like(out)
+    return {'fwd': time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True)),
+            'bwd': time_ms(lambda: torch.autograd.grad(
+                out, (q4, k4, v4), dout, retain_graph=True))}
+
+
+def check_lm_agreement():
+    """The kernel trainer (--attn-impl auto) in lockstep with the plain-
+    attention one (--attn-impl xla): before each of AGREE_STEPS steps the
+    kernel model takes the plain model's parameters, both step on the
+    same batch (each with its own K-FAC state), and the loss, the raw
+    gradients and the preconditioned gradients are held within GRAD_RTOL
+    of each tensor's largest entry."""
+    ref, kern = make_lm_trainer('xla'), make_lm_trainer('auto')
+    p_ref = dict(ref.state.model.named_parameters())
+    p_kern = dict(kern.state.model.named_parameters())
+    batches = ref.batches()
+    bad = []
+    for i in range(AGREE_STEPS):
+        with torch.no_grad():
+            for k, v in p_ref.items():
+                p_kern[k].copy_(v)
+        batch = next(batches)
+        l_ref = float(ref.train_step(batch)['loss'])
+        l_kern = float(kern.train_step(batch)['loss'])
+        if abs(l_kern - l_ref) > GRAD_RTOL * abs(l_ref):
+            bad.append(f'step {i} loss {l_kern} vs {l_ref}')
+        worst = {}
+        for what, got, want in (
+                ('raw', {k: p.grad for k, p in p_kern.items()},
+                 {k: p.grad for k, p in p_ref.items()}),
+                ('preconditioned', kern.step_fn.last_grads,
+                 ref.step_fn.last_grads)):
+            w = (0.0, '')
+            for k in want:
+                err, ok = close_tensor(got[k], want[k], GRAD_RTOL, GRAD_ATOL)
+                w = max(w, (err / max(float(want[k].abs().max()), 1e-30), k))
+                if not ok:
+                    bad.append(f'step {i} {what} grad {k}: max |err| '
+                               f'{err:.3e}')
+            worst[what] = w
+        print(f'agreement (LM lockstep, kernels vs plain attention) step '
+              f'{i}: loss {l_kern:.6f} vs {l_ref:.6f}, raw grads max rel '
+              f'err {worst["raw"][0]:.3e} ({worst["raw"][1]}), '
+              f'preconditioned {worst["preconditioned"][0]:.3e} '
+              f'({worst["preconditioned"][1]})', flush=True)
+    if bad:
+        fail('; '.join(bad))
+
+
+def build_kernels():
+    """Compile every ``csrc/*.cu`` at once (one nvcc each), then load."""
+    from concurrent.futures import ThreadPoolExecutor
+    from kfac_pytorch_tpu_torch.ops import _cuda_build
+    names = ('capture', 'attention')
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as ex:
+        list(ex.map(_cuda_build.build, [os.path.join(_cuda_build.CSRC,
+                                                     f'{n}.cu')
+                                        for n in names]))
+    for n in names:
+        _cuda_build.load(n)
+    print(f'build: {", ".join(f"{n}.cu" for n in names)} in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail('no CUDA device')
-    from kfac_pytorch_tpu_torch.ops import _cuda_build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = gpu_line()
     print(f'device: {smi}', flush=True)
+    build_kernels()
 
-    t0 = time.perf_counter()
-    _cuda_build.load('capture')
-    print(f'build: capture.cu in {time.perf_counter() - t0:.1f} s',
-          flush=True)
-
+    # slice 1: ResNet-32, capture kernels K1/K2
     tr, launches, step_times = run_trainer()
-    prof = profile_steps(tr)
-    rows = check_kernels(tr)
+    profiles = [profile_steps(tr, tr.train_loader.epoch(), 'resnet32')]
+    rows = check_kernels(resnet_cases(tr), 'resnet32')
     check_off_path()
     check_agreement()
+    del tr
 
-    kernels = kernel_summary(rows, launches)
+    # slice 2: the long-context LM, attention kernels K4/K5a/K5b and K2
+    lm, lm_launches, lm_times = run_lm_trainer()
+    profiles.append(profile_steps(lm, lm.batches(), 'transformer_lm'))
+    rows += check_kernels(lm_cases(lm), 'transformer_lm')
+    rows += check_attention(lm.args.n_layer, lm.args.n_head)
+    del lm
+    check_lm_agreement()
+
+    kernels = kernel_summary(rows, {'resnet32': launches,
+                                    'transformer_lm': lm_launches})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump({'device': smi, 'shapes': rows, 'kernels': kernels,
-                   'step_ms': step_times, 'profile': prof}, f, indent=1)
+                   'step_ms': {'resnet32': step_times,
+                               'transformer_lm': lm_times},
+                   'profiles': profiles}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -4,8 +4,9 @@ The JAX package sows each K-FAC layer's input into a Flax collection and
 takes ``g`` as the cotangent of a zero tap added to the layer's output,
 bias included. Here the same two tensors come from hooks:
 
-- ``a``: a forward hook on every K-FAC layer (``nn.Conv2d``/``nn.Linear``
-  of this package, ``kfac_enabled``) records the layer's input;
+- ``a``: a forward hook on every K-FAC layer of the plan (``nn.Conv2d``/
+  ``nn.Linear`` of this package, ``kfac_enabled``) records the layer's
+  input;
 - ``g``: the same forward hook registers a tensor hook on the layer's
   OUTPUT (``output.register_hook``), which receives ``dL/d output`` — the
   tap cotangent. A module backward hook is not used: it wraps inputs and
@@ -24,6 +25,7 @@ path), so a plan built here has the JAX plan's slot tables.
 """
 
 import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -111,10 +113,12 @@ def kfac_layers(model):
             if getattr(m, 'kfac_enabled', False)]
 
 
-def collect_layer_meta(model, sample_input):
+def collect_layer_meta(model, sample_input, exclude_vocabulary_size=None):
     """Discover K-FAC layers by running one forward on ``sample_input``
-    (no grad, eval mode, so no state changes). Returns ``{name: LayerMeta}``
-    in CALL order, like the JAX trace-time registry."""
+    (the model's own input: an NCHW image batch, ``[B, L]`` tokens; no
+    grad, eval mode, so no state changes). Returns ``{name: LayerMeta}`` in
+    CALL order, like the JAX trace-time registry. ``exclude_vocabulary_size``
+    drops the pre-softmax head (:func:`filter_vocab_head`)."""
     order = []
     handles = [m.register_forward_hook(
         lambda mod, inp, out, name=name: order.append((name, mod)))
@@ -132,7 +136,31 @@ def collect_layer_meta(model, sample_input):
     for name, mod in order:
         meta = layer_meta(name, mod)
         metas.setdefault(meta.name, meta)
+    if exclude_vocabulary_size is not None:
+        metas = filter_vocab_head(metas, exclude_vocabulary_size)
     return metas
+
+
+def filter_vocab_head(metas, vocab_size):
+    """Drop the pre-softmax head: the FINAL captured layer, iff it is a
+    dense with ``out_dim == vocab_size``. Other dense layers that merely
+    share the dim are kept, with a warning (the JAX package's rule; the
+    reference's match at any position would drop them silently)."""
+    names = list(metas)
+    drop = set()
+    if names:
+        last = metas[names[-1]]
+        if last.kind == 'dense' and last.out_dim == vocab_size:
+            drop.add(names[-1])
+    interior = [k for k in names if k not in drop
+                and metas[k].kind == 'dense'
+                and metas[k].out_dim == vocab_size]
+    if interior:
+        warnings.warn(
+            f'layers {interior} match exclude_vocabulary_size={vocab_size} '
+            'but are not the trailing pre-softmax head — keeping them '
+            'preconditioned', stacklevel=2)
+    return {k: m for k, m in metas.items() if k not in drop}
 
 
 def _nhwc(t):
@@ -141,22 +169,27 @@ def _nhwc(t):
 
 
 class Capture:
-    """Arm capture on every K-FAC layer of ``model`` for one forward and
-    backward: ``with Capture(model) as cap: loss.backward()`` leaves
-    ``cap.acts`` and ``cap.gs`` as ``{meta name: tensor}`` (NHWC for
-    convs). Hooks are removed on exit."""
+    """Arm capture on the K-FAC layers ``metas`` (the plan's) of ``model``
+    for one forward and backward: ``with Capture(model, plan.metas) as
+    cap: loss.backward()`` leaves ``cap.acts`` and ``cap.gs`` as ``{meta
+    name: tensor}`` (NHWC for convs). Layers outside the plan, such as an
+    excluded vocabulary head, are not hooked and keep nothing. Hooks are
+    removed on exit."""
 
-    def __init__(self, model):
+    def __init__(self, model, metas):
         self.model = model
+        self.metas = list(metas)
         self.acts = {}
         self.gs = {}
         self._handles = []
 
     def __enter__(self):
-        for name, mod in kfac_layers(self.model):
-            key = '/'.join(name.split('.'))
+        modules = dict(self.model.named_modules())
+        for meta in self.metas:
+            mod = modules[meta.module_name]
             self._handles.append(mod.register_forward_hook(
-                lambda m, inp, out, key=key: self._on_forward(key, inp, out)))
+                lambda m, inp, out, key=meta.name: self._on_forward(
+                    key, inp, out)))
         return self
 
     def _on_forward(self, key, inp, out):

@@ -1,10 +1,17 @@
 """Input pipeline (port of ``kfac_pytorch_tpu/data.py``: the synthetic
-CIFAR source, normalization, numpy augmentation and the shuffling loader).
+CIFAR source, normalization, numpy augmentation and the shuffling loader;
+and of the long-context trainer's corpus and batch sampler,
+``examples/longcontext_lm.py``).
 
-Batches are host numpy dicts ``{'input': [B, 32, 32, 3] float32 NHWC,
-'label': [B] int64}``, drawn from the same seeded streams as the JAX
-loader, so both packages see the same batches.
+Batches are host numpy dicts, ``{'input': [B, 32, 32, 3] float32 NHWC,
+'label': [B] int64}`` for CIFAR and ``{'input': [B, L] int32 tokens,
+'label': [B, L] int32 next tokens}`` for the LM, drawn from the same
+seeded streams as the JAX package's, so both packages see the same
+batches.
 """
+
+import collections
+import os
 
 import numpy as np
 
@@ -78,3 +85,40 @@ class Loader:
             if self.train and self.augment is not None:
                 bx = self.augment(rng, bx)
             yield {'input': bx, 'label': self.y[sel]}
+
+
+def load_corpus(data=None, vocab_limit=8192, synthetic_vocab=512,
+                batch_size=4, seq_len=2048, seed=42):
+    """``(ids int32, vocab size)`` of the LM corpus: the whitespace tokens
+    of the text file ``data`` (the ``vocab_limit - 1`` most common words
+    plus ``<unk>``) if it exists, else a synthetic Markov chain over
+    ``synthetic_vocab`` tokens (sparse Dirichlet transitions, at least
+    200000 tokens), the same ids for a seed as the JAX trainer's."""
+    if data and os.path.exists(data):
+        with open(data) as f:
+            words = f.read().split()
+        vocab = {w: i for i, (w, _) in enumerate(
+            collections.Counter(words).most_common(vocab_limit - 1))}
+        vocab['<unk>'] = len(vocab)
+        ids = np.asarray([vocab.get(w, vocab['<unk>']) for w in words],
+                         np.int32)
+        return ids, len(vocab)
+    rng = np.random.RandomState(seed)
+    V = synthetic_vocab
+    cum = rng.dirichlet(np.ones(V) * 0.05, size=V).cumsum(axis=1)
+    n = max(200000, batch_size * seq_len * 8)
+    u = rng.rand(n)
+    ids = np.zeros(n, np.int32)
+    for i in range(1, n):  # inverse-CDF sampling: O(log V) per token
+        ids[i] = np.searchsorted(cum[ids[i - 1]], u[i])
+    return np.minimum(ids, V - 1), V
+
+
+def sample_lm_batches(ids, seq_len, batch_size, steps, rng):
+    """``steps`` batches of ``batch_size`` random windows of ``ids``: input
+    tokens and the next tokens as labels."""
+    for _ in range(steps):
+        starts = rng.randint(0, len(ids) - seq_len - 1, batch_size)
+        yield {'input': np.stack([ids[s:s + seq_len] for s in starts]),
+               'label': np.stack([ids[s + 1:s + seq_len + 1]
+                                  for s in starts])}

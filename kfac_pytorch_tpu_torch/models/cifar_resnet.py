@@ -78,6 +78,9 @@ class BasicBlock(torch.nn.Module):
 class CifarResNet(torch.nn.Module):
     """Input: NCHW (channels_last in memory); output: logits [N, classes]."""
 
+    #: the trainer hands ``batch['input']`` over as its NCHW view
+    input_layout = 'NHWC'
+
     def __init__(self, num_blocks, num_classes=10):
         super().__init__()
         self.conv1 = _conv3x3(3, 16, 1)

@@ -26,6 +26,7 @@ from typing import Dict, Optional
 import torch
 
 from kfac_pytorch_tpu_torch import engine
+from kfac_pytorch_tpu_torch.capture import filter_vocab_head
 from kfac_pytorch_tpu_torch.plan import build_plan, default_bucket_fn
 from kfac_pytorch_tpu_torch.utils.platform import resolve_device
 
@@ -80,6 +81,9 @@ class KFAC:
       variant: one of the six names in the table above.
       lr, damping, fac_update_freq, kfac_update_freq, kl_clip,
       factor_decay, hook_enabled, batch_averaged: as in the JAX package.
+      exclude_vocabulary_size: drop the pre-softmax head, the last layer
+        if it is a dense with this output dim (``capture.filter_vocab_head``),
+        from the plan: its gradient passes through unpreconditioned.
       bucket_fn: factor dim -> bucket dim (default ``default_bucket_fn``).
       eps: eigenvalue clamp (``d * (d > eps)``).
       capture_impl: None | 'xla' | 'pallas' | 'auto' (see
@@ -95,8 +99,9 @@ class KFAC:
 
     def __init__(self, variant='eigen_dp', lr=0.1, damping=0.001,
                  fac_update_freq=1, kfac_update_freq=1, kl_clip=0.001,
-                 factor_decay=0.95, hook_enabled=True, batch_averaged=True,
-                 bucket_fn=None, eps=1e-10, capture_impl=None):
+                 factor_decay=0.95, exclude_vocabulary_size=None,
+                 hook_enabled=True, batch_averaged=True, bucket_fn=None,
+                 eps=1e-10, capture_impl=None):
         if variant not in _VARIANTS:
             raise KeyError(f'unknown variant {variant!r}')
         if variant in _LATER:
@@ -118,6 +123,7 @@ class KFAC:
         self.kl_clip = kl_clip if (kl_clip is not None and kl_clip > 0) \
             else None
         self.factor_decay = factor_decay
+        self.exclude_vocabulary_size = exclude_vocabulary_size
         self.hook_enabled = hook_enabled
         self.batch_averaged = batch_averaged
         self.num_devices = 1
@@ -128,9 +134,11 @@ class KFAC:
 
     def setup(self, metas):
         """Build the static factor plan from ``{name: LayerMeta}`` (or a
-        meta list)."""
+        meta list), the vocabulary head excluded if asked for."""
         if not isinstance(metas, dict):
             metas = {m.name: m for m in metas}
+        if self.exclude_vocabulary_size is not None:
+            metas = filter_vocab_head(metas, self.exclude_vocabulary_size)
         self.plan = build_plan(metas, num_devices=self.num_devices,
                                comm_mode=self.comm_mode,
                                bucket_fn=self.bucket_fn)

@@ -66,37 +66,45 @@ class TrainState:
 
 
 def init_train_state(model, tx, precond, sample_input, device=None):
-    """Move ``model`` to ``device`` (the GPU unless ``device='cpu'``) in
-    channels_last, discover its K-FAC layers from ``sample_input`` (NHWC
-    numpy or tensor) if the preconditioner is not set up, and initialize
+    """Move ``model`` to ``device`` (the GPU unless ``device='cpu'``),
+    channels_last for its 4-D weights, discover its K-FAC layers from
+    ``sample_input`` (a batch input, numpy or tensor, laid out as
+    ``batch['input']``) if the preconditioner is not set up, and initialize
     the optimizer and K-FAC state."""
     device = resolve_device(device)
     model.to(device=device, memory_format=torch.channels_last)
     kfac_state = None
     if precond is not None:
         if precond.plan is None:
-            precond.setup(capture.collect_layer_meta(
-                model, to_nchw(sample_input, device)))
+            x = torch.as_tensor(sample_input).to(device, non_blocking=True)
+            precond.setup(capture.collect_layer_meta(model,
+                                                     model_input(model, x)))
         kfac_state = precond.init(device)
     params = dict(model.named_parameters())
     return TrainState(step=0, model=model, opt_state=tx.init(params),
                       kfac_state=kfac_state)
 
 
-def to_nchw(x, device):
-    """NHWC input (numpy or tensor) -> the NCHW channels_last view."""
-    x = torch.as_tensor(x).to(device, non_blocking=True)
-    return x.permute(0, 3, 1, 2)
+def model_input(model, x):
+    """``batch['input']`` as ``model`` takes it, by ``model.input_layout``:
+    an ``'NHWC'`` image batch becomes its NCHW view (channels_last in
+    memory when the batch is NHWC-contiguous); ``'tokens'`` pass as they
+    are."""
+    if model.input_layout == 'NHWC':
+        return x.permute(0, 3, 1, 2)
+    if model.input_layout == 'tokens':
+        return x
+    raise ValueError(f'unknown input_layout {model.input_layout!r}')
 
 
 def build_train_step(model, tx, precond, loss_fn):
     """Return ``step_fn(state, batch, lr=None, damping=None) -> (state,
     metrics)``. ``batch`` holds tensors on the model's device: ``'input'``
-    NHWC and whatever ``loss_fn(outputs, batch)`` reads; ``loss_fn`` is the
-    local-mean loss. ``lr``/``damping`` feed the preconditioner (KL clip
-    and damping). ``step_fn.last_phases`` names the K-FAC phases of the
-    last call ('pred', 'stats', 'decomp') and ``step_fn.last_grads`` holds
-    its preconditioned gradients."""
+    (see :func:`model_input`) and whatever ``loss_fn(outputs, batch)``
+    reads; ``loss_fn`` is the local-mean loss. ``lr``/``damping`` feed the
+    preconditioner (KL clip and damping). ``step_fn.last_phases`` names
+    the K-FAC phases of the last call ('pred', 'stats', 'decomp') and
+    ``step_fn.last_grads`` holds its preconditioned gradients."""
     seen = {'inverse': False}
 
     def step_fn(state, batch, lr=None, damping=None):
@@ -111,8 +119,8 @@ def build_train_step(model, tx, precond, loss_fn):
             seen['inverse'] = seen['inverse'] or ui
 
         model.train()
-        x = batch['input'].permute(0, 3, 1, 2)
-        cap = capture.Capture(model)
+        x = model_input(model, batch['input'])
+        cap = capture.Capture(model, precond.plan.metas if uf else ())
         model.zero_grad(set_to_none=True)
         if uf:
             with cap:
@@ -159,5 +167,5 @@ def eval_step(model, batch, loss_fn):
     from kfac_pytorch_tpu_torch.utils.metrics import accuracy
     model.eval()
     with torch.no_grad():
-        out = model(batch['input'].permute(0, 3, 1, 2))
+        out = model(model_input(model, batch['input']))
         return loss_fn(out, batch), accuracy(out, batch['label'])

@@ -3,15 +3,16 @@
 ``params_from_jax`` maps a Flax ``params``/``batch_stats`` pair (nested
 dicts of numpy arrays) to a ``state_dict`` of the port's model by module
 path: conv kernel HWIO -> OIHW, dense kernel ``[in, out]`` -> ``[out, in]``,
-BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/
-running_var``. K-FAC factors need no conversion: the port's bucket layout
-is the JAX one, row for row.
+embedding table ``embedding`` -> ``weight``, BatchNorm and LayerNorm
+``scale/bias`` -> ``weight/bias``, BatchNorm ``mean/var`` ->
+``running_mean/running_var``. K-FAC factors need no conversion: the
+port's bucket layout is the JAX one, row for row.
 """
 
 import numpy as np
 import torch
 
-_PARAM_NAMES = {'bias': 'bias', 'scale': 'weight'}
+_PARAM_NAMES = {'bias': 'bias', 'scale': 'weight', 'embedding': 'weight'}
 _STAT_NAMES = {'mean': 'running_mean', 'var': 'running_var'}
 
 
@@ -41,3 +42,9 @@ def params_from_jax(params, batch_stats=None):
             np.ascontiguousarray(v))
     return out
 
+
+def transformer_lm_from_jax(params):
+    """``state_dict`` of the port's ``TransformerLM`` from the Flax LM's
+    ``params``: dense kernels transposed, ``wte``/``wpe`` tables and
+    LayerNorm ``scale``/``bias`` carried by name."""
+    return params_from_jax(params)

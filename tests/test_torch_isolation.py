@@ -5,8 +5,8 @@
    of the JAX package ends up loaded.
 2. Entry points asked for no device go to the GPU: without one they
    raise instead of running on the CPU.
-3. The capture-kernel wrappers run their plain versions only for CPU
-   tensors; any other device launches the kernel or raises.
+3. The capture- and attention-kernel wrappers run their plain versions
+   only for CPU tensors; any other device launches the kernel or raises.
 """
 
 import os
@@ -20,6 +20,7 @@ import torch
 
 from kfac_pytorch_tpu_torch import training
 from kfac_pytorch_tpu_torch.models import cifar_resnet
+from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
 from kfac_pytorch_tpu_torch.ops import capture_kernels as ck
 import kfac_pytorch_tpu_torch as tkfac
 
@@ -66,6 +67,9 @@ def test_entry_points_raise_without_gpu(no_gpu):
     from kfac_pytorch_tpu_torch import train_cifar
     with pytest.raises(RuntimeError, match='no CUDA device'):
         train_cifar.main(['--model', 'resnet20', '--epochs', '1'])
+    from kfac_pytorch_tpu_torch import train_lm
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        train_lm.main(['--seq-len', '16', '--n-layer', '1', '--epochs', '1'])
     # the same calls run when the CPU is asked for
     state = training.init_train_state(model, tx, pre, sample, device='cpu')
     with pytest.raises(RuntimeError, match='no CUDA device'):
@@ -115,3 +119,39 @@ def test_wrappers_never_fall_back(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match='no capture kernel'):
             call(torch.zeros((2, 5, 5, 3), device='meta'))
+
+
+class _FakeCudaSeq:
+    """A [BH, L, D] float32 CUDA tensor stand-in for the attention
+    wrappers."""
+    device = torch.device('cuda')
+    dtype = torch.float32
+
+    def __init__(self, *shape):
+        self.shape = shape
+        self.ndim = len(shape)
+
+    def is_contiguous(self):
+        return True
+
+
+def test_attention_wrappers_never_fall_back(monkeypatch):
+    def plain(*a, **k):
+        raise _UsedPlain('plain version used for a non-CPU tensor')
+
+    for name in ('_fwd_plain', '_bwd_dq_plain', '_bwd_dkv_plain'):
+        monkeypatch.setattr(ak, name, plain)
+    qkv = [_FakeCudaSeq(2, 8, 16) for _ in range(3)]
+    rest = [_FakeCudaSeq(2, 8), _FakeCudaSeq(2, 8), _FakeCudaSeq(2, 8),
+            _FakeCudaSeq(2, 8, 16)]
+    calls = [lambda: ak.flash_fwd(*qkv, rest[0], (0, 0), 0.25, True),
+             lambda: ak.flash_bwd_dq(*qkv, *rest, (0, 0), 0.25, True),
+             lambda: ak.flash_bwd_dkv(*qkv, *rest, (0, 0), 0.25, True)]
+    for call in calls:
+        with pytest.raises(Exception) as info:
+            call()
+        assert not isinstance(info.value, _UsedPlain)
+    meta = [torch.zeros((2, 8, 16), device='meta') for _ in range(3)]
+    with pytest.raises(RuntimeError, match='no attention kernel'):
+        ak.flash_fwd(*meta, torch.zeros((2, 8), device='meta'), (0, 0), 0.25,
+                     True)
