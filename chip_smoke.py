@@ -12,7 +12,18 @@ launches:
   K5a, K5b) and the capture kernels for 12 steps, a 3-step profile, K2
   at the LM's factor shapes, K4/K5a/K5b against their plain versions at
   the trainer's attention shape and at off-path geometries, and the
-  kernel trainer in lockstep with the plain-attention one.
+  kernel trainer in lockstep with the plain-attention one;
+- slice 3: world=2 on this one card (two ranks over gloo, which stages
+  CUDA tensors through host memory: NCCL refuses two ranks on one card):
+  ResNet-32 MPD ``eigen`` with the bf16 factor reduce (K1, K2, K3) for 12
+  steps with launch counts, the residual and the ranks' parameters
+  checked every step, its K-FAC step in lockstep with the unfused one
+  over the bf16 and the fp32 wire,
+  and ``eigen_dp`` over the fp32 wire for 6 steps; a 1-rank NCCL group
+  running ``eigen`` over the bf16 and the int8 wire with every residual
+  checked against the plain algebra; K3 against its plain version,
+  bitwise, at the world=2 bucket shapes (timed) and at odd sizes with
+  special values.
 
   python3 chip_smoke.py
 
@@ -153,6 +164,7 @@ def counters():
     from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
     from kfac_pytorch_tpu_torch.ops import capture_kernels as ck
     return {'K1 conv_a': ck.compute_a_conv, 'K2 stat_rows': ck._stat_rows,
+            'K3 ef_quantize': ck.ef_quantize,
             'K4 flash_fwd': ak.flash_fwd,
             'K5a flash_bwd_dq': ak.flash_bwd_dq,
             'K5b flash_bwd_dkv': ak.flash_bwd_dkv}
@@ -368,6 +380,8 @@ KERNELS = {
                   'kfac_pytorch_tpu/ops/pallas_capture.py:314'),
     'K2 stat_rows': ('kfac_pytorch_tpu_torch/csrc/capture.cu',
                      'kfac_pytorch_tpu/ops/pallas_capture.py:207'),
+    'K3 ef_quantize': ('kfac_pytorch_tpu_torch/csrc/capture.cu',
+                       'kfac_pytorch_tpu/ops/pallas_capture.py:478'),
     'K4 flash_fwd': ('kfac_pytorch_tpu_torch/csrc/attention.cu',
                      'kfac_pytorch_tpu/ops/pallas_attention.py:56'),
     'K5a flash_bwd_dq': ('kfac_pytorch_tpu_torch/csrc/attention.cu',
@@ -394,6 +408,7 @@ def kernel_summary(rows, launches):
 
         by_path = {path: counts[name] for path, counts in launches.items()
                    if counts[name]}
+        has_library = all(r.get('library_ms') is not None for r in timed)
         row = {
             'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': sum(by_path.values()),
@@ -403,10 +418,13 @@ def kernel_summary(rows, launches):
             'plain_ms': tot('plain_ms'), 'bound_ms': tot('bound_ms'),
             'bound_by': ('operations' if tot('ops_ms') >= tot('bytes_ms')
                          else 'bytes'),
-            'library_ms': tot('library_ms')}
+            'library_ms': tot('library_ms') if has_library else None}
         if name.startswith('K5'):
             row['library_note'] = ('scaled_dot_product_attention backward, '
                                    'dq, dk and dv together (K5a + K5b)')
+        if name.startswith('K3'):
+            row['library_note'] = ('none: no one PyTorch call adds, rounds '
+                                   'to bf16 and keeps the rounding error')
         out.append(row)
     return out
 
@@ -446,7 +464,8 @@ def run_trainer():
         fail(f'non-finite training loss: {losses}')
     want = {'K1 conv_a': n_conv * TRAIN_STEPS,
             'K2 stat_rows': (n_conv + 2 * n_dense) * TRAIN_STEPS,
-            'K4 flash_fwd': 0, 'K5a flash_bwd_dq': 0, 'K5b flash_bwd_dkv': 0}
+            'K3 ef_quantize': 0, 'K4 flash_fwd': 0, 'K5a flash_bwd_dq': 0,
+            'K5b flash_bwd_dkv': 0}
     if launches != want:
         fail(f'kernel launches {launches}, expected {want}')
     expect_decomp = [i for i in range(TRAIN_STEPS)
@@ -454,7 +473,8 @@ def run_trainer():
     if decomp_steps != expect_decomp:
         fail(f'decomposition ran on steps {decomp_steps}, expected '
              f'{expect_decomp}')
-    print(f'trainer: resnet32 bs128 eigen_dp capture_impl=auto, '
+    print(f'trainer (world=1, no process group): resnet32 bs128 eigen_dp '
+          f'capture_impl=auto, '
           f'{TRAIN_STEPS} steps, losses {[round(x, 4) for x in losses]}, '
           f'step ms median {float(np.median(times)):.3f} '
           f'(first {times[0]:.1f}, decomposition step 10 {times[10]:.1f}), '
@@ -733,7 +753,7 @@ def run_lm_trainer():
     # launch per factor of every K-FAC layer; one attention block per
     # layer and step
     want = {'K1 conv_a': 0, 'K2 stat_rows': 2 * n_kfac * TRAIN_STEPS,
-            'K4 flash_fwd': n_layer * TRAIN_STEPS,
+            'K3 ef_quantize': 0, 'K4 flash_fwd': n_layer * TRAIN_STEPS,
             'K5a flash_bwd_dq': n_layer * TRAIN_STEPS,
             'K5b flash_bwd_dkv': n_layer * TRAIN_STEPS}
     if launches != want:
@@ -744,7 +764,8 @@ def run_lm_trainer():
         fail(f'LM decomposition ran on steps {decomp_steps}, expected '
              f'{expect_decomp}')
     a = tr.args
-    print(f'trainer: transformer_lm L{a.seq_len} bs{a.batch_size} '
+    print(f'trainer (world=1, no process group): transformer_lm '
+          f'L{a.seq_len} bs{a.batch_size} '
           f'{n_layer}x{a.d_model} vocab {tr.vocab} eigen_dp '
           f'capture_impl=auto attn=kernels, {TRAIN_STEPS} steps, losses '
           f'{[round(x, 4) for x in losses]}, step ms median '
@@ -917,6 +938,391 @@ def check_lm_agreement():
         fail('; '.join(bad))
 
 
+# ---------------------------------------------------------------------------
+# slice 3: world>1 K-FAC on process groups, the compressed reduce's K3
+# ---------------------------------------------------------------------------
+
+#: the world=2 trainer: ResNet-32 MPD eigen with the bf16 factor reduce,
+#: at examples/cifar10_resnet.py's defaults (global batch 128, 64 a rank)
+WORLD2_EIGEN = ['--kfac-name', 'eigen', '--kfac-comm-precision', 'bf16',
+                '--kfac-capture-impl', 'auto']
+WORLD2_DP_STEPS = 6
+#: K3 inputs off the main path: element counts (odd, one, a vector group
+#: plus a tail) and whether the tensors start 4 bytes past an aligned
+#: address (the kernel's scalar path)
+EF_OFF_PATH = [(1, False), (3, False), (1001, False), (4097, False),
+               (4096, True), (12345, True)]
+
+
+def ef_special(n, gen):
+    """fp32 ``(x, r)`` of ``n`` elements on the card: normal draws with
+    exact bf16 ties, values past bf16's largest finite, +-Inf,
+    subnormals and NaN mixed in."""
+    x = torch.randn(n, device=DEVICE, generator=gen)
+    r = torch.randn(n, device=DEVICE, generator=gen) * 1e-3
+    specials = [(1.0 + 2.0 ** -8, 0.0), (1.0 + 3 * 2.0 ** -8, 0.0),
+                (3.3961e38, 0.0), (-3.3961e38, 0.0), (float('inf'), 0.0),
+                (float('-inf'), 1.0), (1e-40, 0.0), (-3e-39, 1e-41),
+                (float('nan'), 0.0), (0.5, float('nan')),
+                (3.4e38, 3.4e38), (0.0, -0.0)]
+    idx = torch.randperm(n, device=DEVICE, generator=gen)[:len(specials)]
+    for i, (a, b) in zip(idx.tolist(), specials):
+        x[i], r[i] = a, b
+    return x, r
+
+
+def ef_bitwise(got, want):
+    """K3 ``(wire, residual)`` against the plain version's: the wire as
+    int16 bits, the residual as fp32 bits, NaN compared as a mask.
+    Returns (equal, number of NaN entries)."""
+    (w, nr), (pw, pnr) = got, want
+    nan, pnan = torch.isnan(nr), torch.isnan(pnr)
+    ok = torch.equal(nan, pnan) and torch.equal(
+        torch.isnan(w.float()), torch.isnan(pw.float()))
+    keep = ~nan
+    ok = ok and torch.equal(w.view(torch.int16)[keep],
+                            pw.view(torch.int16)[keep])
+    ok = ok and torch.equal(nr.view(torch.int32)[keep],
+                            pnr.view(torch.int32)[keep])
+    return ok, int(nan.sum())
+
+
+def check_ef(shapes):
+    """K3 against its plain version, bitwise: at the world=2 ResNet-32
+    bucket shapes ``[rows, D, D]`` (timed: device ms, wrapper ms, plain
+    ms, the bytes bound), then at EF_OFF_PATH with the special values.
+    Returns the per-shape rows of the main path."""
+    from kfac_pytorch_tpu_torch.ops import capture_kernels as ck
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    rows = []
+    for shape in shapes:
+        x = torch.randn(shape, device=DEVICE, generator=gen)
+        r = torch.randn(shape, device=DEVICE, generator=gen) * 1e-3
+        ok, _ = ef_bitwise(ck.ef_quantize(x, r), ck._ef_quantize_plain(x, r))
+        torch.cuda.synchronize()
+        if not ok:
+            fail(f'K3 ef_quantize {shape}: not bitwise equal to its plain '
+                 'version')
+        n = x.numel()
+        bytes_ms = 14 * n / PEAK_BYTES * 1e3
+        ops_ms = 3 * n / PEAK_FP32 * 1e3
+        row = {'path': 'resnet32_world2', 'kernel': 'K3 ef_quantize',
+               'shape': list(shape), 'per_step': 1, 'max_abs_err': 0.0,
+               'ms': time_ms(lambda: ck.ef_quantize(x, r)),
+               'wrapper_ms': time_ms(lambda: ck.ef_quantize(x, r),
+                                     hide_host=False),
+               'plain_ms': time_ms(lambda: ck._ef_quantize_plain(x, r)),
+               'bytes_ms': bytes_ms, 'ops_ms': ops_ms,
+               'bound_ms': max(bytes_ms, ops_ms), 'library_ms': None}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    nans = 0
+    for n, shifted in EF_OFF_PATH:
+        x, r = ef_special(n + shifted, gen)
+        if shifted:   # views 4 bytes past an aligned start
+            x, r = x[1:], r[1:]
+        ok, k = ef_bitwise(ck.ef_quantize(x, r), ck._ef_quantize_plain(x, r))
+        nans += k
+        if not ok:
+            fail(f'K3 ef_quantize off-path n={n} shifted={shifted}: not '
+                 'bitwise equal to its plain version')
+    torch.cuda.synchronize()
+    print(f'K3 ef_quantize vs plain: bitwise at {len(shapes)} bucket shapes '
+          f'and {len(EF_OFF_PATH)} off-path sizes (ties, overflow, +-Inf, '
+          f'subnormals; {nans} NaN entries compared as a mask)', flush=True)
+    return rows
+
+
+def grad_gap(got, want):
+    """The worst tensor's max |got - want| relative to its largest entry,
+    and its name."""
+    worst = (0.0, '')
+    for k in want:
+        err = float((got[k].double() - want[k].double()).abs().max())
+        worst = max(worst, (err / max(float(want[k].abs().max()), 1e-30),
+                            k))
+    return worst
+
+
+class CommTimer:
+    """Host seconds spent in the port's collectives (they block on the
+    host: gloo stages CUDA tensors through host memory), by wrapping the
+    three collective primitives of ``parallel.collectives``."""
+
+    NAMES = ('_all_reduce_sum', '_all_gather', '_reduce_scatter')
+
+    def __init__(self):
+        from kfac_pytorch_tpu_torch.parallel import collectives as coll
+        self.coll, self.saved = coll, {}
+        self.seconds = dict.fromkeys(self.NAMES, 0.0)
+        for name in self.NAMES:
+            fn = getattr(coll, name)
+            self.saved[name] = fn
+            setattr(coll, name, self._timed(name, fn))
+
+    def _timed(self, name, fn):
+        def wrapped(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+        return wrapped
+
+    def close(self):
+        for name, fn in self.saved.items():
+            setattr(self.coll, name, fn)
+
+
+def world2_rank(rank, world, group):
+    """One rank of the world=2 phases on cuda:0 (two ranks share the card
+    over gloo): the MPD eigen bf16 trainer for TRAIN_STEPS steps with its
+    launch counts, residual and replica checks; its K-FAC step in
+    lockstep, kernels vs capture_impl=None (and a control: the unfused
+    path with fp64 factor GEMMs), over the bf16 and the fp32 wire; the
+    eigen_dp fp32 trainer for
+    WORLD2_DP_STEPS steps. Returns numbers only."""
+    from kfac_pytorch_tpu_torch import capture
+    from kfac_pytorch_tpu_torch import train_cifar
+    from kfac_pytorch_tpu_torch.parallel import collectives as coll
+    from kfac_pytorch_tpu_torch.preconditioner import KFACHyperParams
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+
+    def trainer(extra):
+        args = train_cifar.parse_args(['--device', 'cuda', '--num-devices',
+                                       str(world), '--dist-backend', 'gloo']
+                                      + extra)
+        return train_cifar.Trainer(args, group=group, local_rank=0)
+
+    out = {'backend': str(torch.distributed.get_backend(group))}
+    tr = trainer(WORLD2_EIGEN)
+    plan = tr.precond.plan
+    out['buckets'] = [[plan.buckets[d].n_rows, d, d]
+                      for d in plan.bucket_dims]
+    out['layers'] = {'conv': sum(m.kind == 'conv' for m in plan.metas),
+                     'dense': sum(m.kind == 'dense' for m in plan.metas)}
+    batches = tr.train_loader.epoch()
+    timer = CommTimer()
+    reset_counts()
+    times, losses, agree, comm_s, resid = [], [], [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        c0 = dict(timer.seconds)
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        comm_s.append({k[1:]: (v - c0[k]) * 1e3
+                       for k, v in timer.seconds.items()})
+        losses.append(float(m['loss']))
+        resid.append(float(sum(float(v.double().norm()) ** 2 for v in
+                               tr.state.kfac_state.comm_err.values())) ** 0.5)
+        agree.append(tr.replicas_agree())
+    out['launches'] = read_counts()
+    timer.close()
+    out.update(step_ms=times, comm_ms=comm_s, losses=losses,
+               residual_norm=resid, replicas_agree=agree)
+    del tr
+
+    # lockstep over each wire: the same grads and captures into the
+    # kernels' preconditioner, the unfused one and the unfused one with
+    # fp64 factor GEMMs (the control)
+    out['lockstep'] = {}
+    for wire in ('bf16', 'fp32'):
+        unfused = ['--kfac-name', 'eigen', '--kfac-comm-precision', wire]
+        ref, fused, ctl = (trainer(unfused), trainer(
+            unfused + ['--kfac-capture-impl', 'auto']), trainer(unfused))
+        model = ref.state.model
+        params = dict(model.named_parameters())
+        states = [p.state.kfac_state for p in (ref, fused, ctl)]
+        it = ref.train_loader.epoch()
+        gaps = []
+        for i in range(AGREE_STEPS):
+            batch = ref.to_device(next(it))
+            model.zero_grad(set_to_none=True)
+            with capture.Capture(model, ref.precond.plan.metas) as cap:
+                outp = model(batch['input'].permute(0, 3, 1, 2))
+                torch.nn.functional.cross_entropy(
+                    outp, batch['label']).backward()
+            grads = coll.average_grads(
+                {k: p.grad for k, p in params.items()}, group)
+            pgs = []
+            for j, t in enumerate((ref, fused, ctl)):
+                kw = dict(hyper=KFACHyperParams(lr=ref.lr_fn(i),
+                                                damping=ref.precond.damping),
+                          update_factors=True,
+                          update_inverse=ref.precond.should_update_inverse(i))
+                with (fp64_stat_gemm() if j == 2
+                      else contextlib.nullcontext()):
+                    pg, states[j] = t.precond.step(states[j], grads,
+                                                   cap.acts, cap.gs, **kw)
+                pgs.append(pg)
+            ref.tx.apply(params, pgs[0], ref.state.opt_state, i)
+            gaps.append({'fused': grad_gap(pgs[1], pgs[0]),
+                         'control': grad_gap(pgs[2], pgs[0])})
+        out['lockstep'][wire] = gaps
+        del ref, fused, ctl
+
+    # eigen_dp, fp32 wire
+    tr = trainer([])
+    batches = tr.train_loader.epoch()
+    dp_losses, dp_agree = [], []
+    for _ in range(WORLD2_DP_STEPS):
+        dp_losses.append(float(tr.train_step(next(batches))['loss']))
+        dp_agree.append(tr.replicas_agree())
+    out.update(dp_losses=dp_losses, dp_agree=dp_agree,
+               dp_comm_err=tr.state.kfac_state.comm_err is None)
+    return out
+
+
+def nccl_rank(rank, world, group):
+    """A 1-rank NCCL group (an axis of size 1: the collectives run, on the
+    card): eigen over the bf16 and the int8 wire for AGREE_STEPS steps
+    each. Every lossy reduce's residual is checked bit for bit against
+    the plain algebra on the same inputs, and its mean against the wire."""
+    from kfac_pytorch_tpu_torch import train_cifar
+    from kfac_pytorch_tpu_torch.ops import capture_kernels as ck
+    from kfac_pytorch_tpu_torch.parallel import collectives as coll
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    real = coll.pmean_scatter_ef
+    seen = []
+
+    def recorded(x, grp, prec, residual, fused=False):
+        x_in, r_in = x.clone(), residual.clone()
+        mean, new_r = real(x, grp, prec, residual, fused=fused)
+        wire, want_r = ck._ef_quantize_plain(x_in, r_in)
+        seen.append(bool(torch.equal(new_r.view(torch.int32),
+                                     want_r.view(torch.int32))
+                         and torch.equal(mean, wire.float())))
+        return mean, new_r
+
+    coll.pmean_scatter_ef = recorded
+    out = {'backend': str(torch.distributed.get_backend(group))}
+    try:
+        for prec in ('bf16', 'int8'):
+            args = train_cifar.parse_args(
+                ['--device', 'cuda', '--kfac-name', 'eigen',
+                 '--kfac-comm-precision', prec, '--kfac-capture-impl',
+                 'auto'])
+            tr = train_cifar.Trainer(args, group=group)
+            batches = tr.train_loader.epoch()
+            seen.clear()
+            reset_counts()
+            losses = [float(tr.train_step(next(batches))['loss'])
+                      for _ in range(AGREE_STEPS)]
+            grads_finite = all(bool(torch.isfinite(g).all())
+                               for g in tr.step_fn.last_grads.values())
+            out[prec] = {'losses': losses, 'grads_finite': grads_finite,
+                         'launches': read_counts(),
+                         'residual_checks': list(seen),
+                         'residual_norm': float(sum(
+                             float(v.double().norm()) ** 2 for v in
+                             tr.state.kfac_state.comm_err.values())) ** 0.5}
+            del tr
+    finally:
+        coll.pmean_scatter_ef = real
+    return out
+
+
+def run_world2():
+    """The world=2 phases (:func:`world2_rank`) on two ranks over gloo,
+    checked. Returns the launch counts of the eigen bf16 run (both ranks)
+    and rank 0's step times."""
+    from kfac_pytorch_tpu_torch import launch
+    t0 = time.perf_counter()
+    outs = launch.spawn(world2_rank, 2, backend='gloo', timeout=600)
+    o = outs[0]
+    nb, conv, dense = len(o['buckets']), o['layers']['conv'], \
+        o['layers']['dense']
+    want = {'K1 conv_a': conv * TRAIN_STEPS,
+            'K2 stat_rows': (conv + 2 * dense) * TRAIN_STEPS,
+            'K3 ef_quantize': nb * TRAIN_STEPS, 'K4 flash_fwd': 0,
+            'K5a flash_bwd_dq': 0, 'K5b flash_bwd_dkv': 0}
+    for r, out in enumerate(outs):
+        if out['launches'] != want:
+            fail(f'world2 rank {r}: kernel launches {out["launches"]}, '
+                 f'expected {want}')
+        if not all(np.isfinite(out['losses'])):
+            fail(f'world2 rank {r}: non-finite loss {out["losses"]}')
+        if not out['residual_norm'][0] > 0:
+            fail(f'world2 rank {r}: the residual is zero after step 1')
+        if not all(out['replicas_agree']) or not all(out['dp_agree']):
+            fail(f'world2 rank {r}: the ranks\' parameters differ '
+                 f'(eigen {out["replicas_agree"]}, eigen_dp '
+                 f'{out["dp_agree"]})')
+        if not out['dp_comm_err'] or not all(np.isfinite(out['dp_losses'])):
+            fail(f'world2 rank {r}: eigen_dp fp32 carried a residual or '
+                 f'lost finiteness')
+        for wire, gaps in out['lockstep'].items():
+            for i, g in enumerate(gaps):
+                (gap, k), (ctl, _) = g['fused'], g['control']
+                # over the fp32 wire the world=1 bound; a bf16 wire's
+                # roundings tip with the statistics' summation order, so
+                # there the kernels may part from the unfused path as far
+                # as TRAJ_FACTOR x the fp64-GEMM control does
+                if gap > GRAD_RTOL and (wire == 'fp32'
+                                        or gap > TRAJ_FACTOR * ctl):
+                    fail(f'world2 rank {r} lockstep ({wire} wire) step {i}: '
+                         f'preconditioned grad {k} {gap:.3e} of its largest '
+                         f'entry, over {GRAD_RTOL} (fp64-GEMM control '
+                         f'{ctl:.3e})')
+    if outs[0]['losses'] != outs[1]['losses']:
+        fail('world2: the ranks report different losses')
+    ms = o['step_ms']
+    comm = {k: float(np.median([c[k] for c in o['comm_ms']]))
+            for k in o['comm_ms'][0]}
+    print(f'world2 ({o["backend"]}, 2 ranks on one card, host-staged): '
+          f'resnet32 bs128 (64 a rank) eigen bf16 capture_impl=auto, '
+          f'{TRAIN_STEPS} steps, losses {[round(x, 4) for x in o["losses"]]}'
+          f', step ms median {float(np.median(ms)):.3f} (first {ms[0]:.1f}, '
+          f'decomposition step 10 {ms[10]:.1f}), host ms median in the '
+          f'collectives {json.dumps(comm)}, launches per rank '
+          f'{o["launches"]} (per step K1 {conv}, K2 {conv + 2 * dense}, '
+          f'K3 {nb}), residual norm {o["residual_norm"][0]:.4e} after step '
+          f'1, replicas bitwise equal after every step', flush=True)
+    for wire, gaps in o['lockstep'].items():
+        for i, g in enumerate(gaps):
+            print(f'world2 lockstep (kernels vs capture_impl=None, {wire} '
+                  f'wire) step {i}: preconditioned grads max rel err '
+                  f'{g["fused"][0]:.3e} ({g["fused"][1]}); control (fp64 '
+                  f'factor GEMMs) {g["control"][0]:.3e} '
+                  f'({g["control"][1]})', flush=True)
+    print(f'world2 ({o["backend"]}) eigen_dp fp32: {WORLD2_DP_STEPS} steps, '
+          f'losses {[round(x, 4) for x in o["dp_losses"]]}, replicas '
+          f'bitwise equal, no residual; phase {time.perf_counter() - t0:.1f}'
+          ' s', flush=True)
+    total = {k: sum(out['launches'][k] for out in outs) for k in want}
+    return total, o
+
+
+def run_nccl():
+    """The 1-rank NCCL phase (:func:`nccl_rank`), checked."""
+    from kfac_pytorch_tpu_torch import launch
+    t0 = time.perf_counter()
+    o, = launch.spawn(nccl_rank, 1, backend='nccl', timeout=600)
+    for prec in ('bf16', 'int8'):
+        res = o[prec]
+        if not (all(np.isfinite(res['losses'])) and res['grads_finite']):
+            fail(f'nccl {prec}: non-finite losses or gradients')
+        if res['launches']['K3 ef_quantize'] == 0:
+            fail(f'nccl {prec}: K3 never launched')
+        if not res['residual_checks'] or not all(res['residual_checks']):
+            fail(f'nccl {prec}: a residual or mean differs from the plain '
+                 f'algebra: {res["residual_checks"]}')
+        print(f'nccl ({o["backend"]}, 1 rank): eigen {prec} wire, '
+              f'{AGREE_STEPS} steps, losses '
+              f'{[round(x, 4) for x in res["losses"]]}, launches '
+              f'{res["launches"]}, {len(res["residual_checks"])} reduces '
+              f'with the residual bitwise the plain algebra\'s, residual '
+              f'norm {res["residual_norm"]:.4e}', flush=True)
+    print(f'nccl phase {time.perf_counter() - t0:.1f} s', flush=True)
+    return o
+
+
 def build_kernels():
     """Compile every ``csrc/*.cu`` at once (one nvcc each), then load."""
     from concurrent.futures import ThreadPoolExecutor
@@ -957,14 +1363,24 @@ def main():
     rows += check_attention(lm.args.n_layer, lm.args.n_head)
     del lm
     check_lm_agreement()
+    torch.cuda.empty_cache()
+
+    # slice 3: world>1 on process groups, the compressed reduce's K3
+    w2_launches, w2 = run_world2()
+    nccl = run_nccl()
+    rows += check_ef([tuple(b) for b in w2['buckets']])
 
     kernels = kernel_summary(rows, {'resnet32': launches,
-                                    'transformer_lm': lm_launches})
+                                    'transformer_lm': lm_launches,
+                                    'resnet32_world2_eigen_bf16':
+                                        w2_launches})
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump({'device': smi, 'shapes': rows, 'kernels': kernels,
                    'step_ms': {'resnet32': step_times,
-                               'transformer_lm': lm_times},
+                               'transformer_lm': lm_times,
+                               'resnet32_world2_eigen_bf16': w2['step_ms']},
+                   'world2': w2, 'nccl': nccl,
                    'profiles': profiles}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(smi)

@@ -216,11 +216,46 @@ def layer_g(gs, meta: LayerMeta):
     return gs[meta.name]
 
 
-def check_local_mean_loss(loss, batch, axis_name):
-    """The local-mean loss convention guard. The JAX guard reads
-    shard_map's varying-axes types; at world=1 (``axis_name=None``) there
-    is nothing to check, and world>1 is not ported yet."""
-    if axis_name is None:
+#: autograd node names of torch's differentiable collectives
+#: (``torch.distributed.nn.functional``)
+_COLLECTIVE_NODES = frozenset(
+    f'_{n}Backward' for n in ('AllGather', 'AllGatherBase', 'AllReduce',
+                              'AlltoAll', 'AlltoAllSingle', 'Broadcast',
+                              'Gather', 'Reduce', 'Reduce_Scatter',
+                              'Scatter'))
+#: how many autograd steps back from the loss the guard looks
+_GUARD_DEPTH = 4
+
+
+def check_local_mean_loss(loss, batch, group):
+    """The LOCAL-mean loss convention guard: the loss fed to the capture
+    backward must be the mean over this rank's shard only, or every G
+    factor scales with the world size. The JAX guard reads shard_map's
+    varying-axes types, which torch has no counterpart of; here, on a
+    group (``group`` not None), a loss whose last few autograd steps
+    include a differentiable collective (``torch.distributed.nn``: the
+    loss was reduced over the world before the backward) raises
+    ValueError. Average the GRADIENTS over the world instead
+    (``collectives.average_grads``). A loss scaled by hand (``* world``)
+    cannot be seen. ``batch`` is kept for the JAX signature."""
+    del batch
+    if group is None or loss.grad_fn is None:
         return
-    raise NotImplementedError('world>1 capture (the loss-convention guard '
-                              'over a process group) is port slice B')
+    frontier, seen = [loss.grad_fn], set()
+    for _ in range(_GUARD_DEPTH):
+        nxt = []
+        for node in frontier:
+            if node is None or node in seen:
+                continue
+            seen.add(node)
+            name = type(node).__name__
+            if name in _COLLECTIVE_NODES:
+                raise ValueError(
+                    'K-FAC capture loss convention violation: the loss '
+                    f'went through a collective ({name}) before the '
+                    'capture backward. The convention is the LOCAL-mean '
+                    'loss (mean over this rank\'s shard only); average the '
+                    'gradients over the K-FAC world instead '
+                    '(parallel.collectives.average_grads).')
+            nxt.extend(fn for fn, _ in node.next_functions)
+        frontier = nxt

@@ -33,6 +33,20 @@
 // rounded to the input dtype (fp32 or bf16) in the reference's order
 // (x / spatial, then / N for conv A; x N, then x spatial, then the ones
 // column, then / denom for K2); products accumulate in fp32.
+//
+// K3  kfac_ef_quantize replaces pallas_capture.py _ef_kernel (via
+//                   ef_quantize): the compressed factor reduce's prep,
+//                   `xc = x + r; wire = bf16_rne(xc); r' = xc - f32(wire)`.
+//                   Elementwise, 14 bytes per element (two fp32 reads, one
+//                   bf16 and one fp32 write) and three flops, so it is bound
+//                   by bytes. One flat grid-stride pass: 16-byte loads of x
+//                   and r, the wire stored as 8 bytes (bf16 x 4) and r' as a
+//                   float4, a scalar tail for the elements past the last
+//                   multiple of 4 (and the whole pass when a pointer is not
+//                   16-byte aligned). `__fadd_rn`/`__fsub_rn` and
+//                   `__float2bfloat16_rn` round as the plain version's three
+//                   torch ops do, so the two agree bit for bit on every
+//                   non-NaN input (NaN payloads may differ).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -539,6 +553,42 @@ int stat_rows(const void* x, int R, int d, int append_ones, int nmult,
                         cur, alpha, has_ema, part, out, stream);
 }
 
+// One element of K3: the sum, its bf16 wire value and the new residual.
+__device__ __forceinline__ float ef_one(float x, float r, __nv_bfloat16* w) {
+  const float xc = __fadd_rn(x, r);
+  *w = __float2bfloat16_rn(xc);
+  return __fsub_rn(xc, __bfloat162float(*w));
+}
+
+// K3: `nvec` groups of four elements through vector accesses (when `vec`),
+// then the rest one by one, both grid-stride.
+__global__ void ef_quantize_kernel(const float* __restrict__ x,
+                                   const float* __restrict__ r,
+                                   __nv_bfloat16* __restrict__ wire,
+                                   float* __restrict__ nr, long long n,
+                                   int vec) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long nvec = vec ? n / 4 : 0;
+  for (long long i = tid; i < nvec; i += stride) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(x) + i);
+    const float4 b = __ldg(reinterpret_cast<const float4*>(r) + i);
+    __align__(8) __nv_bfloat16 w[4];
+    float4 o;
+    o.x = ef_one(a.x, b.x, &w[0]);
+    o.y = ef_one(a.y, b.y, &w[1]);
+    o.z = ef_one(a.z, b.z, &w[2]);
+    o.w = ef_one(a.w, b.w, &w[3]);
+    reinterpret_cast<uint2*>(wire)[i] = *reinterpret_cast<const uint2*>(w);
+    reinterpret_cast<float4*>(nr)[i] = o;
+  }
+  for (long long i = nvec * 4 + tid; i < n; i += stride) {
+    __nv_bfloat16 w;
+    nr[i] = ef_one(x[i], r[i], &w);
+    wire[i] = w;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -577,6 +627,20 @@ int kfac_stat_rows(const void* x, int dtype, int R, int d, int append_ones,
                                     denom, tm, S, rows_per_split, cur, alpha,
                                     has_ema, part, out, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// K3. x, r, nr: n fp32 values; wire: n bf16 values. `blocks` blocks of 256
+// threads. Returns a cudaError_t code.
+int kfac_ef_quantize(const float* x, const float* r, void* wire, float* nr,
+                     long long n, int blocks, void* stream) {
+  const uintptr_t any16 = reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(r) |
+                          reinterpret_cast<uintptr_t>(nr);
+  const int vec =
+      any16 % 16 == 0 && reinterpret_cast<uintptr_t>(wire) % 8 == 0;
+  ef_quantize_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, r, static_cast<__nv_bfloat16*>(wire), nr, n, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

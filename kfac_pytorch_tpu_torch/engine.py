@@ -1,11 +1,23 @@
-"""K-FAC step phases over the stacked-bucket layout (port of the world=1
-subset of ``kfac_pytorch_tpu/engine.py``).
+"""K-FAC step phases over the stacked-bucket layout (port of
+``kfac_pytorch_tpu/engine.py``).
 
   compute_layer_stats / stack_stats / update_factors   factor statistics
-  update_factors_fused     the same three with the EMA inside the kernels
+                           (pmean reduce-scatter for MPD; none for DP)
+  update_factors_fused     world=1 local statistics with the EMA inside
+                           the capture kernels
   compute_decomposition    batched eigh (or pi-damped Cholesky inverse)
-  compute_pred_local       owner-computes preconditioning (comm_pred)
+                           of this rank's factor rows
+  gather_decomposition     all-gather of the decomposition (comm_inverse)
+  compute_pred_replicated  every layer preconditioned on every rank
+  compute_pred_local       owner-computes preconditioning + gather
+                           (comm_pred)
   preconditioned_grads     KL clip + write-back
+
+Every function is written per rank, as the JAX versions are per device:
+``group`` is the K-FAC process group (``parallel.collectives``), and
+``None`` is the world=1 path with zero communication. A rank holds its
+own ``per_dev`` factor rows of each bucket; static ``[P, ...]`` plan
+tables are read at this rank's row.
 
 Gradients are a ``{torch parameter name: tensor}`` dict; a layer's matrix
 form is ``[out, in(+bias)]`` with a conv weight (OIHW) flattened as
@@ -18,16 +30,20 @@ import torch
 
 from kfac_pytorch_tpu_torch import capture, ops
 from kfac_pytorch_tpu_torch.ops import capture_kernels
+from kfac_pytorch_tpu_torch.parallel import collectives as coll
 
 
 def _key(bdim):
     return str(bdim)
 
 
-def _world1(plan):
-    if plan.num_devices != 1:
-        raise NotImplementedError('world>1 K-FAC (factor ownership and '
-                                  'collectives) is port slice B')
+def _local_table(arr, group):
+    """This rank's row of a static ``[P, ...]`` plan table."""
+    return arr[coll.axis_index(group)]
+
+
+def _long(x, device):
+    return torch.as_tensor(x, device=device, dtype=torch.long)
 
 
 # ---------------------------------------------------------------------------
@@ -72,28 +88,31 @@ def _pad_mat(mat, dg, da):
 # Phase 1: factor statistics
 # ---------------------------------------------------------------------------
 
-def compute_layer_stats(plan, acts, gs, batch_averaged=True):
-    """Per-layer factor statistics from captured ``(a, g)``, with the
-    plain ops (the unfused path; at world=1 the capture kernels run
-    through :func:`update_factors_fused`)."""
+def compute_layer_stats(plan, acts, gs, batch_averaged=True,
+                        capture_impl=None):
+    """Per-layer factor statistics from captured ``(a, g)`` of this rank's
+    batch. ``capture_impl='pallas'`` computes each through the capture
+    kernels (K1 for a conv's A, K2 for the rest; their plain versions on
+    CPU tensors), anything else through the plain ops."""
+    back = capture_kernels if capture_impl == 'pallas' else ops
     a_list, g_list = [], []
     for meta in plan.metas:
         a = capture.layer_act(acts, meta).contiguous()
         g = capture.layer_g(gs, meta).contiguous()
         if meta.kind == 'dense':
-            a_list.append(ops.compute_a_dense(a, meta.use_bias))
-            g_list.append(ops.compute_g_dense(g, batch_averaged))
+            a_list.append(back.compute_a_dense(a, meta.use_bias))
+            g_list.append(back.compute_g_dense(g, batch_averaged))
         else:
-            a_list.append(ops.compute_a_conv(
+            a_list.append(back.compute_a_conv(
                 a, meta.kernel_size, meta.strides, meta.padding,
                 meta.use_bias))
-            g_list.append(ops.compute_g_conv(g, batch_averaged))
+            g_list.append(back.compute_g_conv(g, batch_averaged))
     return a_list, g_list
 
 
 def stack_stats(plan, a_list, g_list):
-    """Scatter per-layer stats into the stacked-bucket layout (identity
-    padding; dummy rows are the identity)."""
+    """Scatter per-layer stats into the global stacked-bucket layout
+    (identity padding; dummy rows are the identity)."""
     out = {}
     device = a_list[0].device
     for bdim in plan.bucket_dims:
@@ -111,16 +130,41 @@ def stack_stats(plan, a_list, g_list):
 
 
 def update_factors(plan, factors_local, stats_stacked, factor_decay,
-                   stats_reduce='local'):
-    """Running-average update of the factors from local statistics (DP
-    semantics: no factor communication)."""
-    _world1(plan)
-    if stats_reduce != 'local':
-        raise NotImplementedError("stats_reduce='pmean' (MPD factor "
-                                  'averaging) is port slice B')
-    return {k: ops.update_running_avg(stats_stacked[k], factors_local[k],
-                                      factor_decay)
-            for k in factors_local}
+                   stats_reduce, group, comm_precision='fp32',
+                   comm_err=None, capture_impl=None):
+    """Running-average update of this rank's factor rows.
+
+    ``stats_reduce='pmean'`` (MPD): the factors average the statistics of
+    the global batch — a reduce-scatter of the stacked stats
+    (:func:`collectives.pmean_scatter_ef`), each rank receiving its own
+    rows, over the ``comm_precision`` wire; lossy wires fold their
+    rounding error into ``comm_err`` (this rank's residual, keyed like
+    the stats) for the next reduce, and ``capture_impl='pallas'`` runs
+    that prep as one kernel (K3). ``'local'`` (DP): this rank's rows of
+    its own statistics, no communication.
+
+    Returns ``(new factors, new comm_err)``; ``comm_err`` passes through
+    on the fp32, local and ``group=None`` paths."""
+    new = {}
+    new_err = None if comm_err is None else dict(comm_err)
+    idx = coll.axis_index(group)
+    for bdim in plan.bucket_dims:
+        key = _key(bdim)
+        b = plan.buckets[bdim]
+        stats = stats_stacked[key]
+        if stats_reduce == 'pmean':
+            err_in = None if comm_err is None else comm_err[key]
+            with coll.named_scope('kfac.CommunicateFactor'):
+                local, err = coll.pmean_scatter_ef(
+                    stats, group, comm_precision, err_in,
+                    fused=(capture_impl == 'pallas'))
+            if new_err is not None and err is not None:
+                new_err[key] = err
+        else:
+            local = stats[idx * b.per_dev:(idx + 1) * b.per_dev]
+        new[key] = ops.update_running_avg(local, factors_local[key],
+                                          factor_decay)
+    return new, new_err
 
 
 def update_factors_fused(plan, factors_local, acts, gs, batch_averaged,
@@ -130,8 +174,11 @@ def update_factors_fused(plan, factors_local, acts, gs, batch_averaged,
     ``update_running_avg(stat, current, factor_decay)``. Identity padding
     and dummy rows take the unfused arithmetic (EMA against the eye
     template), so the result matches ``stack_stats`` + ``update_factors``
-    up to the statistic's summation order."""
-    _world1(plan)
+    up to the statistic's summation order. Only for one rank: at world>1
+    each rank keeps just its own rows of everyone's statistics."""
+    if plan.num_devices != 1:
+        raise ValueError('update_factors_fused is the world=1 path; at '
+                         'world>1 use compute_layer_stats + update_factors')
     ck = capture_kernels
     new = {}
     for bdim in plan.bucket_dims:
@@ -173,25 +220,30 @@ def update_factors_fused(plan, factors_local, acts, gs, batch_averaged,
 
 
 # ---------------------------------------------------------------------------
-# Phase 2: decomposition
+# Phase 2: decomposition (batched, on this rank's rows)
 # ---------------------------------------------------------------------------
 
-def _local_trace_avgs(plan, factors_local):
-    """Per-slot ``trace / true_dim`` (flat, concatenated over buckets in
-    bucket_dims order) — the pi-damping inputs."""
-    _world1(plan)
+def _local_trace_avgs(plan, factors_local, group):
+    """Per local slot ``trace / true_dim`` (flat, concatenated over
+    buckets in bucket_dims order) — the pi-damping inputs."""
     trace_parts, dim_parts = [], []
     for bdim in plan.bucket_dims:
+        b = plan.buckets[bdim]
         f = factors_local[_key(bdim)]
-        tdl = torch.as_tensor(plan.buckets[bdim].true_dims, device=f.device)
+        tdl = torch.as_tensor(_local_table(
+            b.true_dims.reshape(plan.num_devices, b.per_dev), group),
+            device=f.device)
         trace_parts.append(ops.masked_trace(f, tdl))
         dim_parts.append(tdl)
     return torch.cat(trace_parts) / torch.cat(dim_parts).to(torch.float32)
 
 
-def compute_decomposition(plan, factors_local, damping, method, eps):
+def compute_decomposition(plan, factors_local, damping, method, eps,
+                          group=None):
     """Batched eigh (eigenvalues ``<= eps`` clamped to zero) or pi-damped
-    Cholesky inverse of the factor rows."""
+    Cholesky inverse of this rank's factor rows: both factor sides take
+    ``sqrt(damping * own_trace_avg / mate_trace_avg)`` on the diagonal
+    (the plan's mate maps keep a layer's two factors on one rank)."""
     if method == 'eigh':
         evals, evecs = {}, {}
         for bdim in plan.bucket_dims:
@@ -201,19 +253,45 @@ def compute_decomposition(plan, factors_local, damping, method, eps):
             evecs[key] = q
         return {'evals': evals, 'evecs': evecs}
 
-    flat_avg = _local_trace_avgs(plan, factors_local)
+    flat_avg = _local_trace_avgs(plan, factors_local, group)
     invs = {}
     for bdim in plan.bucket_dims:
         key = _key(bdim)
         b = plan.buckets[bdim]
         off = plan.local_flat_offsets[bdim]
         own_avg = flat_avg[off:off + b.per_dev]
-        mate = torch.as_tensor(b.mate_flat[0], device=flat_avg.device,
-                               dtype=torch.long)
+        mate = _long(_local_table(b.mate_flat, group), flat_avg.device)
         damp_vec = torch.sqrt(damping * own_avg / flat_avg[mate])
         invs[key] = ops.psd_inverse(
             ops.add_scaled_identity(factors_local[key], damp_vec))
     return {'invs': invs}
+
+
+def _local_rows(plan, tree, group, comm_mode):
+    """Per bucket: this rank's rows of a stored decomposition component
+    (already local in 'pred' mode; sliced out of the gathered, replicated
+    layout in 'inverse' mode)."""
+    out = {}
+    idx = coll.axis_index(group)
+    for bdim in plan.bucket_dims:
+        key = _key(bdim)
+        x = tree[key]
+        if comm_mode == 'inverse':
+            per_dev = plan.buckets[bdim].per_dev
+            x = x[idx * per_dev:(idx + 1) * per_dev]
+        out[key] = x
+    return out
+
+
+def local_decomposition(plan, decomp, group, comm_mode, method):
+    """This rank's rows of a stored decomposition, raw (the guard below
+    does its own cold handling)."""
+    if method == 'eigh':
+        return {'evals': _local_rows(plan, decomp['evals'], group,
+                                     comm_mode),
+                'evecs': _local_rows(plan, decomp['evecs'], group,
+                                     comm_mode)}
+    return {'invs': _local_rows(plan, decomp['invs'], group, comm_mode)}
 
 
 def _rows_finite(x):
@@ -264,6 +342,28 @@ def guard_decomposition(decomp_new, decomp_prev, method):
     return {**decomp_new, 'invs': out_i}
 
 
+def gather_decomposition(plan, decomp_local, group, communicate=True,
+                         comm_precision='fp32'):
+    """All-gather every rank's decomposition rows to every rank
+    (comm_inverse mode) over the ``comm_precision`` wire. With
+    ``communicate=False`` (the CommunicateInverse ablation) each rank
+    places its own rows at its offset, zeros elsewhere: global shapes,
+    zero communication."""
+    idx = coll.axis_index(group)
+
+    def gather(x):
+        if communicate:
+            return coll.all_gather_rows_compressed(x, group, comm_precision)
+        per_dev = x.shape[0]
+        full = x.new_zeros((plan.num_devices * per_dev,) + tuple(x.shape[1:]))
+        full[idx * per_dev:(idx + 1) * per_dev] = x
+        return full
+
+    with coll.named_scope('kfac.CommunicateInverse'):
+        return {part: {k: gather(v) for k, v in tree.items()}
+                for part, tree in decomp_local.items()}
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: preconditioning
 # ---------------------------------------------------------------------------
@@ -278,32 +378,63 @@ def _pred_inv(invg, inva, gstack):
     return invg @ gstack @ inva
 
 
-def compute_pred_local(plan, decomp_local, grad_mats, damping, method):
-    """Owner-computes preconditioning (comm_pred), world=1: every layer's
-    preconditioned gradient, batched per pred group."""
-    _world1(plan)
+def _group_grad_stack(pg, grad_mats):
+    return torch.stack([_pad_mat(grad_mats[int(i)], pg.dg, pg.da)
+                        for i in pg.layer_idx])
+
+
+def compute_pred_replicated(plan, decomp, grad_mats, damping, method):
+    """Preconditioning with the replicated (gathered) decomposition: every
+    rank computes every layer's preconditioned gradient, no
+    communication."""
     preds = [None] * plan.num_layers
     for pg in plan.pred_groups:
-        dev = grad_mats[0].device
-        members = torch.as_tensor(pg.local_member[0], device=dev,
-                                  dtype=torch.long)
-        gstack = torch.stack([_pad_mat(grad_mats[int(i)], pg.dg, pg.da)
-                              for i in pg.layer_idx])[members]
-        ra = torch.as_tensor(pg.local_row_a[0], device=dev, dtype=torch.long)
-        rg = torch.as_tensor(pg.local_row_g[0], device=dev, dtype=torch.long)
+        gstack = _group_grad_stack(pg, grad_mats)
+        dev = gstack.device
+        ra, rg = _long(pg.row_a, dev), _long(pg.row_g, dev)
+        ka, kg = _key(pg.da), _key(pg.dg)
+        if method == 'eigh':
+            pred = _pred_eigh(decomp['evecs'][kg][rg], decomp['evals'][kg][rg],
+                              decomp['evecs'][ka][ra], decomp['evals'][ka][ra],
+                              gstack, damping)
+        else:
+            pred = _pred_inv(decomp['invs'][kg][rg], decomp['invs'][ka][ra],
+                             gstack)
+        for pos, i in enumerate(pg.layer_idx):
+            meta = plan.metas[int(i)]
+            preds[int(i)] = pred[pos, :meta.out_dim, :meta.in_dim]
+    return preds
+
+
+def compute_pred_local(plan, decomp_local, grad_mats, damping, method,
+                       group=None, comm_precision='fp32'):
+    """Owner-computes preconditioning (comm_pred): each rank
+    preconditions the layers it owns, batched per pred group, and the
+    results are all-gathered over the ``comm_precision`` wire."""
+    preds = [None] * plan.num_layers
+    for pg in plan.pred_groups:
+        gstack = _group_grad_stack(pg, grad_mats)
+        dev = gstack.device
+        members = _long(_local_table(pg.local_member, group), dev)
+        g_loc = gstack[members]
+        ra = _long(_local_table(pg.local_row_a, group), dev)
+        rg = _long(_local_table(pg.local_row_g, group), dev)
         ka, kg = _key(pg.da), _key(pg.dg)
         if method == 'eigh':
             pred = _pred_eigh(decomp_local['evecs'][kg][rg],
                               decomp_local['evals'][kg][rg],
                               decomp_local['evecs'][ka][ra],
-                              decomp_local['evals'][ka][ra], gstack, damping)
+                              decomp_local['evals'][ka][ra], g_loc, damping)
         else:
             pred = _pred_inv(decomp_local['invs'][kg][rg],
-                             decomp_local['invs'][ka][ra], gstack)
+                             decomp_local['invs'][ka][ra], g_loc)
+        with coll.named_scope('kfac.Precondition'):
+            gathered = coll.all_gather_rows_compressed(pred, group,
+                                                       comm_precision)
         for pos, i in enumerate(pg.layer_idx):
             meta = plan.metas[int(i)]
             row = int(pg.gathered_row[pos])
-            preds[int(i)] = pred[row, :meta.out_dim, :meta.in_dim]
+            preds[int(i)] = gathered[row, :meta.out_dim, :meta.in_dim]
     return preds
 
 

@@ -1,6 +1,6 @@
 """Fused capture kernels (port of ``kfac_pytorch_tpu/ops/pallas_capture.py``).
 
-Two hand-written CUDA kernels for Hopper, in ``csrc/capture.cu``:
+Three hand-written CUDA kernels for Hopper, in ``csrc/capture.cu``:
 
 - K1, :func:`compute_a_conv`, replaces ``_conv_a_kernel``: conv factor A
   with the im2col patch rows built inside the kernel from the NHWC
@@ -11,8 +11,12 @@ Two hand-written CUDA kernels for Hopper, in ``csrc/capture.cu``:
   It serves :func:`compute_a_dense`, :func:`compute_g_dense` and
   :func:`compute_g_conv`; at their shapes it is bound by bytes and
   launches.
+- K3, :func:`ef_quantize`, replaces ``_ef_kernel``: the error-feedback
+  prep of the compressed factor reduce (``xc = x + r``, the bf16 wire,
+  ``r' = xc - f32(wire)``) in one elementwise pass, bound by bytes. It
+  agrees with its plain version bit for bit (NaN payloads aside).
 
-Both take ``ema=(current, alpha)`` and fold the factor EMA
+K1 and K2 take ``ema=(current, alpha)`` and fold the factor EMA
 ``current * (1 - alpha) + stat * alpha`` into the kernel's epilogue. A
 python-float ``alpha`` is folded; a tensor ``alpha`` runs the kernel
 without the epilogue and then ``update_running_avg`` (the JAX package's
@@ -58,6 +62,8 @@ def _kernels():
         lib.kfac_stat_rows.argtypes = [p, i, i, i, i, i, f, f, f, i, i, i,
                                        p, f, i, p, p, p]
         lib.kfac_stat_rows.restype = ctypes.c_int
+        lib.kfac_ef_quantize.argtypes = [p, p, p, p, ctypes.c_longlong, i, p]
+        lib.kfac_ef_quantize.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -244,3 +250,57 @@ def compute_a_conv(a, kernel_size, strides, padding, use_bias, *, ema=None):
 
 
 compute_a_conv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: wire-quantize + error-feedback residual (the compressed-reduce prep)
+# ---------------------------------------------------------------------------
+
+#: K3 grid: blocks of 256 threads, enough for every SM several times over;
+#: the kernel's grid-stride loop covers any size
+_EF_THREADS = 256
+_EF_MAX_BLOCKS = 132 * 16
+
+
+def _ef_quantize_plain(x, residual):
+    """Plain PyTorch version of K3: ``xc = x + r``, ``wire = bf16(xc)``
+    (round to nearest even), ``r' = xc - f32(wire)``."""
+    xc = x + residual
+    wire = xc.to(torch.bfloat16)
+    return wire, xc - wire.to(x.dtype)
+
+
+def ef_quantize(x, residual):
+    """``(wire bf16, new residual fp32)`` from the stacked stats ``x`` and
+    the error-feedback residual, both fp32 of one shape, in one pass."""
+    if x.device.type == 'cpu':
+        return _ef_quantize_plain(x, residual)
+    if x.device.type != 'cuda':
+        raise RuntimeError(f'no capture kernel for device {x.device}')
+    if (residual.device != x.device or x.dtype != torch.float32
+            or residual.dtype != torch.float32
+            or x.shape != residual.shape):
+        raise ValueError(f'ef_quantize takes two float32 tensors of one '
+                         f'shape on one device, got {x.dtype} '
+                         f'{tuple(x.shape)} on {x.device} and '
+                         f'{residual.dtype} {tuple(residual.shape)} on '
+                         f'{residual.device}')
+    if not (x.is_contiguous() and residual.is_contiguous()):
+        raise ValueError('ef_quantize takes contiguous tensors')
+    wire = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    new_residual = torch.empty_like(x)
+    n = x.numel()
+    if n == 0:
+        return wire, new_residual
+    blocks = max(1, min(_EF_MAX_BLOCKS,
+                        -(-n // (4 * _EF_THREADS))))
+    err = _kernels().kfac_ef_quantize(
+        x.data_ptr(), residual.data_ptr(), wire.data_ptr(),
+        new_residual.data_ptr(), n, blocks,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, 'K3 ef_quantize')
+    ef_quantize.launches += 1
+    return wire, new_residual
+
+
+ef_quantize.launches = 0

@@ -2,10 +2,10 @@
 
 Every Kronecker factor ("slot": one layer's A or G) is identity-padded to
 a bucket dim and stacked into one ``[rows, D, D]`` tensor per bucket, rows
-device-major; preconditioning batches layers by their (G-bucket,
-A-bucket) pair. The port runs world=1 so far, where every slot belongs to
-device 0, but the tables are built exactly as the JAX plan builds them so
-they compare one to one.
+device-major (rank d owns rows ``[d*per_dev, (d+1)*per_dev)``);
+preconditioning batches layers by their (G-bucket, A-bucket) pair. The
+tables are built exactly as the JAX plan builds them, so they compare one
+to one.
 """
 
 import dataclasses
@@ -14,6 +14,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from kfac_pytorch_tpu_torch.capture import LayerMeta
+from kfac_pytorch_tpu_torch.parallel import collectives as coll
+from kfac_pytorch_tpu_torch.parallel.partition import (balanced_assign,
+                                                       round_robin_assign)
 
 
 def default_bucket_fn(dim, min_bucket=128):
@@ -87,26 +90,130 @@ class FactorPlan:
     bucket_dims: List[int]              # sorted bucket keys
     local_flat_offsets: Dict[int, int]  # bucket dim -> offset into the
                                         # per-device concatenated slots
+    # the ownership rule the plan was built with ('round_robin' |
+    # 'balanced'), so comm_volume can price the other comm mode's layout
+    assignment: str = 'round_robin'
 
     @property
     def num_layers(self):
         return len(self.metas)
 
+    def comm_volume(self, *, stats_reduce, method, comm_precision='fp32',
+                    comm_mode=None):
+        """Payload bytes of the K-FAC collectives of ONE factor + inverse
+        step on ONE rank under this layout, per phase:
+
+        - FactorComm: the stats reduce-scatter's result (MPD variants
+          only): each rank's own rows in the reduce wire dtype (int8
+          floors at bf16);
+        - InverseComm: the decomposition gather (comm_mode 'inverse'):
+          every row of every bucket (and the eigenvalue vectors for
+          eigh) in the gather wire dtype, int8 adding a 4-byte scale per
+          row;
+        - PredComm: the preconditioned-gradient gather (comm_mode 'pred'):
+          ``P * K`` padded ``[dg, da]`` matrices per pred group.
+
+        ``comm_mode`` overrides the plan's own (both roads priced from one
+        layout). The gradient all-reduce is not a K-FAC collective and is
+        not counted. :func:`collectives.ledger` counts the same bytes at
+        the collective calls."""
+        coll.check_wire_dtype(comm_precision)
+        wire = int(4 * coll.WIRE_COMPRESSION[comm_precision])
+        reduce_wire = int(4 * coll.WIRE_COMPRESSION[
+            coll.reduce_wire_dtype(comm_precision)])
+        scale_b = 4 if comm_precision == 'int8' else 0
+        factor = inverse = pred = 0
+        if stats_reduce == 'pmean':
+            factor = sum(b.per_dev * b.dim * b.dim * reduce_wire
+                         for b in self.buckets.values())
+        if (comm_mode or self.comm_mode) == 'inverse':
+            for b in self.buckets.values():
+                inverse += b.n_rows * (b.dim * b.dim * wire + scale_b)
+                if method == 'eigh':
+                    inverse += b.n_rows * (b.dim * wire + scale_b)
+        else:
+            pred_owners = None
+            for pg in self.pred_groups:
+                k = pg.k_per_dev
+                if k == 0:
+                    # an inverse-mode plan has no pred tables: K is what
+                    # the pred layout (whole-layer ownership by the same
+                    # rule) would pad to
+                    if pred_owners is None:
+                        pred_owners = _layer_owners(self.metas,
+                                                    self.num_devices,
+                                                    self.assignment)
+                    owners = [pred_owners[int(i)] for i in pg.layer_idx]
+                    k = max(1, max(owners.count(d)
+                                   for d in range(self.num_devices)))
+                pred += self.num_devices * k * (pg.dg * pg.da * wire
+                                                + scale_b)
+        return {'FactorComm': factor, 'InverseComm': inverse,
+                'PredComm': pred}
+
+
+def _slot_cost(dim):
+    # eigh / Cholesky cost ~ D^3
+    return float(dim) ** 3
+
+
+def _layer_owners(metas, num_devices, assignment):
+    """Whole-layer ownership: round robin, or balanced by both factors'
+    D^3 cost."""
+    if assignment == 'balanced':
+        owners = balanced_assign([_slot_cost(m.in_dim) + _slot_cost(m.out_dim)
+                                  for m in metas], num_devices)
+    else:
+        owners = round_robin_assign(len(metas), num_devices)
+    return [int(o) for o in owners]
+
+
+ASSIGNMENTS = ('round_robin', 'balanced')
+
 
 def build_plan(metas: Dict[str, LayerMeta], num_devices: int, comm_mode: str,
+               assignment: str = 'round_robin',
+               distribute_layer_factors: bool = False,
                bucket_fn: Callable[[int], int] = default_bucket_fn):
-    """Build the static layout with round-robin layer ownership (the
-    reference's rule; both factors of a layer on its owner)."""
+    """Build the static layout. Ownership: round robin over layers (the
+    reference's rule; both factors of a layer on its owner) or 'balanced'
+    (greedy LPT over the D^3 costs); with ``distribute_layer_factors``
+    (comm_mode 'inverse' only) the interleaved A/G slot sequence is
+    assigned instead, so a layer's two factors may live on two ranks."""
+    if assignment not in ASSIGNMENTS:
+        raise ValueError(f'assignment must be one of {ASSIGNMENTS}, got '
+                         f'{assignment!r}')
     meta_list = list(metas.values())
     L = len(meta_list)
     P = num_devices
-    layer_owner = [int(o) for o in np.arange(L) % P]
+    if comm_mode == 'pred' and distribute_layer_factors:
+        raise ValueError(
+            'factor-wise distribution requires communicating inverses '
+            '(the pred layout computes each layer on one rank, which must '
+            'own both its factors)')
+
+    # --- ownership ------------------------------------------------------
+    if distribute_layer_factors:
+        dims = []
+        for m in meta_list:
+            dims.extend([m.in_dim, m.out_dim])
+        if assignment == 'balanced':
+            owners = balanced_assign([_slot_cost(d) for d in dims], P)
+        else:
+            owners = round_robin_assign(2 * L, P)
+        slot_owner = [(int(owners[2 * i]), int(owners[2 * i + 1]))
+                      for i in range(L)]
+        layer_owner = [a for a, _ in slot_owner]  # nominal (unused by pred)
+    else:
+        layer_owner = _layer_owners(meta_list, P, assignment)
+        slot_owner = [(o, o) for o in layer_owner]
 
     # --- buckets --------------------------------------------------------
     slots: List[Slot] = []
     for i, m in enumerate(meta_list):
-        slots.append(Slot(i, 'A', m.in_dim, layer_owner[i]))
-        slots.append(Slot(i, 'G', m.out_dim, layer_owner[i]))
+        oa, og = slot_owner[i]
+        slots.append(Slot(i, 'A', m.in_dim, oa))
+        slots.append(Slot(i, 'G', m.out_dim, og))
 
     by_bucket: Dict[int, List[Slot]] = {}
     for s in slots:
@@ -141,8 +248,8 @@ def build_plan(metas: Dict[str, LayerMeta], num_devices: int, comm_mode: str,
         local_flat_offsets[bdim] = off
         off += buckets[bdim].per_dev
 
-    # --- pi-damping mate maps ---------------------------------------------
-    for bdim in bucket_dims:
+    # --- pi-damping mate maps (a layer's two factors on one rank only) ----
+    for bdim in (() if distribute_layer_factors else bucket_dims):
         b = buckets[bdim]
         mate_flat = np.zeros((P, b.per_dev), dtype=np.int32)
         own_dim = np.full((P, b.per_dev), bdim, dtype=np.int32)
@@ -209,4 +316,5 @@ def build_plan(metas: Dict[str, LayerMeta], num_devices: int, comm_mode: str,
     return FactorPlan(metas=meta_list, num_devices=P, comm_mode=comm_mode,
                       buckets=buckets, layer_rows=layer_rows,
                       pred_groups=pred_groups, bucket_dims=bucket_dims,
-                      local_flat_offsets=local_flat_offsets)
+                      local_flat_offsets=local_flat_offsets,
+                      assignment=assignment)

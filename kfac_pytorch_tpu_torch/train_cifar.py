@@ -1,10 +1,16 @@
 """CIFAR ResNet trainer of the port (counterpart of
 ``examples/cifar10_resnet.py``): the same flag names and defaults for the
-flags the port supports, plus ``--device`` (default ``cuda``).
+flags the port supports, plus ``--device`` (default ``cuda``),
+``--dist-backend`` and ``--steps-per-epoch``.
 
   python -m kfac_pytorch_tpu_torch.train_cifar --kfac-capture-impl auto --epochs 1
+  python -m kfac_pytorch_tpu_torch.launch --nproc 2 -- train_cifar \\
+      --kfac-name eigen --kfac-comm-precision bf16 --kfac-capture-impl auto
 
-Trains on the synthetic CIFAR stand-in (``data.get_cifar``).
+Trains on the synthetic CIFAR stand-in (``data.get_cifar``). At
+``--num-devices`` > 1 each rank is one process (started by the launcher,
+which sets ``--num-devices``), ``--batch-size`` is the GLOBAL batch and
+rank r trains on its rows ``[r*B/P, (r+1)*B/P)``; rank 0 prints.
 """
 
 import argparse
@@ -16,6 +22,8 @@ import torch.nn.functional as F
 import kfac_pytorch_tpu_torch as kfac
 from kfac_pytorch_tpu_torch import data as kdata
 from kfac_pytorch_tpu_torch import models, training, utils
+from kfac_pytorch_tpu_torch.parallel import collectives as coll
+from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
 
 
 def parse_args(argv=None):
@@ -48,6 +56,29 @@ def parse_args(argv=None):
     p.add_argument('--kfac-update-freq-alpha', type=float, default=10)
     p.add_argument('--kfac-update-freq-decay', nargs='+', type=int,
                    default=None)
+    p.add_argument('--kfac-comm-precision', default='fp32',
+                   choices=['fp32', 'bf16', 'int8'],
+                   help='wire dtype of the K-FAC factor collectives: bf16 '
+                        'halves, int8 quarters the gather payloads; a lossy '
+                        'stats reduce carries an error-feedback residual; '
+                        'the gradient all-reduce is never compressed')
+    p.add_argument('--kfac-comm-mode', default=None,
+                   choices=['inverse', 'pred'],
+                   help="override the variant's comm mode: 'inverse' "
+                        "gathers decompositions once per refresh, 'pred' "
+                        'gathers preconditioned gradients every step')
+    p.add_argument('--assignment', default='round_robin',
+                   choices=['round_robin', 'balanced'])
+    p.add_argument('--num-devices', type=int, default=1,
+                   help='ranks of the K-FAC world; > 1 must be launched '
+                        '(python -m kfac_pytorch_tpu_torch.launch) and '
+                        'equal WORLD_SIZE')
+    p.add_argument('--dist-backend', default=None, choices=['nccl', 'gloo'],
+                   help='process-group backend (default nccl on the GPU, '
+                        'gloo with --device cpu)')
+    p.add_argument('--steps-per-epoch', type=int, default=None,
+                   help='cut each epoch to this many steps (default: the '
+                        'whole training set)')
     p.add_argument('--seed', type=int, default=42)
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
     return p.parse_args(argv)
@@ -61,11 +92,29 @@ class Trainer:
     """Everything one run needs, built from the parsed flags: model,
     optimizer, preconditioner, scheduler, loaders, state and the step.
     Matmuls and convolutions run in fp32 (TF32 off), the reference's
-    precision."""
+    precision.
 
-    def __init__(self, args):
+    At ``--num-devices`` > 1 the process group is ``group`` if given (as
+    :func:`launch.spawn` gives it), else the default group initialized
+    from the launcher's environment; the rank runs on ``cuda:local_rank``
+    (``LOCAL_RANK`` unless given)."""
+
+    def __init__(self, args, group=None, local_rank=None):
         self.args = args
-        self.device = utils.resolve_device(args.device)
+        utils.resolve_device(args.device)   # no GPU: raise before the group
+        world = args.num_devices
+        backend = args.dist_backend or ('gloo' if args.device == 'cpu'
+                                        else 'nccl')
+        if group is None and world > 1:
+            group = kmesh.maybe_initialize_distributed(backend, world)
+        if coll.axis_size(group) != world:
+            raise ValueError(f'--num-devices {world} but the process group '
+                             f'has {coll.axis_size(group)} ranks')
+        self.group, self.world = group, world
+        self.rank = coll.axis_index(group)
+        if world > 1 and local_rank is None:
+            local_rank = kmesh.local_rank()
+        self.device = utils.resolve_device(args.device, local_rank)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         num_classes = 10 if args.dataset == 'cifar10' else 100
@@ -74,14 +123,18 @@ class Trainer:
                                          train=True,
                                          augment=kdata.augment_cifar,
                                          seed=args.seed)
+        if args.steps_per_epoch is not None:
+            self.train_loader.steps_per_epoch = min(
+                args.steps_per_epoch, self.train_loader.steps_per_epoch)
         self.val_loader = kdata.Loader(val_x, val_y, args.val_batch_size,
                                        train=False)
         model = models.get_model(args.model, num_classes=num_classes,
                                  seed=args.seed)
+        # the JAX trainer's scale, quirk included: world x GLOBAL batch
         self.lr_fn = utils.warmup_multistep(
             args.base_lr, self.train_loader.steps_per_epoch,
             args.warmup_epochs, args.lr_decay,
-            scale=max(1, args.batch_size // 128))
+            scale=max(1, world * args.batch_size // 128))
         self.tx = training.sgd(self.lr_fn, momentum=args.momentum,
                                weight_decay=args.wd)
         self.precond = self.scheduler = None
@@ -91,29 +144,48 @@ class Trainer:
                 fac_update_freq=args.kfac_cov_update_freq,
                 kfac_update_freq=args.kfac_update_freq,
                 capture_impl=args.kfac_capture_impl,
-                kl_clip=args.kl_clip, factor_decay=args.stat_decay)
+                comm_precision=args.kfac_comm_precision,
+                comm_mode=args.kfac_comm_mode,
+                kl_clip=args.kl_clip, factor_decay=args.stat_decay,
+                num_devices=world, group=group,
+                assignment=args.assignment)
             self.scheduler = kfac.KFACParamScheduler(
                 self.precond, damping_alpha=args.damping_alpha,
                 damping_schedule=args.damping_decay,
                 update_freq_alpha=args.kfac_update_freq_alpha,
                 update_freq_schedule=args.kfac_update_freq_decay)
-        sample = torch.zeros((args.batch_size, 32, 32, 3))
+        sample = torch.zeros((args.batch_size // world, 32, 32, 3))
         self.state = training.init_train_state(model, self.tx, self.precond,
                                                sample, self.device)
         self.step_fn = training.build_train_step(model, self.tx,
                                                  self.precond, loss_fn)
 
     def to_device(self, batch):
+        """This rank's rows of a global host batch, on the device."""
+        if self.world > 1:
+            batch = kmesh.shard_batch(batch, self.rank, self.world)
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items()}
 
     def train_step(self, batch):
-        """One step on a host batch; returns the metrics dict."""
+        """One step on a global host batch; returns the metrics dict (the
+        loss averaged over the ranks)."""
         lr = self.lr_fn(self.state.step)
         self.state, m = self.step_fn(
             self.state, self.to_device(batch), lr=lr,
             damping=self.precond.damping if self.precond else 0.0)
         return m
+
+    def replicas_agree(self):
+        """Whether every rank's parameters and buffers are bitwise the same
+        as this rank's (:func:`training.replica_digest`)."""
+        digest = training.replica_digest(self.state.model)
+        if self.group is None:
+            return True
+        digests = [None] * self.world
+        torch.distributed.all_gather_object(digests, digest,
+                                            group=self.group)
+        return len(set(digests)) == 1
 
     def evaluate(self):
         loss = acc = n = 0.0
@@ -128,6 +200,7 @@ class Trainer:
 def main(argv=None):
     args = parse_args(argv)
     tr = Trainer(args)
+    say = print if tr.rank == 0 else (lambda *a, **k: None)
     for epoch in range(args.epochs):
         t0 = time.time()
         total = count = 0.0
@@ -136,11 +209,16 @@ def main(argv=None):
             total += float(m['loss']) * len(batch['label'])
             count += len(batch['label'])
         vl, va = tr.evaluate()
-        print(f'epoch {epoch}: train_loss {total / count:.4f} '
-              f'val_loss {vl:.4f} val_acc {va:.4f} ({time.time() - t0:.1f}s)',
-              flush=True)
+        say(f'epoch {epoch}: train_loss {total / count:.4f} '
+            f'val_loss {vl:.4f} val_acc {va:.4f} ({time.time() - t0:.1f}s)',
+            flush=True)
         if tr.scheduler is not None:
             tr.scheduler.step(epoch + 1)
+    if tr.world > 1:
+        if not tr.replicas_agree():
+            raise RuntimeError('the ranks\' parameters and buffers differ')
+        say(f'replicas: {tr.world} ranks bitwise identical', flush=True)
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == '__main__':

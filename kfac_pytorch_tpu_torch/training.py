@@ -1,20 +1,27 @@
-"""The K-FAC + SGD training step (port of the world=1 Femp path of
-``kfac_pytorch_tpu/training.py``).
+"""The K-FAC + SGD training step (port of the Femp path of
+``kfac_pytorch_tpu/training.py``), at world=1 or data-parallel over a
+process group.
 
-One iteration: forward (capture armed on factor-update steps) -> loss ->
-backward (capture takes ``g``) -> ``KFAC.step`` (preconditioned grads) ->
-SGD. The JAX trainer's numerical-health guard (bad-batch skip and the
-damping ladder), the F1mc Fisher, faults, sharding and tracing are not
-ported yet; the preconditioner's own non-finite screens are.
+One iteration: forward on this rank's shard (capture armed on
+factor-update steps) -> the LOCAL-mean loss -> backward (capture takes
+``g``) -> gradients averaged over the group in fp32 -> ``KFAC.step``
+(preconditioned grads) -> SGD; BatchNorm running statistics are averaged
+over the group, and the reported loss is the group mean. Parameters and
+buffers stay bitwise identical across ranks. The JAX trainer's
+numerical-health guard (bad-batch skip and the damping ladder), the F1mc
+Fisher, faults and tracing are not ported yet; the preconditioner's own
+non-finite screens are.
 """
 
 import dataclasses
+import hashlib
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from kfac_pytorch_tpu_torch import capture
+from kfac_pytorch_tpu_torch.parallel import collectives as coll
 from kfac_pytorch_tpu_torch.preconditioner import KFACHyperParams
 from kfac_pytorch_tpu_torch.utils.platform import resolve_device
 
@@ -97,14 +104,41 @@ def model_input(model, x):
     raise ValueError(f'unknown input_layout {model.input_layout!r}')
 
 
+def sync_buffers(model, group):
+    """Average ``model``'s floating buffers (BatchNorm running
+    statistics) over the group in place, through one all-reduce — the
+    JAX trainer's pmean of the mutated ``batch_stats``."""
+    bufs = [b for b in model.buffers() if b.dtype.is_floating_point]
+    if group is None or not bufs:
+        return
+    with torch.no_grad():
+        for b, v in zip(bufs, coll.pmean_flat(bufs, group)):
+            b.copy_(v)
+
+
+def replica_digest(model):
+    """SHA-1 of ``model``'s parameters and buffers, bit for bit: equal on
+    every rank while the replicas agree."""
+    h = hashlib.sha1()
+    for name, t in list(model.named_parameters()) + list(
+            model.named_buffers()):
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
 def build_train_step(model, tx, precond, loss_fn):
     """Return ``step_fn(state, batch, lr=None, damping=None) -> (state,
-    metrics)``. ``batch`` holds tensors on the model's device: ``'input'``
-    (see :func:`model_input`) and whatever ``loss_fn(outputs, batch)``
-    reads; ``loss_fn`` is the local-mean loss. ``lr``/``damping`` feed the
-    preconditioner (KL clip and damping). ``step_fn.last_phases`` names
-    the K-FAC phases of the last call ('pred', 'stats', 'decomp') and
-    ``step_fn.last_grads`` holds its preconditioned gradients."""
+    metrics)``. ``batch`` holds this rank's shard as tensors on the
+    model's device: ``'input'`` (see :func:`model_input`) and whatever
+    ``loss_fn(outputs, batch)`` reads; ``loss_fn`` is the local-mean loss.
+    The data-parallel process group is the preconditioner's (``group``;
+    None at world=1). ``lr``/``damping`` feed the preconditioner (KL clip
+    and damping). ``step_fn.last_phases`` names the K-FAC phases of the
+    last call ('pred', 'stats', 'decomp') and ``step_fn.last_grads``
+    holds its preconditioned gradients."""
+    group = None if precond is None else precond.group
     seen = {'inverse': False}
 
     def step_fn(state, batch, lr=None, damping=None):
@@ -122,21 +156,19 @@ def build_train_step(model, tx, precond, loss_fn):
         x = model_input(model, batch['input'])
         cap = capture.Capture(model, precond.plan.metas if uf else ())
         model.zero_grad(set_to_none=True)
-        if uf:
-            with cap:
-                out = model(x)
-                loss = loss_fn(out, batch)
-                capture.check_local_mean_loss(loss, batch, None)
-                loss.backward()
-        else:
+        with cap:
             out = model(x)
             loss = loss_fn(out, batch)
+            capture.check_local_mean_loss(loss, batch, group)
             loss.backward()
         params = dict(model.named_parameters())
-        grads = {k: p.grad for k, p in params.items()}
+        grads = coll.average_grads({k: p.grad for k, p in params.items()},
+                                   group)
+        sync_buffers(model, group)
 
         kfac_state = state.kfac_state
         if precond is not None:
+            kfac_state = _match_comm_err(precond, kfac_state)
             hyper = KFACHyperParams(
                 lr=precond.lr if lr is None else lr,
                 damping=precond.damping if damping is None else damping)
@@ -155,11 +187,28 @@ def build_train_step(model, tx, precond, loss_fn):
         step_fn.last_grads = grads
         state = dataclasses.replace(state, step=step + 1,
                                     kfac_state=kfac_state)
-        return state, {'loss': loss.detach()}
+        return state, {'loss': coll.pmean(loss.detach(), group)}
 
     step_fn.last_phases = ()
     step_fn.last_grads = None
     return step_fn
+
+
+def _match_comm_err(precond, kfac_state):
+    """Give the state the residual its preconditioner's config carries:
+    zeros when a lossy MPD wire was switched on (or a state built without
+    one is resumed), none when the wire went back to fp32 (the residual
+    is a correction, never load-bearing). Host-side, before the step."""
+    if kfac_state is None:
+        return None
+    has = kfac_state.comm_err is not None
+    if precond.tracks_comm_err and not has:
+        dev = next(iter(kfac_state.factors.values())).device
+        return dataclasses.replace(kfac_state,
+                                   comm_err=precond.zero_comm_err(dev))
+    if has and not precond.tracks_comm_err:
+        return dataclasses.replace(kfac_state, comm_err=None)
+    return kfac_state
 
 
 def eval_step(model, batch, loss_fn):

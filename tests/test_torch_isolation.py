@@ -7,6 +7,8 @@
    raise instead of running on the CPU.
 3. The capture- and attention-kernel wrappers run their plain versions
    only for CPU tensors; any other device launches the kernel or raises.
+4. The world>1 entry points (the launcher, the trainer at
+   ``--num-devices`` > 1) raise without a GPU unless ``--device cpu``.
 """
 
 import os
@@ -49,7 +51,7 @@ def test_port_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, 'PYTHONPATH': ROOT})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 19
 
 
 @pytest.fixture
@@ -108,9 +110,11 @@ def test_wrappers_never_fall_back(monkeypatch):
 
     monkeypatch.setattr(ck, '_conv_a_plain', plain)
     monkeypatch.setattr(ck, '_stat_rows_plain', plain)
+    monkeypatch.setattr(ck, '_ef_quantize_plain', plain)
     calls = [
         lambda x: ck.compute_a_conv(x, (3, 3), (1, 1), (1, 1), False),
         lambda x: ck.compute_g_conv(x, True),
+        lambda x: ck.ef_quantize(x, x),
     ]
     for call in calls:
         with pytest.raises(Exception) as info:
@@ -155,3 +159,22 @@ def test_attention_wrappers_never_fall_back(monkeypatch):
     with pytest.raises(RuntimeError, match='no attention kernel'):
         ak.flash_fwd(*meta, torch.zeros((2, 8), device='meta'), (0, 0), 0.25,
                      True)
+
+
+def test_world_gt1_entry_points_raise_without_gpu(no_gpu, monkeypatch):
+    from kfac_pytorch_tpu_torch import launch, train_cifar
+    started = []
+    monkeypatch.setattr(launch.subprocess, 'call',
+                        lambda cmd: started.append(cmd) or 0)
+    for args in (['--kfac-name', 'eigen'], ['--dist-backend', 'gloo']):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            launch.main(['--nproc', '2', '--', 'train_cifar', *args])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        train_cifar.main(['--num-devices', '2', '--epochs', '1'])
+    assert not started
+    # the CPU, asked for, launches torchrun with the world set
+    assert launch.main(['--nproc', '2', '--', 'train_cifar', '--device',
+                        'cpu']) == 0
+    cmd, = started
+    assert cmd[-2:] == ['--num-devices', '2']
+    assert 'torch.distributed.run' in cmd and '--nproc_per_node' in cmd
