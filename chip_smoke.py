@@ -25,6 +25,17 @@ launches:
   bitwise, at the world=2 bucket shapes (timed) and at odd sizes with
   special values.
 
+After the build it prints, for K5a and K5b (split-TF32 ``wgmma``) at every
+head dim, the tensor-core instructions in the kernel's SASS (``cuobjdump
+--dump-sass``, ``HGMMA``), ``ptxas -v``'s registers and spills, and the
+dynamic shared memory and resident blocks per SM; at the main attention
+shape K5a and K5b must also give the same bits on two runs (no atomics).
+The attention kernels' bound counts their operations at the TF32
+tensor-core rate, three passes (``ops_ms``); the fp32 rate's bound stays
+beside it in the per-shape rows (``ops_ms_fp32``). Each attention wrapper
+must also refuse, with a ValueError, an input that does not start 16-byte
+aligned.
+
   python3 chip_smoke.py
 
 Needs a CUDA device (exits non-zero without one). Prints the kernel
@@ -44,10 +55,14 @@ import time
 import numpy as np
 import torch
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32
-# (non-tensor-core) FLOP/s — the kernels run fp32 FMAs with TF32 off
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
+# (non-tensor-core) FLOP/s and dense TF32 tensor-core FLOP/s. Work done to
+# fp32 accuracy on the tensor cores takes three TF32 passes (split TF32), so
+# its least time is 3 x operations / PEAK_TF32.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
+TF32_PASSES = 3
 #: kernel vs plain version: fp32 sums taken in another order. An entry
 #: F_ij sums R terms u_ri w_rj, and reordering the sum moves it by a few
 #: fp32 roundings of sum_r |u_ri w_rj| <= sqrt(F_ii F_jj) (Cauchy-Schwarz),
@@ -805,9 +820,11 @@ def attn_calls(q, k, v, mask, dl, dpv, starts, causal):
 
 
 def attn_bound(name, bh, lq, lk, d, starts, causal):
-    """(bytes ms, operations ms) of one launch: each input read once, each
-    output written once; 4D (K4), 6D (K5a) or 8D (K5b) fp32 operations per
-    (query, key) pair the causal mask keeps."""
+    """(bytes ms, fp32 operations ms, tensor-core operations ms) of one
+    launch: each input read once, each output written once; 4D (K4), 6D
+    (K5a) or 8D (K5b) operations per (query, key) pair the causal mask
+    keeps, over the fp32 rate and, three TF32 passes each, over the TF32
+    tensor-core rate."""
     if causal:
         qpos = starts[0] + np.arange(lq)
         pairs = bh * int(np.clip(qpos - starts[1] + 1, 0, lk).sum())
@@ -821,8 +838,9 @@ def attn_bound(name, bh, lq, lk, d, starts, causal):
     else:
         nbytes, per_pair = (qkv + (2 * bh * lq + bh * lq * d) * 4
                             + 2 * bh * lk * d * 4), 8
-    return (nbytes / PEAK_BYTES * 1e3,
-            pairs * per_pair * d / PEAK_FP32 * 1e3)
+    ops = pairs * per_pair * d
+    return (nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3,
+            TF32_PASSES * ops / PEAK_TF32 * 1e3)
 
 
 ATTN_KERNELS = ('K4 flash_fwd', 'K5a flash_bwd_dq', 'K5b flash_bwd_dkv')
@@ -854,15 +872,17 @@ def check_attention(n_layer, n_head):
                          f'{err:.3e} outside {ATTN_TOL[o]}')
             if ci:
                 continue
-            bytes_ms, ops_ms = attn_bound(name, bh, lq, lk, d, starts,
-                                          causal)
+            if name.startswith('K5'):
+                check_bitwise_repeat(name, kern, outs)
+            bytes_ms, fp32_ms, tc_ms = attn_bound(name, bh, lq, lk, d,
+                                                  starts, causal)
             rows.append({'path': 'transformer_lm', 'kernel': name,
                          'shape': [bh, lq, lk, d], 'causal': causal,
                          'per_step': n_layer, 'ms': time_ms(kern),
                          'wrapper_ms': time_ms(kern, hide_host=False),
                          'plain_ms': time_ms(plain), 'bytes_ms': bytes_ms,
-                         'ops_ms': ops_ms,
-                         'bound_ms': max(bytes_ms, ops_ms)})
+                         'ops_ms': tc_ms, 'ops_ms_fp32': fp32_ms,
+                         'bound_ms': max(bytes_ms, tc_ms)})
         if ci == 0:
             library = library_attention_ms(*inputs[:3], n_head)
             for r in rows:
@@ -874,7 +894,120 @@ def check_attention(n_layer, n_head):
     print(f'attention kernels vs plain: the main shape and '
           f'{len(ATTN_OFF_PATH)} off-path geometries, max |err| '
           f'{json.dumps(worst)}', flush=True)
+    check_misaligned(gen)
     return rows
+
+
+def check_misaligned(gen):
+    """The attention kernels read rows as 16-byte vectors: each wrapper
+    must raise ValueError, and launch nothing, when one of the tensors it
+    reads so (q, k, v, dpv) is a contiguous view starting 4 bytes into its
+    storage."""
+    from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
+    bh, lq, lk, d = 2, 64, 64, 32
+    q, k, v, mask, dl, dpv = attn_inputs(bh, lq, lk, d, False, gen)
+    m = ak._fwd_plain(q, k, v, mask, (0, 0), d ** -0.5, True)[0]
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=t.device)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 == 4
+        return out
+
+    wrappers = {
+        'K4 flash_fwd': (lambda t: ak.flash_fwd(
+            t['q'], t['k'], t['v'], mask, (0, 0), d ** -0.5, True),
+            ('q', 'k', 'v')),
+        'K5a flash_bwd_dq': (lambda t: ak.flash_bwd_dq(
+            t['q'], t['k'], t['v'], mask, m, dl, t['dpv'], (0, 0),
+            d ** -0.5, True), ('q', 'k', 'v', 'dpv')),
+        'K5b flash_bwd_dkv': (lambda t: ak.flash_bwd_dkv(
+            t['q'], t['k'], t['v'], mask, m, dl, t['dpv'], (0, 0),
+            d ** -0.5, True), ('q', 'k', 'v', 'dpv'))}
+    before = read_counts()
+    for name, (call, names) in wrappers.items():
+        for which in names:
+            t = {'q': q, 'k': k, 'v': v, 'dpv': dpv}
+            t[which] = shifted(t[which])
+            try:
+                call(t)
+            except ValueError:
+                continue
+            fail(f'{name}: {which} starting 4 bytes into its storage was '
+                 f'not refused')
+    torch.cuda.synchronize()
+    if read_counts() != before:
+        fail(f'a refused misaligned call launched a kernel: '
+             f'{read_counts()} vs {before}')
+    print('attention wrappers refuse inputs not 16-byte aligned (q, k, v; '
+          'dpv for K5a/K5b)', flush=True)
+
+
+def check_bitwise_repeat(name, kern, outs):
+    """No atomics: two launches on the same inputs give the same bits."""
+    first, second = kern(), kern()
+    torch.cuda.synchronize()
+    for o, a, b in zip(outs, first, second):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail(f'{name} {o}: two runs on the same inputs differ '
+                 f'(max |diff| {float((a - b).abs().max()):.3e})')
+    print(f'{name}: two runs at the main shape bitwise equal', flush=True)
+
+
+def k5_build_report():
+    """Per K5 kernel and head dim: the tensor-core instructions in its SASS
+    (``cuobjdump --dump-sass`` of the built library), ``ptxas -v``'s
+    registers and spills, and the dynamic shared memory and resident blocks
+    per SM. Fails if a K5 kernel has no tensor-core instruction."""
+    import re
+    from kfac_pytorch_tpu_torch.ops import _cuda_build
+    from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
+    lib = _cuda_build.build(os.path.join(_cuda_build.CSRC, 'attention.cu'))
+    cuobjdump = os.path.join(os.path.dirname(_cuda_build.nvcc_path()),
+                             'cuobjdump')
+    dump = subprocess.run([cuobjdump, '--dump-sass', lib],
+                          capture_output=True, text=True, check=True).stdout
+    sass, cur = {}, None
+    for line in dump.splitlines():
+        m = re.search(r'Function : (\S+)', line)
+        if m:
+            cur = m.group(1)
+            sass[cur] = {'HGMMA': 0, 'HMMA': 0}
+        elif cur:
+            for op in sass[cur]:
+                sass[cur][op] += bool(re.search(rf'\b{op}\b', line))
+    ptxas, cur = {}, None
+    with open(_cuda_build.ptxas_log('attention')) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = m.group(1)
+                ptxas[cur] = {}
+            m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                          r'loads', line)
+            if m and cur:
+                ptxas[cur]['spill_bytes'] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r'Used (\d+) registers', line)
+            if m and cur:
+                ptxas[cur]['registers'] = int(m.group(1))
+    report = []
+    for which, kname in (('dq', 'K5a flash_bwd_dq'),
+                         ('dkv', 'K5b flash_bwd_dkv')):
+        for d in ak.HEAD_DIMS:
+            tag = f'{which}_kernelILi{d}E'
+            fn = [f for f in sass if tag in f]
+            if len(fn) != 1:
+                fail(f'{kname} D={d}: no single SASS function matching {tag}')
+            smem, blocks = ak.bwd_occupancy(which, d)
+            row = {'kernel': kname, 'D': d, **sass[fn[0]],
+                   **ptxas.get(fn[0], {}), 'dynamic_smem_bytes': smem,
+                   'blocks_per_sm': blocks}
+            if not row['HGMMA'] + row['HMMA']:
+                fail(f'{kname} D={d}: no tensor-core instruction in its SASS')
+            report.append(row)
+            print(json.dumps(row), flush=True)
+    return report
 
 
 def library_attention_ms(q, k, v, heads):
@@ -1347,6 +1480,7 @@ def main():
     smi = gpu_line()
     print(f'device: {smi}', flush=True)
     build_kernels()
+    k5_report = k5_build_report()
 
     # slice 1: ResNet-32, capture kernels K1/K2
     tr, launches, step_times = run_trainer()
@@ -1377,6 +1511,7 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump({'device': smi, 'shapes': rows, 'kernels': kernels,
+                   'k5_build': k5_report,
                    'step_ms': {'resnet32': step_times,
                                'transformer_lm': lm_times,
                                'resnet32_world2_eigen_bf16': w2['step_ms']},

@@ -4,8 +4,10 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). Libraries land in ``build/kernels/`` at the root of
 the checkout, named by a hash of the source, so an edited source rebuilds
-and concurrent processes never load a half-written file. Nothing here runs
-at import: the first wrapper call on a CUDA tensor builds.
+and concurrent processes never load a half-written file; ``ptxas``'s
+report of each kernel's registers, spills and shared memory lands beside
+the library (:func:`ptxas_log`). Nothing here runs at import: the first
+wrapper call on a CUDA tensor builds.
 """
 
 import ctypes
@@ -57,13 +59,22 @@ def build(source):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{out}.{os.getpid()}.tmp'
     cmd = [nvcc_path(), *ARCH_FLAGS, '-std=c++17', '-O3', '-shared',
-           '-Xcompiler', '-fPIC', '-o', tmp, source]
+           '-Xcompiler', '-fPIC', '-Xptxas', '-v', '-o', tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed ({proc.returncode}) on {source}:\n'
                            f'{proc.stdout}\n{proc.stderr}')
+    with open(f'{tmp}.log', 'w') as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(f'{tmp}.log', f'{out}.log')
     os.replace(tmp, out)
     return out
+
+
+def ptxas_log(name):
+    """The path of ``ptxas -v``'s report for ``csrc/<name>.cu``'s built
+    library (registers, spills and shared memory of each kernel)."""
+    return _lib_path(os.path.join(CSRC, f'{name}.cu')) + '.log'
 
 
 def load(name):

@@ -11,6 +11,10 @@ Three hand-written CUDA kernels for Hopper, in ``csrc/attention.cu``:
   ``dv``, accumulated inside one block per key tile (no atomics, so the
   same bits on every run).
 
+K5a and K5b run every product on the tensor cores (``wgmma``) as split
+TF32: each fp32 operand is split into two TF32 values and a product
+takes three TF32 passes, which keeps fp32 accuracy.
+
 :class:`FlashBlockAttn` (through :func:`flash_block_attn`) plays the part
 of the JAX ``jax.custom_vjp``: ``m`` is a constant shift, so it is marked
 non-differentiable and its cotangent is ignored; the backward runs K5a
@@ -28,9 +32,10 @@ key at or past ``Lk`` contributes nothing), so the TPU's padding to
 multiples of 8/128 is not needed.
 
 What bounds them on an H100: each causal (query, key) pair costs 4D (K4),
-6D (K5a) or 8D (K5b) fp32 operations against a few bytes per row, so all
-three are bound by fp32 FMA throughput (TF32 is off); the source says what
-the design does about it.
+6D (K5a) or 8D (K5b) operations against a few bytes per row, so all three
+are bound by arithmetic: K4 by fp32 FMA throughput, K5a/K5b by TF32
+tensor-core throughput taken three times; the source says what the
+design does about it.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version beside each wrapper (the same function, used by the tests); a
@@ -65,8 +70,9 @@ def _kernels():
         lib.kfac_flash_fwd.argtypes = [p] * 4 + scalars + [p] * 4
         lib.kfac_flash_bwd_dq.argtypes = [p] * 7 + scalars + [p] * 2
         lib.kfac_flash_bwd_dkv.argtypes = [p] * 7 + scalars + [p] * 3
+        lib.kfac_flash_bwd_occupancy.argtypes = [i, i, p, p]
         for fn in (lib.kfac_flash_fwd, lib.kfac_flash_bwd_dq,
-                   lib.kfac_flash_bwd_dkv):
+                   lib.kfac_flash_bwd_dkv, lib.kfac_flash_bwd_occupancy):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -97,10 +103,25 @@ def _check(q, k, v, kv_mask, *rest):
     if q.shape[2] not in HEAD_DIMS:
         raise ValueError(f'attention kernels take head dims {HEAD_DIMS}, '
                          f'got {q.shape[2]}')
+    if any(t.data_ptr() % 16 for t in (q, k, v) + rest[2:]):
+        raise ValueError('attention kernels read rows as 16-byte vectors: '
+                         'q, k, v and dpv must start 16-byte aligned')
     if q.shape[0] > 65535:
         raise ValueError(f'attention kernels take at most 65535 (batch x '
                          f'head) rows, got {q.shape[0]}')
     return 'cuda'
+
+
+def bwd_occupancy(which, d):
+    """``(dynamic shared memory bytes, blocks resident per SM)`` of K5a
+    (``which`` 'dq') or K5b ('dkv') at head dim ``d``, from the CUDA
+    occupancy calculator."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    err = _kernels().kfac_flash_bwd_occupancy(
+        {'dq': 0, 'dkv': 1}[which], d, ctypes.addressof(smem),
+        ctypes.addressof(blocks))
+    _raise_on(err, f'bwd_occupancy({which}, {d})')
+    return smem.value, blocks.value
 
 
 def _scalars(q, k, starts, scale, causal):

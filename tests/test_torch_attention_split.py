@@ -1,0 +1,159 @@
+"""The numerics of K5a/K5b's split TF32 products, emulated on the CPU.
+
+The backward kernels in ``csrc/attention.cu`` take every product on the
+tensor cores as split TF32: each fp32 operand ``x`` becomes ``big =
+cvt.rna.tf32.f32(x)`` and ``small = cvt.rna.tf32.f32(x - big)``, and a
+product is ``small*big + big*small + big*big`` summed in fp32. This file
+emulates the conversion in numpy (round to nearest, ties away from zero,
+the 13 low mantissa bits dropped), checks that ``big + small`` gives
+``x`` back, and reruns the plain backward (``_bwd_dq_plain``,
+``_bwd_dkv_plain``) with every matrix product taken that way, held to
+``chip_smoke.py``'s ``ATTN_TOL`` against the same function in float64.
+One TF32 pass is run beside it and its error printed, not asserted.
+"""
+
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from torch.overrides import TorchFunctionMode
+
+from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
+
+torch.set_num_threads(2)
+
+#: chip_smoke.py's ATTN_TOL for the gradients: |got - want| <= tol * (1 +
+#: |want|)
+GRAD_TOL = 2e-4
+
+
+def tf32_rna(x):
+    """``cvt.rna.tf32.f32`` on float32 values: round the magnitude to 10
+    mantissa bits, ties away from zero (add half of the 13 dropped bits'
+    range to the sign-magnitude pattern, then clear them). Inf and NaN
+    pass through."""
+    x = np.asarray(x, dtype=np.float32)
+    u = x.view(np.uint32)
+    special = (u & 0x7F800000) == 0x7F800000
+    r = np.where(special, u, (u + np.uint32(0x1000)) & np.uint32(0xFFFFE000))
+    return r.astype(np.uint32).view(np.float32)
+
+
+def split(x):
+    """``(big, small)``, both TF32 values in float32."""
+    x = np.asarray(x, dtype=np.float32)
+    big = tf32_rna(x)
+    return big, tf32_rna(x - big)
+
+
+def split_t(t):
+    big, small = split(t.detach().numpy())
+    return torch.from_numpy(big), torch.from_numpy(small)
+
+
+def split_matmul(a, b):
+    """``a @ b`` as the kernels take it: three TF32 passes summed in fp32
+    (a product of two TF32 values is exact in fp32)."""
+    ab, as_ = split_t(a)
+    bb, bs = split_t(b)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def tf32_matmul(a, b):
+    """One TF32 pass: both operands rounded, summed in fp32."""
+    return split_t(a)[0] @ split_t(b)[0]
+
+
+class Products(TorchFunctionMode):
+    """Every float32 matrix product in the block taken by ``mm``."""
+
+    def __init__(self, mm):
+        super().__init__()
+        self.mm = mm
+        self.calls = 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if getattr(func, '__name__', None) in ('matmul', '__matmul__') \
+                and args[0].dtype == torch.float32:
+            self.calls += 1
+            return self.mm(*args)
+        return func(*args, **kwargs)
+
+
+def test_rna_rounds_ties_away_from_zero():
+    one = np.float32(1.0)
+    half = np.float32(2.0 ** -11)  # half a TF32 unit in the last place at 1
+    x = np.array([one + half, -(one + half), one + half / 2,
+                  one + 3 * half, np.float32(np.inf), np.float32(-0.0)],
+                 dtype=np.float32)
+    want = np.array([1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0,
+                     1 + 2.0 ** -9, np.inf, -0.0], dtype=np.float32)
+    np.testing.assert_array_equal(tf32_rna(x), want)
+    assert np.isnan(tf32_rna(np.float32(np.nan)))
+
+
+@settings(max_examples=500, deadline=None)
+@given(st.floats(min_value=-2.0 ** 127, max_value=2.0 ** 127,
+                 allow_nan=False, allow_infinity=False, width=32))
+def test_split_reconstructs_fp32(x):
+    """``big + small`` is ``x`` to 2^-22 of ``|x|`` (plus 2^-137 where the
+    small half is subnormal), and both halves are TF32 values."""
+    x = np.float32(x)
+    big, small = split(x)
+    assert (big.view(np.uint32) & 0x1FFF) == 0
+    assert (small.view(np.uint32) & 0x1FFF) == 0
+    err = abs(float(big) + float(small) - float(x))
+    assert err <= 2.0 ** -22 * abs(float(x)) + 2.0 ** -137
+
+
+def _inputs(bh, lq, lk, d, starts, causal, seed):
+    rng = np.random.RandomState(seed)
+    q, dpv = (rng.randn(bh, lq, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(bh, lk, d).astype(np.float32) for _ in range(2))
+    mask = (rng.rand(bh, lk) > 0.2).astype(np.float32)
+    mask[:, 3] = 0.0  # a masked key in every row's first tile
+    dl = rng.randn(bh, lq).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (q, k, v, mask)]
+    m = ak._fwd_plain(*[a.double() for a in t], starts, d ** -0.5,
+                      causal)[0].float()
+    return t + [m, torch.from_numpy(dl), torch.from_numpy(dpv)]
+
+
+#: (BH, Lq, Lk, D, starts, causal): a causal block with offsets, ragged
+#: lengths (not tile multiples) and a masked key; and a non-causal one at
+#: head dim 16 with Lq != Lk
+GEOMETRIES = [(2, 192, 160, 32, (64, 32), True),
+              (2, 72, 40, 16, (0, 0), False)]
+
+
+@pytest.mark.parametrize('geometry', GEOMETRIES)
+@pytest.mark.parametrize('kernel', ['dq', 'dkv'])
+def test_split_backward_meets_attn_tol(kernel, geometry):
+    bh, lq, lk, d, starts, causal = geometry
+    x = _inputs(bh, lq, lk, d, starts, causal, seed=lq + d)
+    fn = {'dq': ak._bwd_dq_plain, 'dkv': ak._bwd_dkv_plain}[kernel]
+    names = {'dq': ('dq',), 'dkv': ('dk', 'dv')}[kernel]
+
+    def run(args, mm=None):
+        if mm is None:
+            out = fn(*args, starts, d ** -0.5, causal)
+        else:
+            with Products(mm) as mode:
+                out = fn(*args, starts, d ** -0.5, causal)
+            assert mode.calls >= 2 * len(ak._key_blocks(lk))
+        return out if isinstance(out, tuple) else (out,)
+
+    want = run([a.double() for a in x])
+    split3 = run(x, split_matmul)
+    one_pass = run(x, tf32_matmul)
+    for name, w, s, o in zip(names, want, split3, one_pass):
+        err = float((s.double() - w).abs().max())
+        err1 = float((o.double() - w).abs().max())
+        excess = float(((s.double() - w).abs()
+                        - GRAD_TOL * (1 + w.abs())).max())
+        print(f'{name} {geometry}: split TF32 max |err| {err:.3e}, one TF32 '
+              f'pass {err1:.3e} (tolerance {GRAD_TOL} * (1 + |want|))')
+        assert torch.isfinite(s).all()
+        assert excess <= 0, (name, err)
