@@ -25,16 +25,18 @@ launches:
   bitwise, at the world=2 bucket shapes (timed) and at odd sizes with
   special values.
 
-After the build it prints, for K5a and K5b (split-TF32 ``wgmma``) at every
-head dim, the tensor-core instructions in the kernel's SASS (``cuobjdump
---dump-sass``, ``HGMMA``), ``ptxas -v``'s registers and spills, and the
-dynamic shared memory and resident blocks per SM; at the main attention
-shape K5a and K5b must also give the same bits on two runs (no atomics).
-The attention kernels' bound counts their operations at the TF32
-tensor-core rate, three passes (``ops_ms``); the fp32 rate's bound stays
-beside it in the per-shape rows (``ops_ms_fp32``). Each attention wrapper
-must also refuse, with a ValueError, an input that does not start 16-byte
-aligned.
+After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
+fp32 and bf16 inputs, K5a and K5b at every head dim), the tensor-core
+instructions in the kernel's SASS (``cuobjdump --dump-sass``, ``HGMMA``),
+``ptxas -v``'s registers and spills (K1 must not spill), and the dynamic
+shared memory and resident blocks per SM. K1 and K2 at every factor shape
+of the main paths, and K5a and K5b at the main attention shape, must give
+the same bits on two runs (no atomics). K1's and the attention kernels'
+bound counts their operations at the TF32 tensor-core rate, three passes
+(``ops_ms``); the fp32 rate's bound stays beside it in the per-shape rows
+(``ops_ms_fp32``). Each profile must show one ``conv_a_kernel`` a K1 call
+and one device kernel a K2 call. Each attention wrapper must also refuse,
+with a ValueError, an input that does not start 16-byte aligned.
 
   python3 chip_smoke.py
 
@@ -334,8 +336,16 @@ def check_kernels(cases, path):
                 # take one multiply and one add per row each
                 flops = float(nrows) * f * (f + 1)
                 row['bytes_ms'] = nbytes / PEAK_BYTES * 1e3
-                row['ops_ms'] = flops / PEAK_FP32 * 1e3
+                row['ops_ms_fp32'] = flops / PEAK_FP32 * 1e3
+                # K1 runs on the tensor cores, three TF32 passes; K2 on the
+                # fp32 units
+                row['ops_ms'] = (TF32_PASSES * flops / PEAK_TF32 * 1e3
+                                 if case['kernel'] == 'K1 conv_a'
+                                 else row['ops_ms_fp32'])
                 row['bound_ms'] = max(row['bytes_ms'], row['ops_ms'])
+                check_bitwise_repeat(f"{case['kernel']} {case['what']} "
+                                     f'{tuple(x.shape)}',
+                                     lambda: (kern(),), ('stat',))
             rows_out.append(row)
             print(json.dumps(row), flush=True)
     return rows_out
@@ -347,8 +357,14 @@ def check_kernels(cases, path):
 #: strides, padding, bias) for K1, (rows shape, bias) for K2's dense A
 OFF_PATH_K1 = [((8, 9, 9, 6), (3, 3), (2, 2), ((1, 2), (0, 1)), True),
                ((4, 7, 7, 8), (1, 3), (1, 2), 'SAME', True),
-               ((3, 6, 5, 20), (3, 3), (1, 1), 'VALID', False)]
-OFF_PATH_K2 = [((32, 12), True), ((50, 13), True), ((7, 3), False)]
+               ((3, 6, 5, 20), (3, 3), (1, 1), 'VALID', False),
+               # F = 289 (> 256, odd: a third chunk) and F = 45 (not a
+               # multiple of 8)
+               ((4, 12, 12, 32), (3, 3), (1, 1), 'SAME', True),
+               ((6, 10, 10, 5), (3, 3), (1, 1), 'SAME', False)]
+#: ... and K2 tall and narrow with the ones column, short and wide
+OFF_PATH_K2 = [((32, 12), True), ((50, 13), True), ((7, 3), False),
+               ((20000, 64), True), ((3, 1024), True)]
 
 
 def check_off_path():
@@ -498,24 +514,35 @@ def run_trainer():
     return tr, launches, times
 
 
+def per_step(launches):
+    """Wrapper calls a step from a TRAIN_STEPS run's launch counts."""
+    return {k: v // TRAIN_STEPS for k, v in launches.items()}
+
+
 def kernel_group(name):
-    """The port's kernel body a profiler kernel name belongs to, or None
-    (the capture kernels' reduce + EMA serves both K1 and K2)."""
-    if 'partial_kernel' in name:
-        return 'K1 partial_kernel' if 'ConvRows' in name \
-            else 'K2 partial_kernel'
-    if 'reduce_ema_kernel' in name:
-        return 'reduce_ema_kernel'
+    """The port's kernel body a profiler kernel name belongs to, or None:
+    K1 ``conv_a_kernel`` and its split reduce ``split_reduce_kernel``, K2
+    ``stat_tall_kernel`` / ``stat_wide_kernel``, K3, K4, K5a, K5b."""
+    for kernel, body in (('K1', 'conv_a_kernel'),
+                         ('K1', 'split_reduce_kernel'),
+                         ('K2', 'stat_tall_kernel'),
+                         ('K2', 'stat_wide_kernel'),
+                         ('K3', 'ef_quantize_kernel')):
+        if body in name:
+            return f'{kernel} {body}'
     for body in ('fwd_kernel', 'dq_kernel', 'dkv_kernel'):
         if f'::{body}<' in name:
             return f'attention {body}'
     return None
 
 
-def profile_steps(tr, batches, label, steps=3):
+def profile_steps(tr, batches, label, per_step, steps=3):
     """Device time by kernel over ``steps`` factor-update steps without a
     decomposition (torch.profiler), after one warm step, and the device's
-    busy share of the wall time. Returns the summary dict."""
+    busy share of the wall time. Fails unless the profile shows K1's and
+    K2's bodies launched as often as ``per_step`` (wrapper calls a step by
+    kernel name) says: one device kernel a K2 call, one ``conv_a_kernel``
+    a K1 call. Returns the summary dict."""
     from torch.profiler import ProfilerActivity, profile
     tr.train_step(next(batches))
     torch.cuda.synchronize()
@@ -537,13 +564,15 @@ def profile_steps(tr, batches, label, steps=3):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     # the port's own kernels' device time per step, by body
-    ours = {}
-    for ms, _, k in rows:
+    ours, calls = {}, {}
+    for ms, n, k in rows:
         group = kernel_group(k)
         if group is not None:
             ours[group] = ours.get(group, 0.0) + ms
+            calls[group] = calls.get(group, 0) + n
     out = {'path': label, 'steps': steps, 'wall_ms_per_step': wall / steps,
            'device_ms_per_step': busy, 'port_kernels_ms': ours,
+           'port_kernel_calls_per_step': calls,
            'top': [{'name': k[:80], 'ms_per_step': ms, 'calls_per_step': n}
                    for ms, n, k in rows[:20]]}
     if busy == 0:
@@ -553,7 +582,13 @@ def profile_steps(tr, batches, label, steps=3):
     print(f'profile ({label}): {steps} factor steps, wall '
           f'{wall / steps:.2f} ms/step, device busy {busy:.2f} ms/step '
           f'({100 * busy / (wall / steps):.1f}%), port kernels ms/step '
-          f'{json.dumps(ours)}', flush=True)
+          f'{json.dumps(ours)}, calls/step {json.dumps(calls)}', flush=True)
+    k2 = sum(n for g, n in calls.items() if g.startswith('K2'))
+    if (k2 != per_step['K2 stat_rows']
+            or calls.get('K1 conv_a_kernel', 0) != per_step['K1 conv_a']):
+        fail(f'profile ({label}): device kernels a step {calls}, expected '
+             f"one a call: K1 {per_step['K1 conv_a']}, K2 "
+             f"{per_step['K2 stat_rows']}")
     for ms, n, k in rows[:12]:
         print(f'  {ms:8.3f} ms {n:5d}x  {k[:90]}', flush=True)
     return out
@@ -955,15 +990,13 @@ def check_bitwise_repeat(name, kern, outs):
     print(f'{name}: two runs at the main shape bitwise equal', flush=True)
 
 
-def k5_build_report():
-    """Per K5 kernel and head dim: the tensor-core instructions in its SASS
-    (``cuobjdump --dump-sass`` of the built library), ``ptxas -v``'s
-    registers and spills, and the dynamic shared memory and resident blocks
-    per SM. Fails if a K5 kernel has no tensor-core instruction."""
+def sass_and_ptxas(name):
+    """For ``csrc/<name>.cu``'s built library: per kernel function, its
+    ``HGMMA``/``HMMA`` instructions in the SASS (``cuobjdump --dump-sass``)
+    and ``ptxas -v``'s registers and spill bytes."""
     import re
     from kfac_pytorch_tpu_torch.ops import _cuda_build
-    from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
-    lib = _cuda_build.build(os.path.join(_cuda_build.CSRC, 'attention.cu'))
+    lib = _cuda_build.build(os.path.join(_cuda_build.CSRC, f'{name}.cu'))
     cuobjdump = os.path.join(os.path.dirname(_cuda_build.nvcc_path()),
                              'cuobjdump')
     dump = subprocess.run([cuobjdump, '--dump-sass', lib],
@@ -978,7 +1011,7 @@ def k5_build_report():
             for op in sass[cur]:
                 sass[cur][op] += bool(re.search(rf'\b{op}\b', line))
     ptxas, cur = {}, None
-    with open(_cuda_build.ptxas_log('attention')) as f:
+    with open(_cuda_build.ptxas_log(name)) as f:
         for line in f:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
@@ -991,7 +1024,45 @@ def k5_build_report():
             m = re.search(r'Used (\d+) registers', line)
             if m and cur:
                 ptxas[cur]['registers'] = int(m.group(1))
+    return sass, ptxas
+
+
+def build_report():
+    """The tensor-core kernels as built: K1 (fp32 and bf16 inputs; one
+    kernel serves every ResNet width, its chunk width chosen per block) and
+    K5a/K5b at every head dim. Per kernel: ``HGMMA``/``HMMA`` counts,
+    registers, spills, dynamic shared memory and resident blocks per SM.
+    Fails if one has no tensor-core instruction, or if K1 spills."""
+    from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
+    from kfac_pytorch_tpu_torch.ops import capture_kernels as ck
     report = []
+
+    def add(kname, fn, sass, ptxas, extra):
+        row = {'kernel': kname, **extra, **sass[fn], **ptxas.get(fn, {})}
+        if not row['HGMMA'] + row['HMMA']:
+            fail(f'{kname} {extra}: no tensor-core instruction in its SASS')
+        report.append(row)
+        print(json.dumps(row), flush=True)
+        return row
+
+    sass, ptxas = sass_and_ptxas('capture')
+    # the power-of-two divisors' kernels (conv_a_kernel<T, true>), the main
+    # path's
+    for dtype, tag in ((torch.float32, 'conv_a_kernelIfLb1E'),
+                       (torch.bfloat16, 'conv_a_kernelI13__nv_bfloat16Lb1E')):
+        fn = [f for f in sass if tag in f]
+        if len(fn) != 1:
+            fail(f'K1 {dtype}: no single SASS function matching {tag}')
+        smem, blocks = ck.conv_a_occupancy(dtype, max(ck.K1_CHUNKS))
+        row = add('K1 conv_a', fn[0], sass, ptxas,
+                  {'dtype': str(dtype)[6:], 'dynamic_smem_bytes': smem,
+                   'blocks_per_sm': blocks,
+                   'smem_bytes_by_chunk': {n: ck.conv_a_occupancy(
+                       dtype, n)[0] for n in ck.K1_CHUNKS}})
+        if row.get('spill_bytes', 0):
+            fail(f'K1 {dtype}: ptxas reports {row["spill_bytes"]} spill '
+                 'bytes')
+    sass, ptxas = sass_and_ptxas('attention')
     for which, kname in (('dq', 'K5a flash_bwd_dq'),
                          ('dkv', 'K5b flash_bwd_dkv')):
         for d in ak.HEAD_DIMS:
@@ -1000,13 +1071,8 @@ def k5_build_report():
             if len(fn) != 1:
                 fail(f'{kname} D={d}: no single SASS function matching {tag}')
             smem, blocks = ak.bwd_occupancy(which, d)
-            row = {'kernel': kname, 'D': d, **sass[fn[0]],
-                   **ptxas.get(fn[0], {}), 'dynamic_smem_bytes': smem,
-                   'blocks_per_sm': blocks}
-            if not row['HGMMA'] + row['HMMA']:
-                fail(f'{kname} D={d}: no tensor-core instruction in its SASS')
-            report.append(row)
-            print(json.dumps(row), flush=True)
+            add(kname, fn[0], sass, ptxas,
+                {'D': d, 'dynamic_smem_bytes': smem, 'blocks_per_sm': blocks})
     return report
 
 
@@ -1480,11 +1546,12 @@ def main():
     smi = gpu_line()
     print(f'device: {smi}', flush=True)
     build_kernels()
-    k5_report = k5_build_report()
+    tc_report = build_report()
 
     # slice 1: ResNet-32, capture kernels K1/K2
     tr, launches, step_times = run_trainer()
-    profiles = [profile_steps(tr, tr.train_loader.epoch(), 'resnet32')]
+    profiles = [profile_steps(tr, tr.train_loader.epoch(), 'resnet32',
+                              per_step(launches))]
     rows = check_kernels(resnet_cases(tr), 'resnet32')
     check_off_path()
     check_agreement()
@@ -1492,7 +1559,8 @@ def main():
 
     # slice 2: the long-context LM, attention kernels K4/K5a/K5b and K2
     lm, lm_launches, lm_times = run_lm_trainer()
-    profiles.append(profile_steps(lm, lm.batches(), 'transformer_lm'))
+    profiles.append(profile_steps(lm, lm.batches(), 'transformer_lm',
+                                  per_step(lm_launches)))
     rows += check_kernels(lm_cases(lm), 'transformer_lm')
     rows += check_attention(lm.args.n_layer, lm.args.n_head)
     del lm
@@ -1511,7 +1579,7 @@ def main():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump({'device': smi, 'shapes': rows, 'kernels': kernels,
-                   'k5_build': k5_report,
+                   'tc_build': tc_report,
                    'step_ms': {'resnet32': step_times,
                                'transformer_lm': lm_times,
                                'resnet32_world2_eigen_bf16': w2['step_ms']},

@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). Libraries land in ``build/kernels/`` at the root of
-the checkout, named by a hash of the source, so an edited source rebuilds
-and concurrent processes never load a half-written file; ``ptxas``'s
+the checkout, named by a hash of the source and of the headers beside
+it, so an edited source or header rebuilds and concurrent processes never
+load a half-written file; ``ptxas``'s
 report of each kernel's registers, spills and shared memory lands beside
 the library (:func:`ptxas_log`). Nothing here runs at import: the first
 wrapper call on a CUDA tensor builds.
@@ -44,8 +45,16 @@ def nvcc_path():
 
 
 def _lib_path(source):
-    with open(source, 'rb') as f:
-        digest = hashlib.sha1(f.read() + ' '.join(ARCH_FLAGS).encode())
+    """The library of ``source``, named by a hash of the source, of every
+    header beside it (``*.cuh``, which any source may include) and of the
+    target flags."""
+    digest = hashlib.sha1(' '.join(ARCH_FLAGS).encode())
+    here = os.path.dirname(source)
+    headers = sorted(n for n in os.listdir(here) if n.endswith('.cuh'))
+    for path in [source] + [os.path.join(here, n) for n in headers]:
+        with open(path, 'rb') as f:
+            digest.update(os.path.basename(path).encode() + b'\0'
+                          + f.read())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f'lib{stem}-{digest.hexdigest()[:12]}.so')
 

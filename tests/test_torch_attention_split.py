@@ -4,9 +4,9 @@ The backward kernels in ``csrc/attention.cu`` take every product on the
 tensor cores as split TF32: each fp32 operand ``x`` becomes ``big =
 cvt.rna.tf32.f32(x)`` and ``small = cvt.rna.tf32.f32(x - big)``, and a
 product is ``small*big + big*small + big*big`` summed in fp32. This file
-emulates the conversion in numpy (round to nearest, ties away from zero,
-the 13 low mantissa bits dropped), checks that ``big + small`` gives
-``x`` back, and reruns the plain backward (``_bwd_dq_plain``,
+emulates the conversion in numpy (``tests/torch_tf32.py``: round to
+nearest, ties away from zero, the 13 low mantissa bits dropped), checks
+that ``big + small`` gives ``x`` back, and reruns the plain backward (``_bwd_dq_plain``,
 ``_bwd_dkv_plain``) with every matrix product taken that way, held to
 ``chip_smoke.py``'s ``ATTN_TOL`` against the same function in float64.
 One TF32 pass is run beside it and its error printed, not asserted.
@@ -20,49 +20,13 @@ from hypothesis import strategies as st
 from torch.overrides import TorchFunctionMode
 
 from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
+from torch_tf32 import split, split_matmul, tf32_matmul, tf32_rna
 
 torch.set_num_threads(2)
 
 #: chip_smoke.py's ATTN_TOL for the gradients: |got - want| <= tol * (1 +
 #: |want|)
 GRAD_TOL = 2e-4
-
-
-def tf32_rna(x):
-    """``cvt.rna.tf32.f32`` on float32 values: round the magnitude to 10
-    mantissa bits, ties away from zero (add half of the 13 dropped bits'
-    range to the sign-magnitude pattern, then clear them). Inf and NaN
-    pass through."""
-    x = np.asarray(x, dtype=np.float32)
-    u = x.view(np.uint32)
-    special = (u & 0x7F800000) == 0x7F800000
-    r = np.where(special, u, (u + np.uint32(0x1000)) & np.uint32(0xFFFFE000))
-    return r.astype(np.uint32).view(np.float32)
-
-
-def split(x):
-    """``(big, small)``, both TF32 values in float32."""
-    x = np.asarray(x, dtype=np.float32)
-    big = tf32_rna(x)
-    return big, tf32_rna(x - big)
-
-
-def split_t(t):
-    big, small = split(t.detach().numpy())
-    return torch.from_numpy(big), torch.from_numpy(small)
-
-
-def split_matmul(a, b):
-    """``a @ b`` as the kernels take it: three TF32 passes summed in fp32
-    (a product of two TF32 values is exact in fp32)."""
-    ab, as_ = split_t(a)
-    bb, bs = split_t(b)
-    return as_ @ bb + ab @ bs + ab @ bb
-
-
-def tf32_matmul(a, b):
-    """One TF32 pass: both operands rounded, summed in fp32."""
-    return split_t(a)[0] @ split_t(b)[0]
 
 
 class Products(TorchFunctionMode):
