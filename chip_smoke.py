@@ -26,17 +26,18 @@ launches:
   special values.
 
 After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
-fp32 and bf16 inputs, K5a and K5b at every head dim), the tensor-core
+fp32 and bf16 inputs, K4, K5a and K5b at every head dim), the tensor-core
 instructions in the kernel's SASS (``cuobjdump --dump-sass``, ``HGMMA``),
-``ptxas -v``'s registers and spills (K1 must not spill), and the dynamic
-shared memory and resident blocks per SM. K1 and K2 at every factor shape
-of the main paths, and K5a and K5b at the main attention shape, must give
-the same bits on two runs (no atomics). K1's and the attention kernels'
-bound counts their operations at the TF32 tensor-core rate, three passes
-(``ops_ms``); the fp32 rate's bound stays beside it in the per-shape rows
-(``ops_ms_fp32``). Each profile must show one ``conv_a_kernel`` a K1 call
-and one device kernel a K2 call. Each attention wrapper must also refuse,
-with a ValueError, an input that does not start 16-byte aligned.
+``ptxas -v``'s registers and spills (K1 and K4 must not spill), and the
+dynamic shared memory and resident blocks per SM. K1 and K2 at every
+factor shape of the main paths, and K4, K5a and K5b at the main attention
+shape, must give the same bits on two runs (no atomics). K1's and the
+attention kernels' bound counts their operations at the TF32 tensor-core
+rate, three passes (``ops_ms``); the fp32 rate's bound stays beside it in
+the per-shape rows (``ops_ms_fp32``). Each profile must show one
+``conv_a_kernel`` a K1 call and one device kernel a K2 call. Each
+attention wrapper must also refuse, with a ValueError, an input that does
+not start 16-byte aligned.
 
   python3 chip_smoke.py
 
@@ -450,6 +451,10 @@ def kernel_summary(rows, launches):
             'bound_by': ('operations' if tot('ops_ms') >= tot('bytes_ms')
                          else 'bytes'),
             'library_ms': tot('library_ms') if has_library else None}
+        if name.startswith('K4'):
+            row['library_note'] = ('scaled_dot_product_attention forward, '
+                                   'the normalized output (K4 returns the '
+                                   'unnormalized m, l, pv)')
         if name.startswith('K5'):
             row['library_note'] = ('scaled_dot_product_attention backward, '
                                    'dq, dk and dv together (K5a + K5b)')
@@ -907,8 +912,7 @@ def check_attention(n_layer, n_head):
                          f'{err:.3e} outside {ATTN_TOL[o]}')
             if ci:
                 continue
-            if name.startswith('K5'):
-                check_bitwise_repeat(name, kern, outs)
+            check_bitwise_repeat(name, kern, outs)
             bytes_ms, fp32_ms, tc_ms = attn_bound(name, bh, lq, lk, d,
                                                   starts, causal)
             rows.append({'path': 'transformer_lm', 'kernel': name,
@@ -1030,9 +1034,9 @@ def sass_and_ptxas(name):
 def build_report():
     """The tensor-core kernels as built: K1 (fp32 and bf16 inputs; one
     kernel serves every ResNet width, its chunk width chosen per block) and
-    K5a/K5b at every head dim. Per kernel: ``HGMMA``/``HMMA`` counts,
+    K4/K5a/K5b at every head dim. Per kernel: ``HGMMA``/``HMMA`` counts,
     registers, spills, dynamic shared memory and resident blocks per SM.
-    Fails if one has no tensor-core instruction, or if K1 spills."""
+    Fails if one has no tensor-core instruction, or if K1 or K4 spills."""
     from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
     from kfac_pytorch_tpu_torch.ops import capture_kernels as ck
     report = []
@@ -1063,16 +1067,20 @@ def build_report():
             fail(f'K1 {dtype}: ptxas reports {row["spill_bytes"]} spill '
                  'bytes')
     sass, ptxas = sass_and_ptxas('attention')
-    for which, kname in (('dq', 'K5a flash_bwd_dq'),
+    for which, kname in (('fwd', 'K4 flash_fwd'), ('dq', 'K5a flash_bwd_dq'),
                          ('dkv', 'K5b flash_bwd_dkv')):
         for d in ak.HEAD_DIMS:
             tag = f'{which}_kernelILi{d}E'
             fn = [f for f in sass if tag in f]
             if len(fn) != 1:
                 fail(f'{kname} D={d}: no single SASS function matching {tag}')
-            smem, blocks = ak.bwd_occupancy(which, d)
-            add(kname, fn[0], sass, ptxas,
-                {'D': d, 'dynamic_smem_bytes': smem, 'blocks_per_sm': blocks})
+            smem, blocks = ak.occupancy(which, d)
+            row = add(kname, fn[0], sass, ptxas,
+                      {'D': d, 'dynamic_smem_bytes': smem,
+                       'blocks_per_sm': blocks})
+            if which == 'fwd' and row.get('spill_bytes', 0):
+                fail(f'K4 D={d}: ptxas reports {row["spill_bytes"]} spill '
+                     'bytes')
     return report
 
 

@@ -18,34 +18,32 @@
 // a few bytes of q/k/v per row, so all three are bound by arithmetic, not
 // by memory.
 //
-// K4 runs fp32 FMAs (67 TFLOP/s): one 256-thread block per 64-row query
-// tile of one (batch, head), four threads per row, the key tiles walked in
-// a loop with the online-softmax state in registers; scores and
-// probabilities of the current tile pass through shared memory, read as
-// 16-byte loads that most lanes share.
-//
-// K5a and K5b run on the tensor cores at fp32 accuracy, so they are bound
-// by TF32 tensor-core throughput taken three times (495 TFLOP/s / 3). Every
+// All three run on the tensor cores at fp32 accuracy, so they are bound by
+// TF32 tensor-core throughput taken three times (495 TFLOP/s / 3). Every
 // product is split TF32: each fp32 operand x becomes big = rna_tf32(x) and
 // small = rna_tf32(x - big) (x = big + small to 2^-22 |x|), and a product
 // is small*big + big*small + big*big, summed in fp32 -- one TF32 pass
 // rounds each input to 2^-11 and the exp of the scores amplifies it. The
 // split is made once per value: where a tile is staged, or where a scores
 // accumulator becomes an operand. One warpgroup (128 threads) owns one
-// 64-row tile of its side (queries for K5a, keys for K5b) of one (batch,
-// head) and walks the other side's 64-row tiles in a loop:
+// 64-row tile of its side (queries for K4 and K5a, keys for K5b) of one
+// (batch, head) and walks the other side's 64-row tiles in a loop:
 //
-//   K5a  s = q k^T, dp = dpv v^T (wgmma m64n64k8, both operands in shared
-//        memory); ds = p (dl + dp) in registers; dq += ds k (m64nDk8, ds
-//        from registers).
+//   K4   s = q k^T (wgmma m64n64k8, both operands in shared memory); the
+//        online softmax in registers (the row max over the four lanes
+//        that hold an accumulator row, m_new = max(m, max_j s),
+//        p = exp(s - m_new), l = l exp(m - m_new) + sum_j p); then
+//        pv = pv exp(m - m_new) + p v (m64nDk8, p from registers).
+//   K5a  s = q k^T, dp = dpv v^T; ds = p (dl + dp) in registers;
+//        dq += ds k (m64nDk8, ds from registers).
 //   K5b  s^T = k q^T, dp^T = v dpv^T; dk += ds^T q, dv += p^T dpv.
 //
 // Two traps of TF32 wgmma and what the design does about them:
 //  - Both operands of a TF32 wgmma must be K-major in shared memory (only
 //    16-bit types can be transposed), and q k^T, dpv v^T, k q^T and
-//    v dpv^T are K-major as the data lies, but ds k, ds^T q and p^T dpv need
-//    k, q and dpv transposed. Those tiles are written a second time,
-//    transposed, when they are split.
+//    v dpv^T are K-major as the data lies, but p v, ds k, ds^T q and
+//    p^T dpv need v, k, q and dpv transposed. Those tiles are written
+//    transposed when they are split (K4's v only so).
 //  - A thread's accumulator holds columns (2t, 2t+1) of every 8, where the
 //    k8 A fragment in registers wants columns (t, t+4). Rather than send
 //    p or ds through shared memory, the transposed copy orders B's rows of
@@ -56,14 +54,15 @@
 // bytes). The other side's tiles stream through a ring of two stages filled
 // by cp.async (rows at or past L read nothing and land as zeros), so tile
 // j+1 loads while tile j is split and multiplied; a stage is split in place
-// (big over the raw values). The two score products are committed apart,
-// so p is taken while the dp product still runs. Each tile's dq (dk, dv)
-// product starts from zero and is added to the running sum in fp32
-// registers: the tensor cores' own accumulation drops low bits at every
-// step, and carried over the whole loop that loss would build up. Shared
-// memory per block, T = 64 D floats: K5a 12 T + 192 floats (96.8 KB at
-// D = 32), K5b 14 T + 256 floats (113 KB at D = 32, two blocks an SM;
-// 225 KB at D = 64, one).
+// (big over the raw values). K4 writes v's transposed pair while q k^T
+// runs; K5 commits its two score products apart, so p is taken while the
+// dp product still runs. Each tile's pv (dq, dk, dv) product starts from
+// zero and is added to the running sum in fp32 registers (for K4 the
+// Pallas acc * c + dot): the tensor cores' own accumulation drops low bits
+// at every step, and carried over the whole loop that loss would build up.
+// Shared memory per block, T = 64 D floats: K4 9 T + 192 floats (72.8 KB
+// at D = 32), K5a 12 T + 192 floats (96.8 KB at D = 32), K5b 14 T + 256
+// floats (113 KB at D = 32, two blocks an SM; 225 KB at D = 64, one).
 //
 // The TPU kernels run a serial grid whose innermost axis walks the other
 // side's tiles and carries the online-softmax state (or the gradient
@@ -79,10 +78,11 @@
 // `last_q >= first_k` condition with global q_start/k_start offsets, the
 // last query clipped to Lq), decided at 64-row tiles on both sides; a row
 // whose every tile is skipped emits m = -1e30, l = 0, pv = 0 (K4) and
-// zero gradients. The backward recomputes p = exp(min(s - m, 0)) and
-// ds = p * (dl + dpv . v). Ragged lengths are bounds-checked: a key at or
-// past Lk contributes nothing, a query at or past Lq is neither written
-// nor contributes.
+// zero gradients. K4 starts m at -1e30 and takes p = exp(s - m_new), as
+// the Pallas forward does; the backward recomputes p = exp(min(s - m, 0))
+// and ds = p * (dl + dpv . v). Ragged lengths are bounds-checked: a key at
+// or past Lk contributes nothing (its bias is -inf), a query at or past
+// Lq is neither written nor contributes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -92,19 +92,9 @@
 
 namespace {
 
-constexpr int kTile = 64;                // rows of one tile (both sides)
-constexpr int kLanes = 4;                // threads that share one row
-constexpr int kThreads = kTile * kLanes;
-constexpr int kPer = kTile / kLanes;     // other-side rows per thread per tile
-constexpr int kPS = kTile + 4;           // row stride of the [kTile, kTile] tiles
-constexpr float kMaskBias = -1e30f;      // the JAX package's _NEG_INF
-
-// Row stride of a staged [kTile, D] tile: D + 4 keeps rows 16-byte aligned
-// and puts the four rows that one warp reads at once on distinct banks.
-template <int D>
-__host__ __device__ constexpr int row_stride() {
-  return D + 4;
-}
+constexpr int kTile = 64;            // rows of one tile (both sides)
+constexpr int kWgThreads = 128;      // one warpgroup: four warps of 16 rows
+constexpr float kMaskBias = -1e30f;  // the JAX package's _NEG_INF
 
 // Whether the (query tile iq, key tile j) pair is computed: the Pallas
 // `last_q >= first_k` causal skip, with the tile's last query clipped to
@@ -116,7 +106,8 @@ __device__ __forceinline__ bool tile_needed(int causal, int q_start,
          q_start + min((iq + 1) * kTile, Lq) - 1 >= k_start + j * kTile;
 }
 
-// Max and sum over the four lanes of one row (adjacent lanes of a warp).
+// Max and sum over the four lanes that hold one accumulator row (lanes
+// 4g..4g+3 of a warp).
 __device__ __forceinline__ float row_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -126,198 +117,11 @@ __device__ __forceinline__ float row_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int D>
-__device__ __forceinline__ float dot_row(const float (&reg)[D],
-                                         const float* sm) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(sm + d);
-    acc = fmaf(reg[d], x.x, acc);
-    acc = fmaf(reg[d + 1], x.y, acc);
-    acc = fmaf(reg[d + 2], x.z, acc);
-    acc = fmaf(reg[d + 3], x.w, acc);
-  }
-  return acc;
-}
-
-// out[jj] += sum_r w[r] * tile[r][c*DC + jj] over the kTile rows of a
-// staged tile, w read four at a time from a [kTile] row of shared memory.
-template <int D>
-__device__ __forceinline__ void weighted_rows(const float* w, const float* tile,
-                                              int c, float (&out)[D / kLanes]) {
-  constexpr int DC = D / kLanes;
-  constexpr int SD = row_stride<D>();
-#pragma unroll 2
-  for (int r = 0; r < kTile; r += 4) {
-    const float4 w4 = *reinterpret_cast<const float4*>(w + r);
-    const float ws[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float* src = tile + (r + u) * SD + c * DC;
-#pragma unroll
-      for (int jj = 0; jj < DC; jj += 4) {
-        const float4 x = *reinterpret_cast<const float4*>(src + jj);
-        out[jj] = fmaf(ws[u], x.x, out[jj]);
-        out[jj + 1] = fmaf(ws[u], x.y, out[jj + 1]);
-        out[jj + 2] = fmaf(ws[u], x.z, out[jj + 2]);
-        out[jj + 3] = fmaf(ws[u], x.w, out[jj + 3]);
-      }
-    }
-  }
-}
-
-// Copy rows [row0, row0 + kTile) of a [L, D] matrix into a staged tile,
-// zero past L.
-template <int D>
-__device__ __forceinline__ void stage(const float* __restrict__ src, int L,
-                                      int row0, float* dst) {
-  constexpr int SD = row_stride<D>();
-  constexpr int V = D / 4;
-  for (int e = threadIdx.x; e < kTile * V; e += kThreads) {
-    const int r = e / V, d4 = e % V;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < L)
-      x = reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D)[d4];
-    *reinterpret_cast<float4*>(dst + r * SD + 4 * d4) = x;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
-                                         bool ok, float (&reg)[D]) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ok) x = reinterpret_cast<const float4*>(src)[d / 4];
-    reg[d] = x.x;
-    reg[d + 1] = x.y;
-    reg[d + 2] = x.z;
-    reg[d + 3] = x.w;
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void store_row(float* dst, int c,
-                                          const float (&val)[D / kLanes],
-                                          float mul) {
-  constexpr int DC = D / kLanes;
-#pragma unroll
-  for (int jj = 0; jj < DC; jj += 4)
-    *reinterpret_cast<float4*>(dst + c * DC + jj) =
-        make_float4(val[jj] * mul, val[jj + 1] * mul, val[jj + 2] * mul,
-                    val[jj + 3] * mul);
-}
-
-// Key-mask bias of the staged key tile: 0 or -1e30, and -inf for a key at
-// or past Lk (it then contributes exp(-inf) = 0 wherever it appears).
-__device__ __forceinline__ void stage_key_bias(const float* __restrict__ mask,
-                                               int Lk, int k0, float* kb) {
-  if (threadIdx.x < kTile) {
-    const int kk = k0 + threadIdx.x;
-    kb[threadIdx.x] =
-        kk < Lk ? (mask[kk] > 0.5f ? 0.f : kMaskBias) : -INFINITY;
-  }
-}
-
-__device__ __forceinline__ float biased(float dot, float scale, int causal,
-                                        int qpos, int kpos, float kbias) {
-  float s = dot * scale;
-  if (causal) s += qpos >= kpos ? 0.f : kMaskBias;
-  return s + kbias;
-}
-
 // ---------------------------------------------------------------------------
-// K4: forward. Block (iq, bh): query tile iq, walking key tiles j in order.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ mask,
-               int Lq, int Lk, int q_start, int k_start, float scale,
-               int causal, float* __restrict__ m_out,
-               float* __restrict__ l_out, float* __restrict__ pv_out) {
-  constexpr int DC = D / kLanes;
-  constexpr int SD = row_stride<D>();
-  extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // [kTile][SD]
-  float* vs = ks + kTile * SD;                  // [kTile][SD]
-  float* ps = vs + kTile * SD;                  // [kTile][kPS]
-  float* kb = ps + kTile * kPS;                 // [kTile]
-
-  const int bh = blockIdx.y;
-  // the last query tiles have the most key tiles below the diagonal:
-  // start them first
-  const int iq = gridDim.x - 1 - blockIdx.x;
-  const int r = threadIdx.x / kLanes, c = threadIdx.x % kLanes;
-  const int row = iq * kTile + r;
-  const bool row_ok = row < Lq;
-  const int qpos = q_start + row;
-  q += (size_t)bh * Lq * D;
-  k += (size_t)bh * Lk * D;
-  v += (size_t)bh * Lk * D;
-  mask += (size_t)bh * Lk;
-
-  float qr[D];
-  load_row<D>(q + (size_t)row * D, row_ok, qr);
-  float acc[DC];
-#pragma unroll
-  for (int jj = 0; jj < DC; ++jj) acc[jj] = 0.f;
-  float m = kMaskBias, l = 0.f;
-
-  const int nk = (Lk + kTile - 1) / kTile;
-  for (int j = 0; j < nk && tile_needed(causal, q_start, k_start, Lq, iq, j);
-       ++j) {
-    __syncthreads();  // the previous tile's readers are done
-    stage<D>(k, Lk, j * kTile, ks);
-    stage<D>(v, Lk, j * kTile, vs);
-    stage_key_bias(mask, Lk, j * kTile, kb);
-    __syncthreads();
-
-    float s[kPer];
-    float mj = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int kr = i * kLanes + c;
-      s[i] = biased(dot_row<D>(qr, ks + kr * SD), scale, causal, qpos,
-                    k_start + j * kTile + kr, kb[kr]);
-      mj = fmaxf(mj, s[i]);
-    }
-    const float mn = fmaxf(m, row_max(mj));
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const float p = expf(s[i] - mn);
-      ps[r * kPS + i * kLanes + c] = p;
-      sum += p;
-    }
-    const float corr = expf(m - mn);
-    l = l * corr + row_sum(sum);
-    m = mn;
-    __syncwarp();  // a row's p are written and read by its own four lanes
-    float pv[DC];
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj) pv[jj] = 0.f;
-    weighted_rows<D>(ps + r * kPS, vs, c, pv);
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj) acc[jj] = acc[jj] * corr + pv[jj];
-  }
-  if (row_ok) {
-    const size_t o = (size_t)bh * Lq + row;
-    if (c == 0) {
-      m_out[o] = m;
-      l_out[o] = l;
-    }
-    store_row<D>(pv_out + o * D, c, acc, 1.f);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K5a and K5b: the backward on the tensor cores. One warpgroup (128
+// The tensor-core building blocks of K4, K5a and K5b: one warpgroup (128
 // threads) per block; see the note at the top of the file.
 // ---------------------------------------------------------------------------
 
-constexpr int kWgThreads = 128;  // one warpgroup: four warps of 16 rows
 
 // wgmma m64nNk8 (N = 16, 32, 64: d holds N/2 values a thread), TF32
 // inputs, A from registers (the k8 fragment a), B from shared memory
@@ -422,15 +226,16 @@ __device__ __forceinline__ void copy_vec_async(const float* __restrict__ src,
 }
 
 // Split a landed plane in place (big over the raw values, small beside
-// it) and, with kTrans, write its transposed pair.
-template <int D, bool kTrans>
+// it; not with !kPlain, which leaves the raw values) and, with kTrans,
+// write its transposed pair.
+template <int D, bool kTrans, bool kPlain = true>
 __device__ __forceinline__ void split_staged(float* big, float* small,
                                              float* tbig, float* tsmall) {
   for (int e = threadIdx.x; e < kTile * D / 4; e += kWgThreads) {
     int r, c;
     core_pos<D>(e, r, c);
     const float4 x = *reinterpret_cast<const float4*>(big + core_off<D>(r, c));
-    store_split<D, kTrans>(x, r, c, big, small, tbig, tsmall);
+    store_split<D, kTrans, kPlain>(x, r, c, big, small, tbig, tsmall);
   }
 }
 
@@ -512,6 +317,192 @@ __device__ __forceinline__ void store_acc(float* dst, int L, int row0,
           make_float2(acc[i] * mul, acc[i + 1] * mul);
   }
 }
+
+// ---------------------------------------------------------------------------
+// K4: forward. Block (iq, bh): query tile iq, walking the key tiles j that
+// the causal skip keeps, in order. Shared memory (floats, T = kTile * D):
+// the query tile's split pair (2T); a ring of two stages, each the raw k
+// and v tiles (k split in place into its big plane) and the raw key mask
+// (2 x (2T + kTile)); k's small plane and v's transposed pair (3T); the
+// key bias.
+// ---------------------------------------------------------------------------
+template <int D>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (9 * kTile * D + 3 * kTile);
+}
+
+// The online softmax of one tile pair [64 queries, 64 keys], p in place
+// over the scores: s * scale + causal bias (kDiag: the pair straddles the
+// causal diagonal; elsewhere that bias is 0 and is not added) + key bias
+// (kb, in shared memory, read in pairs); m_new = max(m, the row's max),
+// p = exp(s - m_new), corr = exp(m - m_new), l = l corr + the row's sum of
+// p. m, l, corr and qpos are of the thread's rows g and g+8 of its warp's
+// 16; a row's 64 columns lie on the four lanes 4g..4g+3.
+template <bool kDiag>
+__device__ __forceinline__ void online_softmax(float (&s)[32], float scale,
+                                               const int (&qpos)[2],
+                                               int kpos0, const float* kb,
+                                               float (&m)[2], float (&l)[2],
+                                               float (&corr)[2]) {
+  const int t = threadIdx.x % 4;
+  float mj[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < kTile / 8; ++n) {
+    const int c0 = 8 * n + 2 * t;
+    const float2 b = *reinterpret_cast<const float2*>(kb + c0);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = 4 * n + u, h = u >> 1;
+      float x = s[i] * scale;
+      if (kDiag) x += qpos[h] >= kpos0 + c0 + (u & 1) ? 0.f : kMaskBias;
+      x += (u & 1) ? b.y : b.x;
+      s[i] = x;
+      mj[h] = fmaxf(mj[h], x);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(m[h], row_max(mj[h]));
+    corr[h] = expf(m[h] - mn);
+    m[h] = mn;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    s[i] = expf(s[i] - m[h]);
+    sum[h] += s[i];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + row_sum(sum[h]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads)
+    fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ mask,
+               int Lq, int Lk, int q_start, int k_start, float scale,
+               int causal, float* __restrict__ m_out,
+               float* __restrict__ l_out, float* __restrict__ pv_out) {
+  constexpr int T = kTile * D;
+  constexpr int kStage = 2 * T + kTile;
+  extern __shared__ float4 smem4[];
+  float* qb = reinterpret_cast<float*>(smem4);
+  float* qs = qb + T;
+  float* ring = qs + T;  // [2][k big | v | mask]
+  float* ksm = ring + 2 * kStage;
+  float* vtb = ksm + T;  // v transposed: [D][kTile], perm_col columns
+  float* vts = vtb + T;
+  float* kb = vts + T;  // [kTile] key bias of the current tile
+
+  const int bh = blockIdx.y;
+  // the last query tiles have the most key tiles below the diagonal:
+  // start them first
+  const int iq = gridDim.x - 1 - blockIdx.x;
+  const int q0 = iq * kTile;
+  q += (size_t)bh * Lq * D;
+  k += (size_t)bh * Lk * D;
+  v += (size_t)bh * Lk * D;
+  mask += (size_t)bh * Lk;
+
+  const int nk = (Lk + kTile - 1) / kTile;
+  int nj = 0;
+  while (nj < nk && tile_needed(causal, q_start, k_start, Lq, iq, nj)) ++nj;
+
+  // the first key tile's copies fly while the block stages its queries
+  if (nj > 0) {
+    copy_rows_async<D>(k, Lk, 0, ring);
+    copy_rows_async<D>(v, Lk, 0, ring + T);
+    copy_vec_async(mask, Lk, 0, ring + 2 * T);
+  }
+  cp_async_commit();
+  load_split<D>(q, Lq, q0, qb, qs);
+  const uint64_t dqb = plane_desc(qb, D), dqs = plane_desc(qs, D);
+  const uint64_t dks = plane_desc(ksm, D);
+  const uint64_t dvtb = plane_desc(vtb, kTile), dvts = plane_desc(vts, kTile);
+
+  int qpos[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    qpos[h] = q_start + q0 + acc_row(2 * h);
+    m[h] = kMaskBias;
+    l[h] = 0.f;
+  }
+  float pv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) pv[i] = 0.f;
+
+  for (int j = 0; j < nj; ++j) {
+    float* stage = ring + (j & 1) * kStage;
+    cp_async_wait_all();
+    __syncthreads();  // tile j has landed; tile j-1's readers are done
+    if (j + 1 < nj) {
+      float* next = ring + ((j + 1) & 1) * kStage;
+      copy_rows_async<D>(k, Lk, (j + 1) * kTile, next);
+      copy_rows_async<D>(v, Lk, (j + 1) * kTile, next + T);
+      copy_vec_async(mask, Lk, (j + 1) * kTile, next + 2 * T);
+    }
+    cp_async_commit();
+    split_staged<D, false>(stage, ksm, nullptr, nullptr);
+    if (threadIdx.x < kTile) {
+      const int kk = j * kTile + threadIdx.x;
+      kb[threadIdx.x] = kk < Lk ? (stage[2 * T + threadIdx.x] > 0.5f
+                                       ? 0.f : kMaskBias)
+                                : -INFINITY;
+    }
+    fence_async_proxy();
+    __syncthreads();
+
+    // s = q k^T, [64 queries, 64 keys]; v's transposed pair is written
+    // while it runs
+    float s[32];
+    wg_fence();
+    scores_3x<D>(s, dqb, dqs, plane_desc(stage, D), dks);
+    wg_commit();
+    split_staged<D, true, false>(stage + T, nullptr, vtb, vts);
+    fence_async_proxy();
+    __syncthreads();
+    wg_wait<0>();
+    reg_fence(s);
+    float corr[2];
+    const int kpos0 = k_start + j * kTile;
+    if (causal && kpos0 + kTile - 1 > q_start + q0)
+      online_softmax<true>(s, scale, qpos, kpos0, kb, m, l, corr);
+    else
+      online_softmax<false>(s, scale, qpos, kpos0, kb, m, l, corr);
+
+    // pv = pv corr + p v, the tile's product from a fresh accumulator
+    uint32_t fb[32], fs[32];
+    float part[D / 2];
+    split_frags(s, fb, fs);
+    wg_fence();
+    weighted_3x<D>(part, fb, fs, dvtb, dvts);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(part);
+    reg_fence(fb);
+    reg_fence(fs);
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i)
+      pv[i] = pv[i] * corr[(i >> 1) & 1] + part[i];
+  }
+  if (threadIdx.x % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + acc_row(2 * h);
+      if (row < Lq) {
+        m_out[(size_t)bh * Lq + row] = m[h];
+        l_out[(size_t)bh * Lq + row] = l[h];
+      }
+    }
+  }
+  store_acc<D>(pv_out + (size_t)bh * Lq * D, Lq, q0, pv, 1.f);
+}
+
+// ---------------------------------------------------------------------------
+// K5a and K5b: the backward.
+// ---------------------------------------------------------------------------
 
 // The probabilities of one tile pair, [64 rows of the block's side, 64 of
 // the other], in place over the scores: p = exp(min(s * scale + causal
@@ -850,18 +841,13 @@ __global__ void __launch_bounds__(kWgThreads)
 }
 
 template <int D>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (2 * kTile * row_stride<D>() + kTile * kPS + kTile);
-}
-
-template <int D>
 int fwd(const float* q, const float* k, const float* v, const float* mask,
         int BH, int Lq, int Lk, int q_start, int k_start, float scale,
         int causal, float* m, float* l, float* pv, cudaStream_t st) {
   const dim3 grid((Lq + kTile - 1) / kTile, BH);
-  return launch<kThreads>(fwd_kernel<D>, grid, fwd_smem<D>(), st, q, k, v,
-                          mask, Lq, Lk, q_start, k_start, scale, causal, m, l,
-                          pv);
+  return launch<kWgThreads>(fwd_kernel<D>, grid, fwd_smem<D>(), st, q, k, v,
+                            mask, Lq, Lk, q_start, k_start, scale, causal, m,
+                            l, pv);
 }
 
 template <int D>
@@ -898,10 +884,13 @@ int occupancy(K kernel, size_t smem, int* smem_bytes, int* blocks) {
 }
 
 template <int D>
-int bwd_occupancy(int which, int* smem_bytes, int* blocks) {
-  return which == 0
-             ? occupancy(dq_kernel<D>, dq_smem<D>(), smem_bytes, blocks)
-             : occupancy(dkv_kernel<D>, dkv_smem<D>(), smem_bytes, blocks);
+int kernel_occupancy(int which, int* smem_bytes, int* blocks) {
+  switch (which) {
+    case 0: return occupancy(fwd_kernel<D>, fwd_smem<D>(), smem_bytes, blocks);
+    case 1: return occupancy(dq_kernel<D>, dq_smem<D>(), smem_bytes, blocks);
+    case 2: return occupancy(dkv_kernel<D>, dkv_smem<D>(), smem_bytes, blocks);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -964,14 +953,13 @@ int kfac_flash_bwd_dkv(const float* q, const float* k, const float* v,
 }
 
 
-// K5a (which = 0) or K5b (which = 1) at head dim D: the dynamic shared
+// K4 (which = 0), K5a (1) or K5b (2) at head dim D: the dynamic shared
 // memory of one block in bytes and the blocks resident on one SM.
-int kfac_flash_bwd_occupancy(int which, int D, int* smem_bytes,
-                             int* blocks) {
+int kfac_flash_occupancy(int which, int D, int* smem_bytes, int* blocks) {
   switch (D) {
-    case 16: return bwd_occupancy<16>(which, smem_bytes, blocks);
-    case 32: return bwd_occupancy<32>(which, smem_bytes, blocks);
-    case 64: return bwd_occupancy<64>(which, smem_bytes, blocks);
+    case 16: return kernel_occupancy<16>(which, smem_bytes, blocks);
+    case 32: return kernel_occupancy<32>(which, smem_bytes, blocks);
+    case 64: return kernel_occupancy<64>(which, smem_bytes, blocks);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
 // Building blocks of the split-TF32 tensor-core kernels (wgmma, sm_90a),
-// shared by csrc/attention.cu (K5a, K5b) and csrc/capture.cu (K1): the
+// shared by csrc/attention.cu (K4, K5a, K5b) and csrc/capture.cu (K1): the
 // no-swizzle K-major operand layout and its descriptors, the TF32 split,
 // cp.async, the wgmma fences, SS products of 64 rows by 32, 64 or 128
 // columns, and the split stores.
@@ -182,9 +182,9 @@ __device__ __forceinline__ uint32_t pick4(const uint32_t (&a)[4], int u) {
 }
 
 // Split four consecutive values (r, c..c+3) of a [kTC, D] tile into the
-// big and small planes and, with kTrans, into the transposed pair (rows
-// c..c+3 of a [D, kTC] plane, column perm_col(r)).
-template <int D, bool kTrans, int kTC = 64>
+// big and small planes (unless !kPlain) and, with kTrans, into the
+// transposed pair (rows c..c+3 of a [D, kTC] plane, column perm_col(r)).
+template <int D, bool kTrans, bool kPlain = true, int kTC = 64>
 __device__ __forceinline__ void store_split(float4 x, int r, int c,
                                             float* big, float* small,
                                             float* tbig, float* tsmall) {
@@ -192,9 +192,12 @@ __device__ __forceinline__ void store_split(float4 x, int r, int c,
   uint32_t b[4], s[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) split_tf32(xs[i], b[i], s[i]);
-  const int o = core_off<D>(r, c);
-  *reinterpret_cast<uint4*>(big + o) = make_uint4(b[0], b[1], b[2], b[3]);
-  *reinterpret_cast<uint4*>(small + o) = make_uint4(s[0], s[1], s[2], s[3]);
+  if (kPlain) {
+    const int o = core_off<D>(r, c);
+    *reinterpret_cast<uint4*>(big + o) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(small + o) =
+        make_uint4(s[0], s[1], s[2], s[3]);
+  }
   if (kTrans) {
     // the transposed stores of one warp fall on four banks per column c
     // unless its lanes take the four values in different orders: rotated

@@ -11,9 +11,11 @@ Three hand-written CUDA kernels for Hopper, in ``csrc/attention.cu``:
   ``dv``, accumulated inside one block per key tile (no atomics, so the
   same bits on every run).
 
-K5a and K5b run every product on the tensor cores (``wgmma``) as split
+All three run every product on the tensor cores (``wgmma``) as split
 TF32: each fp32 operand is split into two TF32 values and a product
-takes three TF32 passes, which keeps fp32 accuracy.
+takes three TF32 passes, which keeps fp32 accuracy. K4 keeps the
+online-softmax state (row max, row sum, running ``pv``) in registers and
+adds each key tile's ``p v`` into ``pv`` in fp32.
 
 :class:`FlashBlockAttn` (through :func:`flash_block_attn`) plays the part
 of the JAX ``jax.custom_vjp``: ``m`` is a constant shift, so it is marked
@@ -33,9 +35,8 @@ multiples of 8/128 is not needed.
 
 What bounds them on an H100: each causal (query, key) pair costs 4D (K4),
 6D (K5a) or 8D (K5b) operations against a few bytes per row, so all three
-are bound by arithmetic: K4 by fp32 FMA throughput, K5a/K5b by TF32
-tensor-core throughput taken three times; the source says what the
-design does about it.
+are bound by arithmetic: by TF32 tensor-core throughput taken three
+times; the source says what the design does about it.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version beside each wrapper (the same function, used by the tests); a
@@ -70,9 +71,9 @@ def _kernels():
         lib.kfac_flash_fwd.argtypes = [p] * 4 + scalars + [p] * 4
         lib.kfac_flash_bwd_dq.argtypes = [p] * 7 + scalars + [p] * 2
         lib.kfac_flash_bwd_dkv.argtypes = [p] * 7 + scalars + [p] * 3
-        lib.kfac_flash_bwd_occupancy.argtypes = [i, i, p, p]
+        lib.kfac_flash_occupancy.argtypes = [i, i, p, p]
         for fn in (lib.kfac_flash_fwd, lib.kfac_flash_bwd_dq,
-                   lib.kfac_flash_bwd_dkv, lib.kfac_flash_bwd_occupancy):
+                   lib.kfac_flash_bwd_dkv, lib.kfac_flash_occupancy):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -112,15 +113,15 @@ def _check(q, k, v, kv_mask, *rest):
     return 'cuda'
 
 
-def bwd_occupancy(which, d):
-    """``(dynamic shared memory bytes, blocks resident per SM)`` of K5a
-    (``which`` 'dq') or K5b ('dkv') at head dim ``d``, from the CUDA
-    occupancy calculator."""
+def occupancy(which, d):
+    """``(dynamic shared memory bytes, blocks resident per SM)`` of K4
+    (``which`` 'fwd'), K5a ('dq') or K5b ('dkv') at head dim ``d``, from
+    the CUDA occupancy calculator."""
     smem, blocks = ctypes.c_int(), ctypes.c_int()
-    err = _kernels().kfac_flash_bwd_occupancy(
-        {'dq': 0, 'dkv': 1}[which], d, ctypes.addressof(smem),
+    err = _kernels().kfac_flash_occupancy(
+        {'fwd': 0, 'dq': 1, 'dkv': 2}[which], d, ctypes.addressof(smem),
         ctypes.addressof(blocks))
-    _raise_on(err, f'bwd_occupancy({which}, {d})')
+    _raise_on(err, f'occupancy({which}, {d})')
     return smem.value, blocks.value
 
 

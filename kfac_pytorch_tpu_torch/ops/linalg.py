@@ -10,9 +10,18 @@ the pad subspace, orthogonal to the zero-padded gradient, and
 import torch
 
 
+def _symmetrized(x):
+    """``(x + x^T) / 2``: what ``jnp.linalg.eigh``/``cholesky`` decompose
+    (``symmetrize_input=True``), where torch's solvers read one triangle.
+    Exact, so a symmetric ``x`` passes through bit for bit."""
+    return (x + x.mT) / 2
+
+
 def psd_inverse(x):
     """Cholesky-based inverse of an SPD matrix (batched): two triangular
-    solves against the identity, as the JAX version."""
+    solves against the identity, as the JAX version, on the symmetrized
+    ``x`` as ``jnp.linalg.cholesky`` takes it."""
+    x = _symmetrized(x)
     chol = torch.linalg.cholesky(x)
     eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device).expand_as(x)
     y = torch.linalg.solve_triangular(chol, eye, upper=False)
@@ -21,12 +30,13 @@ def psd_inverse(x):
 
 def sym_eig(x, impl=None):
     """Symmetric eigendecomposition ``(eigvals, eigvecs)`` (batched),
-    ascending eigenvalues. ``impl`` None or 'xla' is the cold solver
+    ascending eigenvalues, of the symmetrized ``x`` as ``jnp.linalg.eigh``
+    takes it. ``impl`` None or 'xla' is the cold solver
     (``torch.linalg.eigh``); the warm kernels are not ported yet."""
     if impl not in (None, 'xla'):
         raise NotImplementedError(f'sym_eig impl={impl!r}: the warm '
                                   'decompositions are port slice D')
-    return torch.linalg.eigh(x)
+    return torch.linalg.eigh(_symmetrized(x))
 
 
 def clamp_eigvals(d, eps):

@@ -1,15 +1,18 @@
-"""The numerics of K5a/K5b's split TF32 products, emulated on the CPU.
+"""The numerics of K4/K5a/K5b's split TF32 products, emulated on the CPU.
 
-The backward kernels in ``csrc/attention.cu`` take every product on the
+The attention kernels in ``csrc/attention.cu`` take every product on the
 tensor cores as split TF32: each fp32 operand ``x`` becomes ``big =
 cvt.rna.tf32.f32(x)`` and ``small = cvt.rna.tf32.f32(x - big)``, and a
 product is ``small*big + big*small + big*big`` summed in fp32. This file
 emulates the conversion in numpy (``tests/torch_tf32.py``: round to
 nearest, ties away from zero, the 13 low mantissa bits dropped), checks
-that ``big + small`` gives ``x`` back, and reruns the plain backward (``_bwd_dq_plain``,
-``_bwd_dkv_plain``) with every matrix product taken that way, held to
-``chip_smoke.py``'s ``ATTN_TOL`` against the same function in float64.
-One TF32 pass is run beside it and its error printed, not asserted.
+that ``big + small`` gives ``x`` back, reruns the plain backward
+(``_bwd_dq_plain``, ``_bwd_dkv_plain``) with every matrix product taken
+that way, and walks K4's loop (64-key tiles, the online softmax, each
+tile's ``p v`` from a fresh product added in fp32) with its two products
+taken that way; each is held to ``chip_smoke.py``'s ``ATTN_TOL`` against
+the plain function in float64. One TF32 pass is run beside it and its
+error printed, not asserted.
 """
 
 import numpy as np
@@ -24,9 +27,9 @@ from torch_tf32 import split, split_matmul, tf32_matmul, tf32_rna
 
 torch.set_num_threads(2)
 
-#: chip_smoke.py's ATTN_TOL for the gradients: |got - want| <= tol * (1 +
-#: |want|)
-GRAD_TOL = 2e-4
+#: chip_smoke.py's ATTN_TOL: |got - want| <= tol * (1 + |want|)
+ATTN_TOL = {'m': 1e-5, 'l': 1e-5, 'pv': 1e-4, 'dq': 2e-4, 'dk': 2e-4,
+            'dv': 2e-4}
 
 
 class Products(TorchFunctionMode):
@@ -116,8 +119,67 @@ def test_split_backward_meets_attn_tol(kernel, geometry):
         err = float((s.double() - w).abs().max())
         err1 = float((o.double() - w).abs().max())
         excess = float(((s.double() - w).abs()
-                        - GRAD_TOL * (1 + w.abs())).max())
+                        - ATTN_TOL[name] * (1 + w.abs())).max())
         print(f'{name} {geometry}: split TF32 max |err| {err:.3e}, one TF32 '
-              f'pass {err1:.3e} (tolerance {GRAD_TOL} * (1 + |want|))')
+              f'pass {err1:.3e} (tolerance {ATTN_TOL[name]} * (1 + |want|))')
         assert torch.isfinite(s).all()
+        assert excess <= 0, (name, err)
+
+
+def _tiled_fwd(q, k, v, kv_mask, starts, scale, causal, mm):
+    """K4's loop over 64-key tiles: ``s = mm(q, k^T) * scale`` plus the
+    biases, the online softmax from ``m = -1e30``, and ``pv = pv * corr +
+    mm(p, v)`` with each tile's product fresh. Where the causal skip drops
+    a tile, its scores are -inf, which leaves the state as it is."""
+    bh, lq, _ = q.shape
+    lk = k.shape[1]
+    q_start, k_start = starts
+    m = torch.full((bh, lq), ak.NEG_INF, dtype=q.dtype)
+    l = torch.zeros((bh, lq), dtype=q.dtype)
+    pv = torch.zeros_like(q)
+    qpos = q_start + torch.arange(lq)
+    for j0 in range(0, lk, ak.TILE):
+        j1 = min(j0 + ak.TILE, lk)
+        s = mm(q, k[:, j0:j1].mT) * scale
+        if causal:
+            kpos = k_start + torch.arange(j0, j1)
+            s = s + torch.where(qpos[:, None] >= kpos[None, :], 0.0,
+                                ak.NEG_INF)
+        s = s + torch.where(kv_mask[:, j0:j1] > 0.5, 0.0,
+                            ak.NEG_INF)[:, None, :]
+        if causal:
+            s = s.masked_fill(~ak._tiles_computed(lq, j0, j1, q_start,
+                                                  k_start, q.device),
+                              float('-inf'))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = pv * corr[..., None] + mm(p, v[:, j0:j1])
+        m = m_new
+    return m, l, pv
+
+
+@pytest.mark.parametrize('geometry', GEOMETRIES)
+def test_split_forward_meets_attn_tol(geometry):
+    bh, lq, lk, d, starts, causal = geometry
+    q, k, v, mask = _inputs(bh, lq, lk, d, starts, causal, seed=lq + d)[:4]
+    scale = d ** -0.5
+    want = ak._fwd_plain(q.double(), k.double(), v.double(), mask.double(),
+                         starts, scale, causal)
+    split3 = _tiled_fwd(q, k, v, mask, starts, scale, causal, split_matmul)
+    one_pass = _tiled_fwd(q, k, v, mask, starts, scale, causal, tf32_matmul)
+    # the loop itself, in float64, is the plain forward
+    exact = _tiled_fwd(q.double(), k.double(), v.double(), mask.double(),
+                       starts, scale, causal, torch.matmul)
+    for name, w, s, o, e in zip(('m', 'l', 'pv'), want, split3, one_pass,
+                                exact):
+        tol = ATTN_TOL[name]
+        err = float((s.double() - w).abs().max())
+        err1 = float((o.double() - w).abs().max())
+        excess = float(((s.double() - w).abs() - tol * (1 + w.abs())).max())
+        print(f'{name} {geometry}: split TF32 max |err| {err:.3e}, one TF32 '
+              f'pass {err1:.3e} (tolerance {tol} * (1 + |want|))')
+        assert s.dtype == torch.float32 and torch.isfinite(s).all()
+        torch.testing.assert_close(e, w, rtol=1e-12, atol=1e-12)
         assert excess <= 0, (name, err)

@@ -56,6 +56,38 @@ def test_psd_inverse_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
+def _bf16(a):
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+def _asymmetric_stat(seed, n=3, rows=96, d=144):
+    """The unfused bf16 statistic ``x^T round_bf16(x / rows) + 0.1 I``
+    (``[n, d, d]``): its two triangles round apart (by ~1e-3 here)."""
+    x = _bf16(np.random.RandomState(seed).randn(n, rows, d)
+              .astype(np.float32))
+    stat = x.transpose(0, 2, 1) @ _bf16(x / np.float32(rows))
+    return (stat + 0.1 * np.eye(d, dtype=np.float32)).astype(np.float32)
+
+
+@pytest.mark.parametrize('fn', ['sym_eig', 'psd_inverse'])
+def test_decomposes_the_symmetrized_input_as_jax(fn):
+    # jnp.linalg.eigh/cholesky symmetrize their input; torch's read one
+    # triangle, which alone parts from JAX by 1.2e-3 (eigenvalues) and
+    # 3.4e-3 (inverse, of its largest entry) on this input
+    x = _asymmetric_stat(4)
+    assert np.abs(x - x.transpose(0, 2, 1)).max() > 1e-4
+    if fn == 'sym_eig':
+        got = tlinalg.sym_eig(torch.from_numpy(x))[0].numpy()
+        want = np.asarray(jlinalg.sym_eig(jnp.asarray(x), impl='xla')[0])
+        err = np.abs(got - want).max()
+        assert err <= 1e-5, err
+    else:
+        got = tlinalg.psd_inverse(torch.from_numpy(x)).numpy()
+        want = np.asarray(jlinalg.psd_inverse(jnp.asarray(x)))
+        err = np.abs(got - want).max()
+        assert err <= 1e-5 * np.abs(want).max(), err
+
+
 def test_elementwise_ops_match_jax_exactly():
     x = _spd(2, n=3, d=5)
     xt, xj = torch.from_numpy(x), jnp.asarray(x)
