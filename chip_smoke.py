@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the kernels
 from ``kfac_pytorch_tpu_torch/csrc`` (one ``nvcc`` per source, all at
-once), then drives both slices' main paths, counting each kernel's
+once), then drives the slices' main paths, counting each kernel's
 launches:
 
 - slice 1: ResNet-32 ``eigen_dp`` with the fused capture kernels (K1,
@@ -23,7 +23,18 @@ launches:
   running ``eigen`` over the bf16 and the int8 wire with every residual
   checked against the plain algebra; K3 against its plain version,
   bitwise, at the world=2 bucket shapes (timed) and at odd sizes with
-  special values.
+  special values;
+- slice 7: the ImageNet trainer (``train_imagenet``: ResNet-50, batch
+  32, 224 x 224, bf16, ``eigen_dp`` with a decomposition every step, the
+  capture kernels) for 8 steps with K1/K2 launch counts, images/s and a
+  2-step device profile; ``eigh`` ms per bucket; K1 and K2 against their
+  plain versions in bf16 at every ResNet-50 factor shape (bitwise over
+  two runs, timed beside one bf16 tensor-core GEMM with an fp32 result,
+  the bound at the bf16 tensor-core rate); the kernels' K-FAC step in
+  lockstep with ``capture_impl=None`` and an fp64-GEMM control; and a
+  checkpoint saved after step 3, restored into a fresh trainer and run 2
+  more steps, which must be bitwise equal to the uninterrupted run under
+  deterministic cuDNN.
 
 After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
 fp32 and bf16 inputs, K4, K5a and K5b at every head dim), the tensor-core
@@ -51,6 +62,7 @@ throughout, so every comparison is fp32 against fp32.
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -59,12 +71,14 @@ import numpy as np
 import torch
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32
-# (non-tensor-core) FLOP/s and dense TF32 tensor-core FLOP/s. Work done to
+# (non-tensor-core) FLOP/s and dense TF32 and bf16 tensor-core FLOP/s.
+# Products of bf16 operands (exact in fp32) take the bf16 rate. Work done to
 # fp32 accuracy on the tensor cores takes three TF32 passes (split TF32), so
 # its least time is 3 x operations / PEAK_TF32.
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 TF32_PASSES = 3
 #: kernel vs plain version: fp32 sums taken in another order. An entry
 #: F_ij sums R terms u_ri w_rj, and reordering the sum moves it by a few
@@ -226,7 +240,8 @@ def captured_shapes(model, metas, x, loss_of):
                      ('K2 stat_rows', 'dense G', g)]
         for kname, what, t in sides:
             key = (kname, what, tuple(t.shape),
-                   meta.strides if what == 'conv A' else None)
+                   (meta.kernel_size, meta.strides) if what == 'conv A'
+                   else None)
             if key not in cases:
                 cases[key] = {'kernel': kname, 'what': what, 'meta': meta,
                               'x': t, 'count': 0}
@@ -254,7 +269,8 @@ def lm_cases(tr):
 
 def kernel_fns(case, x, ema):
     """(kernel call, plain call, lhs, rhs) of one case: the library
-    yardstick is ``torch.matmul(lhs.T, rhs)`` on the materialized rows."""
+    yardstick (:func:`library_gemm`) is ``lhs.T @ rhs`` on the rows
+    materialized in ``x``'s dtype."""
     from kfac_pytorch_tpu_torch.ops import capture_kernels as ck
     from kfac_pytorch_tpu_torch.ops import factors
     meta, what = case['meta'], case['what']
@@ -262,14 +278,14 @@ def kernel_fns(case, x, ema):
         args = (x, meta.kernel_size, meta.strides, meta.padding,
                 meta.use_bias)
         rows = factors.extract_patches(*args[:4]).reshape(
-            -1, meta.in_dim - meta.use_bias).float()
+            -1, meta.in_dim - meta.use_bias)
         rows = rows / (rows.shape[0] // x.shape[0])
         n = x.shape[0]
         return (lambda: ck.compute_a_conv(*args, ema=ema),
                 lambda: ck._conv_a_plain(*args, ema=ema),
                 rows, rows / n)
     if what == 'conv G':
-        r = x.reshape(-1, x.shape[-1]).float()
+        r = x.reshape(-1, x.shape[-1])
         r = r * x.shape[0] * (x.shape[1] * x.shape[2])
         return (lambda: ck.compute_g_conv(x, True, ema=ema),
                 lambda: ck._stat_rows_plain(
@@ -277,25 +293,38 @@ def kernel_fns(case, x, ema):
                     (x.shape[0], x.shape[1] * x.shape[2]), False, ema),
                 r, r / r.shape[0])
     if what == 'dense A':
-        r = factors._append_ones_column(x.float()) if meta.use_bias \
-            else x.float()
+        r = factors._append_ones_column(x) if meta.use_bias else x
         return (lambda: ck.compute_a_dense(x, meta.use_bias, ema=ema),
                 lambda: ck._stat_rows_plain(x, x.shape[0], (),
                                             meta.use_bias, ema),
                 r, r / x.shape[0])
-    r = x.float() * x.shape[0]
+    r = x * x.shape[0]
     return (lambda: ck.compute_g_dense(x, True, ema=ema),
             lambda: ck._stat_rows_plain(x, x.shape[0], (x.shape[0],),
                                         False, ema),
             r, r / x.shape[0])
 
 
-def check_kernels(cases, path):
+def library_gemm(lhs_t, rhs):
+    """One library call for ``lhs_t @ rhs`` with an fp32 result: fp32
+    rows in an fp32 GEMM (TF32 off), bf16 rows in a bf16 tensor-core GEMM
+    that accumulates and returns fp32 (``mm``'s ``out_dtype``)."""
+    if lhs_t.dtype == torch.float32:
+        return torch.matmul(lhs_t, rhs)
+    return torch.mm(lhs_t, rhs, out_dtype=torch.float32)
+
+
+def check_kernels(cases, path, dtypes=None, timed=torch.float32):
+    """Each case's kernel against its plain version, with and without the
+    EMA, in each of ``dtypes`` (default: fp32, and bf16 at the 16-channel
+    shapes); in the ``timed`` dtype also bitwise over two runs and timed
+    beside the plain version, the library yardstick and the bound."""
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows_out = []
     for case in cases:
-        for dtype in (torch.float32, torch.bfloat16):
-            if dtype == torch.bfloat16 and case['x'].shape[-1] != 16:
+        for dtype in dtypes or (torch.float32, torch.bfloat16):
+            if (dtypes is None and dtype == torch.bfloat16
+                    and case['x'].shape[-1] != 16):
                 continue  # bf16 inputs: checked at the 16-channel shapes
             x = case['x'].to(dtype)
             f = {'conv A': case['meta'].in_dim, 'dense A':
@@ -306,7 +335,12 @@ def check_kernels(cases, path):
             scale = None
             for ema in (None, (cur, 0.95)):
                 kern, plain, _, _ = kernel_fns(case, x, ema)
-                got, want = kern(), plain()
+                got = kern()
+                # the reference: the plain version's statistic summed in
+                # fp64 and rounded once (one fp32 GEMM over thousands of
+                # rows rounds further from it than the tolerance)
+                with fp64_stat_gemm():
+                    want = plain()
                 if scale is None:
                     scale = cs_scale(want)
                 torch.cuda.synchronize()
@@ -323,7 +357,7 @@ def check_kernels(cases, path):
                    'what': case['what'],
                    'shape': list(x.shape), 'dtype': str(dtype)[6:], 'F': f,
                    'per_step': case['count'], 'max_abs_err': max(errs)}
-            if dtype == torch.float32:
+            if dtype == timed:
                 ema = (cur, 0.95)
                 kern, plain, lhs, rhs = kernel_fns(case, x, ema)
                 nrows = lhs.shape[0]
@@ -331,18 +365,22 @@ def check_kernels(cases, path):
                 row['ms'] = time_ms(kern)
                 row['wrapper_ms'] = time_ms(kern, hide_host=False)
                 row['plain_ms'] = time_ms(plain)
-                row['library_ms'] = time_ms(lambda: torch.matmul(lhs_t, rhs))
+                row['library_ms'] = time_ms(lambda: library_gemm(lhs_t, rhs))
                 nbytes = x.numel() * x.element_size() + 2 * f * f * 4
                 # the output is symmetric: its F(F+1)/2 distinct entries
                 # take one multiply and one add per row each
                 flops = float(nrows) * f * (f + 1)
                 row['bytes_ms'] = nbytes / PEAK_BYTES * 1e3
                 row['ops_ms_fp32'] = flops / PEAK_FP32 * 1e3
-                # K1 runs on the tensor cores, three TF32 passes; K2 on the
-                # fp32 units
-                row['ops_ms'] = (TF32_PASSES * flops / PEAK_TF32 * 1e3
-                                 if case['kernel'] == 'K1 conv_a'
-                                 else row['ops_ms_fp32'])
+                # fp32 inputs: K1 runs on the tensor cores, three TF32
+                # passes; K2 on the fp32 units. bf16 inputs: the products
+                # of bf16 operands at the bf16 tensor-core rate
+                if dtype == torch.bfloat16:
+                    row['ops_ms'] = flops / PEAK_BF16 * 1e3
+                elif case['kernel'] == 'K1 conv_a':
+                    row['ops_ms'] = TF32_PASSES * flops / PEAK_TF32 * 1e3
+                else:
+                    row['ops_ms'] = row['ops_ms_fp32']
                 row['bound_ms'] = max(row['bytes_ms'], row['ops_ms'])
                 check_bitwise_repeat(f"{case['kernel']} {case['what']} "
                                      f'{tuple(x.shape)}',
@@ -423,15 +461,17 @@ KERNELS = {
 }
 
 
-def kernel_summary(rows, launches):
-    """Per kernel: times summed over the launches of one step of each main
-    path that runs it (each distinct shape times its count per step; a
-    factor step for K1/K2, a training step for K4/K5). ``ms`` is device
-    time; ``wrapper_ms`` the same calls timed with the wrapper's host work
-    and launch latency exposed. ``launches`` is the sum over the main
-    paths' runs (``launches_by_path``)."""
+def kernel_summary(rows, launches, names=tuple(KERNELS), suffix=''):
+    """Per kernel of ``names``: times summed over the launches of one step
+    of each main path that runs it (each distinct shape of ``rows`` times
+    its count per step; a factor step for K1/K2, a training step for
+    K4/K5). ``ms`` is device time; ``wrapper_ms`` the same calls timed
+    with the wrapper's host work and launch latency exposed. ``launches``
+    is the sum over the main paths' runs (``launches_by_path``). The row's
+    name is the kernel's plus ``suffix``."""
     out = []
-    for name, (source, replaces) in KERNELS.items():
+    for name in names:
+        source, replaces = KERNELS[name]
         mine = [r for r in rows if r['kernel'] == name]
         timed = [r for r in mine if 'ms' in r]
 
@@ -442,7 +482,7 @@ def kernel_summary(rows, launches):
                    if counts[name]}
         has_library = all(r.get('library_ms') is not None for r in timed)
         row = {
-            'name': name, 'route': 'cuda', 'source': source,
+            'name': name + suffix, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': sum(by_path.values()),
             'launches_by_path': by_path,
             'max_abs_err': max(r['max_abs_err'] for r in mine),
@@ -541,18 +581,21 @@ def kernel_group(name):
     return None
 
 
-def profile_steps(tr, batches, label, per_step, steps=3):
-    """Device time by kernel over ``steps`` factor-update steps without a
-    decomposition (torch.profiler), after one warm step, and the device's
-    busy share of the wall time. Fails unless the profile shows K1's and
+def profile_steps(tr, batches, label, per_step, steps=3, host=True):
+    """Device time by kernel over ``steps`` factor-update steps
+    (torch.profiler; with a decomposition only on a path that runs one
+    every step), after one warm step, and the device's busy share of the
+    wall time. ``host=False`` traces the device alone (a step of tens of
+    thousands of solver kernels takes minutes to trace with the host ops).
+    Fails unless the profile shows K1's and
     K2's bodies launched as often as ``per_step`` (wrapper calls a step by
     kernel name) says: one device kernel a K2 call, one ``conv_a_kernel``
     a K1 call. Returns the summary dict."""
     from torch.profiler import ProfilerActivity, profile
     tr.train_step(next(batches))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=([ProfilerActivity.CPU] if host else [])
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             tr.train_step(next(batches))
@@ -1530,6 +1573,251 @@ def run_nccl():
     return o
 
 
+# ---------------------------------------------------------------------------
+# slice 7: the ImageNet ResNet-50 trainer in bf16 (K1/K2 at ResNet-50's
+# shapes, the decomposition every step, checkpoint save and resume)
+# ---------------------------------------------------------------------------
+
+#: the ImageNet trainer at examples/imagenet_resnet.py's defaults (ResNet-50,
+#: batch 32, 224 x 224, bf16, label smoothing 0.1, eigen_dp,
+#: kfac_update_freq=1) with the capture kernels, on 256 synthetic images
+R50_ARGS = ['--device', 'cuda', '--synthetic-size', '256']
+R50_STEPS = 8
+R50_PROFILE_STEPS = 2
+R50_AGREE_STEPS = 2
+#: the resume check: save after R50_SAVE_AFTER steps, restore into a fresh
+#: trainer, run R50_RESUME_MORE more
+R50_SAVE_AFTER, R50_RESUME_MORE = 3, 2
+R50_CKPT = os.path.join(OUT_DIR, 'ckpt_resnet50')
+
+
+def make_imagenet_trainer(capture_impl='pallas'):
+    from kfac_pytorch_tpu_torch import train_imagenet
+    argv = R50_ARGS + ['--checkpoint-format', R50_CKPT]
+    if capture_impl is not None:
+        argv += ['--kfac-capture-impl', capture_impl]
+    return train_imagenet.Trainer(train_imagenet.parse_args(argv))
+
+
+def run_resnet50():
+    """The ImageNet trainer for R50_STEPS steps: losses, host-clock step
+    times, images/s, and the K1/K2 launches against the plan's layers (a
+    factor update and a decomposition every step)."""
+    t0 = time.perf_counter()
+    tr = make_imagenet_trainer('pallas')
+    built_s = time.perf_counter() - t0
+    layers = tr.precond.plan.metas
+    n_conv = sum(m.kind == 'conv' for m in layers)
+    n_dense = len(layers) - n_conv
+    batches = tr.train_loader.epoch()
+    reset_counts()
+    losses, times, decomp_steps = [], [], []
+    for i in range(R50_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m['loss']))
+        if 'decomp' in tr.step_fn.last_phases:
+            decomp_steps.append(i)
+    launches = read_counts()
+    if not all(np.isfinite(losses)):
+        fail(f'resnet50: non-finite training loss: {losses}')
+    want = {'K1 conv_a': n_conv * R50_STEPS,
+            'K2 stat_rows': (n_conv + 2 * n_dense) * R50_STEPS,
+            'K3 ef_quantize': 0, 'K4 flash_fwd': 0, 'K5a flash_bwd_dq': 0,
+            'K5b flash_bwd_dkv': 0}
+    if launches != want:
+        fail(f'resnet50 kernel launches {launches}, expected {want}')
+    if decomp_steps != list(range(R50_STEPS)):
+        fail(f'resnet50 decomposition ran on steps {decomp_steps}, '
+             'expected every step')
+    a = tr.args
+    med = float(np.median(times))
+    print(f'trainer (world=1): {a.model} bs{a.batch_size} {a.img_size}x'
+          f'{a.img_size} bf16 eigen_dp kfac_update_freq='
+          f'{a.kfac_update_freq} capture_impl={a.kfac_capture_impl}, '
+          f'{R50_STEPS} steps, losses {[round(x, 4) for x in losses]}, '
+          f'step ms median {med:.1f} (first {times[0]:.1f}), images/s '
+          f'{a.batch_size / med * 1e3:.1f}, launches {launches} ({n_conv} '
+          f'convs, {n_dense} dense: K1 {n_conv}, K2 {n_conv + 2 * n_dense} '
+          f'a step), {len(tr.precond.plan.bucket_dims)} buckets '
+          f'{tr.precond.plan.bucket_dims}, trainer built in {built_s:.1f} s',
+          flush=True)
+    return tr, launches, times
+
+
+def time_decomposition(tr):
+    """``torch.linalg.eigh`` (``ops.sym_eig``) on the card for each
+    bucket's stack of the trained factors, and the whole decomposition
+    (``engine.compute_decomposition``), host clock included: ``eigh``
+    waits on the card for its error flags."""
+    from kfac_pytorch_tpu_torch import engine, ops
+    plan = tr.precond.plan
+    factors = tr.state.kfac_state.factors
+    rows = []
+    for d in plan.bucket_dims:
+        f = factors[str(d)]
+        row = {'bucket': d, 'matrices': f.shape[0],
+               'eigh_ms': time_ms(lambda f=f: ops.sym_eig(f), reps=3,
+                                  hide_host=False)}
+        rows.append(row)
+        print(json.dumps({'path': 'resnet50', 'decomposition': row}),
+              flush=True)
+    damping = torch.tensor(tr.precond.damping, device=tr.device)
+    whole = time_ms(lambda: engine.compute_decomposition(
+        plan, factors, damping, 'eigh', tr.precond.eps), reps=3,
+        hide_host=False)
+    print(f'decomposition (resnet50): {whole:.1f} ms a step over '
+          f'{sum(r["matrices"] for r in rows)} factors, eigh by bucket '
+          f'{json.dumps({r["bucket"]: round(r["eigh_ms"], 2) for r in rows})}',
+          flush=True)
+    return {'buckets': rows, 'ms_per_step': whole}
+
+
+def resnet50_cases(tr):
+    from kfac_pytorch_tpu_torch import training
+    batch = tr.to_device(next(tr.train_loader.epoch()))
+    model = tr.state.model
+    return captured_shapes(
+        model, tr.precond.plan.metas,
+        training.model_input(model, batch['input'], tr.dtype),
+        lambda out: tr.loss_fn(out, batch))
+
+
+def check_resnet50_lockstep(tr):
+    """The trainer's kernel preconditioner in lockstep with two
+    capture_impl=None ones (the second with its factor GEMMs summed in
+    fp64, the control), each from a fresh K-FAC state: every step all
+    three take the same bf16 captures and gradients. The kernels'
+    preconditioned gradients may part from the unfused ones by GRAD_RTOL
+    of each tensor's largest entry, or by TRAJ_FACTOR times the
+    control's gap (the rule of the bf16 wire)."""
+    import kfac_pytorch_tpu_torch as tkfac
+    from kfac_pytorch_tpu_torch import capture, training
+    from kfac_pytorch_tpu_torch.preconditioner import KFACHyperParams
+    a = tr.args
+    metas = tr.precond.plan.metas
+
+    def unfused():
+        pre = tkfac.get_kfac_module(a.kfac_name)(
+            lr=a.base_lr, damping=tr.precond.damping,
+            fac_update_freq=a.kfac_cov_update_freq,
+            kfac_update_freq=a.kfac_update_freq, kl_clip=a.kl_clip,
+            factor_decay=a.stat_decay, assignment=a.assignment)
+        pre.setup(metas)
+        return pre
+
+    pres = [tr.precond, unfused(), unfused()]
+    states = [p.init(tr.device) for p in pres]
+    model = tr.state.model
+    params = dict(model.named_parameters())
+    it = tr.train_loader.epoch()
+    bad = []
+    for i in range(R50_AGREE_STEPS):
+        batch = tr.to_device(next(it))
+        model.train()
+        model.zero_grad(set_to_none=True)
+        with capture.Capture(model, metas) as cap:
+            out = model(training.model_input(model, batch['input'],
+                                             tr.dtype))
+            tr.loss_fn(out, batch).backward()
+        grads = {k: p.grad for k, p in params.items()}
+        hyper = KFACHyperParams(lr=tr.lr_fn(i), damping=tr.precond.damping)
+        pgs = []
+        for j, (pre, st) in enumerate(zip(pres, states)):
+            with (fp64_stat_gemm() if j == 2 else contextlib.nullcontext()):
+                pg, states[j] = pre.step(st, grads, cap.acts, cap.gs,
+                                         hyper=hyper, update_factors=True,
+                                         update_inverse=True)
+            pgs.append(pg)
+        tr.tx.apply(params, pgs[1], tr.state.opt_state, i)
+        (gap, k), (ctl, kc) = grad_gap(pgs[0], pgs[1]), grad_gap(pgs[2],
+                                                                 pgs[1])
+        fac = max(float(((states[0].factors[b].double()
+                          - states[1].factors[b].double()).abs()
+                         / cs_scale(states[1].factors[b])).max())
+                  for b in states[1].factors)
+        print(f'resnet50 lockstep (kernels vs capture_impl=None, bf16 '
+              f'captures) step {i}: factors max err {fac:.3e} x sqrt(F_ii '
+              f'F_jj), preconditioned grads max rel err {gap:.3e} ({k}); '
+              f'control (fp64 factor GEMMs) {ctl:.3e} ({kc})', flush=True)
+        if gap > GRAD_RTOL and gap > TRAJ_FACTOR * ctl:
+            bad.append(f'step {i}: preconditioned grad {k} {gap:.3e} of its '
+                       f'largest entry, over {GRAD_RTOL} and {TRAJ_FACTOR} x '
+                       f'the control {ctl:.3e}')
+    if bad:
+        fail('resnet50 lockstep: ' + '; '.join(bad))
+
+
+def _state_tensors(state):
+    """``{name: tensor}`` of a train state: parameters and buffers, the
+    optimizer's tensors, the K-FAC factors and decomposition."""
+    out = {f'model.{k}': v for k, v in state.model.state_dict().items()}
+    out.update({f'opt.{k}': v for k, v in state.opt_state.items()})
+    k = state.kfac_state
+    out.update({f'factors.{b}': v for b, v in k.factors.items()})
+    for part, tree in k.decomp.items():
+        out.update({f'{part}.{b}': v for b, v in tree.items()})
+    return out
+
+
+def check_resnet50_resume():
+    """With cuDNN held to deterministic algorithms: the trainer runs
+    R50_SAVE_AFTER + R50_RESUME_MORE steps and saves a checkpoint after
+    R50_SAVE_AFTER; a fresh trainer auto-resumes from it and runs the
+    last R50_RESUME_MORE steps on the same batches. Its parameters,
+    buffers, optimizer and K-FAC state must be bitwise the uninterrupted
+    run's; else it fails with the largest difference and the tensors that
+    differ."""
+    shutil.rmtree(R50_CKPT, ignore_errors=True)
+    n = R50_SAVE_AFTER + R50_RESUME_MORE
+    with deterministic_cudnn():
+        whole = make_imagenet_trainer('pallas')
+        it = whole.train_loader.epoch()
+        batches = [next(it) for _ in range(n)]
+        for i, b in enumerate(batches):
+            whole.train_step(b)
+            if i + 1 == R50_SAVE_AFTER:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                whole.save(0)
+                save_s = time.perf_counter() - t0
+        resumed = make_imagenet_trainer('pallas')
+        t0 = time.perf_counter()
+        start = resumed.resume()
+        load_s = time.perf_counter() - t0
+        if start != 1 or resumed.state.step != R50_SAVE_AFTER:
+            fail(f'resnet50 resume: started at epoch {start}, step '
+                 f'{resumed.state.step}; expected epoch 1, step '
+                 f'{R50_SAVE_AFTER}')
+        for b in batches[R50_SAVE_AFTER:]:
+            resumed.train_step(b)
+    nbytes = os.path.getsize(os.path.join(R50_CKPT, 'checkpoint-0.pt'))
+    shutil.rmtree(R50_CKPT, ignore_errors=True)
+    got, want = _state_tensors(resumed.state), _state_tensors(whole.state)
+    if set(got) != set(want):
+        fail('resnet50 resume: the resumed state has other tensors')
+    differ = {k: float((got[k].double() - want[k].double()).abs().max())
+              for k in want if not torch.equal(got[k], want[k])}
+    head = (f'resnet50 resume: saved after step {R50_SAVE_AFTER} '
+            f'({nbytes / 2**20:.0f} MiB in {save_s:.1f} s, restored in '
+            f'{load_s:.1f} s), {R50_RESUME_MORE} more steps')
+    if not differ and resumed.state.step == whole.state.step:
+        print(f'{head}: parameters, buffers, optimizer and K-FAC state '
+              f'({len(want)} tensors) bitwise equal to the uninterrupted '
+              f'run (deterministic cuDNN)', flush=True)
+        return {'blob_bytes': nbytes, 'save_s': save_s,
+                'load_s': load_s}
+    worst = max(differ, key=differ.get, default=None)
+    fail(f'{head}: not bitwise: step {resumed.state.step} against '
+         f'{whole.state.step}; {len(differ)} of {len(want)} tensors differ, '
+         f'the largest by {differ.get(worst, 0.0):.3e} ({worst}): '
+         f'{sorted(differ)}')
+
+
 def build_kernels():
     """Compile every ``csrc/*.cu`` at once (one nvcc each), then load."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1579,19 +1867,53 @@ def main():
     w2_launches, w2 = run_world2()
     nccl = run_nccl()
     rows += check_ef([tuple(b) for b in w2['buckets']])
+    torch.cuda.empty_cache()
+
+    # slice 7: the ImageNet ResNet-50 trainer, bf16, K1/K2 at its shapes
+    t0 = time.perf_counter()
+
+    def lap(what):
+        print(f'resnet50 {what} done, {time.perf_counter() - t0:.1f} s into '
+              'the phase', flush=True)
+
+    r50, r50_launches, r50_times = run_resnet50()
+    lap('trainer')
+    profiles.append(profile_steps(
+        r50, r50.train_loader.epoch(), 'resnet50',
+        {k: v // R50_STEPS for k, v in r50_launches.items()},
+        steps=R50_PROFILE_STEPS, host=False))
+    lap('profile')
+    decomp = time_decomposition(r50)
+    lap('decomposition')
+    r50_rows = check_kernels(resnet50_cases(r50), 'resnet50',
+                             dtypes=(torch.bfloat16,), timed=torch.bfloat16)
+    lap('kernel checks')
+    check_resnet50_lockstep(r50)
+    lap('lockstep')
+    del r50
+    torch.cuda.empty_cache()
+    resume = check_resnet50_resume()
+    lap('resume')
 
     kernels = kernel_summary(rows, {'resnet32': launches,
                                     'transformer_lm': lm_launches,
                                     'resnet32_world2_eigen_bf16':
                                         w2_launches})
+    kernels += kernel_summary(r50_rows, {'resnet50': r50_launches},
+                              names=('K1 conv_a', 'K2 stat_rows'),
+                              suffix=' (resnet50 bf16)')
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
-        json.dump({'device': smi, 'shapes': rows, 'kernels': kernels,
-                   'tc_build': tc_report,
+        json.dump({'device': smi, 'shapes': rows + r50_rows,
+                   'kernels': kernels, 'tc_build': tc_report,
                    'step_ms': {'resnet32': step_times,
                                'transformer_lm': lm_times,
-                               'resnet32_world2_eigen_bf16': w2['step_ms']},
+                               'resnet32_world2_eigen_bf16': w2['step_ms'],
+                               'resnet50': r50_times},
                    'world2': w2, 'nccl': nccl,
+                   'resnet50': {'decomposition': decomp,
+                                'resume': {k: v for k, v in resume.items()
+                                           if k != 'differ'}},
                    'profiles': profiles}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(smi)

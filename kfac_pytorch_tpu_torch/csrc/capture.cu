@@ -71,7 +71,7 @@
 // triangle computed (both, in the bf16 case above). Every divisor that is a
 // power of two is taken as a multiply in a kernel built for that case, as
 // K1's are: chosen at run time the two get if-converted, and every value
-// then pays for the division.
+// then pays for the correction of the other divisors (Divisor).
 //  - Tall and narrow (F <= 88: conv G, the FC layer): a block owns every
 //    output, 4 x 4 a thread over the upper-triangle tiles (thread sets
 //    share the rows when the tiles are fewer than the threads), and streams
@@ -91,7 +91,12 @@
 //    current values read first so that their latency passes while the rows
 //    load, rows of four read and written as 16-byte accesses (else the last
 //    block of a tile to arrive, by an arrival counter after __threadfence
-//    that it resets, sums the splits).
+//    that it resets, sums the splits). Each round's 16 products go into a
+//    fresh sum, which is added into the running one with Kahan's
+//    compensation: at ResNet-50's conv G shapes (thousands of rows a
+//    split) a plain running fp32 sum drifts by ~1e-5 of an entry, ten
+//    times the capture tolerance; the compensated one stays at fp32
+//    rounding (four adds an output a round against 16 FMAs).
 //
 // Numerics follow ops/factors.py op for op: every elementwise scaling is
 // rounded to the input dtype (fp32 or bf16) in the reference's order
@@ -170,8 +175,19 @@ __device__ __forceinline__ void ldv(float (&v)[TM], const T* p) {
   }
 }
 
-// x / d as the reference rounds it: a multiply by the reciprocal when d is
-// a power of two (then exact and identical), a true division otherwise.
+// x / d as the reference rounds it, the IEEE quotient: a multiply by the
+// reciprocal when d is a power of two (then exact and identical); else the
+// product q = x * inv, within two ulps of x / d, corrected once, q +
+// (x - q d) inv with both steps fused, which lands within 2^-22 ulp of x / d
+// (inv is the correctly rounded 1 / d). That rounds as x / d does unless x / d
+// lies nearer a rounding midpoint, and it lies at least ulp / (2 D) from every
+// midpoint, D the odd part of d. So the result is the IEEE quotient whenever
+// D < 2^21 and |x / d| >= 2^-100: the divisors here are counts of rows and
+// output positions, whose odd parts are small (ResNet-50's: 1, 7 and 49).
+// Past those bounds it may round one ulp off the quotient. x = +-inf gives
+// NaN (IEEE: +-inf), NaN stays NaN. Three flops: the division routine it
+// replaces made K1 six times slower a row at ResNet-50's spatial sizes
+// (3136, 784, ...) than at powers of two, measured on one H100.
 struct Divisor {
   float d, inv;
   int pow2;
@@ -184,10 +200,11 @@ struct Divisor {
     return q;
   }
   // kPow2 is the launch's compile-time copy of `pow2`: chosen at run time
-  // the two get if-converted, and every value pays for the division
+  // the two get if-converted, and every value pays for the correction
   template <bool kPow2>
   __device__ __forceinline__ float div(float x) const {
-    return kPow2 ? x * inv : x / d;
+    const float q = __fmul_rn(x, inv);
+    return kPow2 ? q : fmaf(fmaf(-q, d, x), inv, q);
   }
 };
 
@@ -1069,11 +1086,12 @@ __global__ void __launch_bounds__(kThreads)
   };
 
   const int tx = tid % 16, ty = tid / 16;
-  float acc[kTM][kTM];
+  // the running sum and its Kahan compensation (what the last add lost)
+  float acc[kTM][kTM], lost[kTM][kTM];
 #pragma unroll
   for (int a = 0; a < kTM; ++a)
 #pragma unroll
-    for (int b = 0; b < kTM; ++b) acc[a][b] = 0.f;
+    for (int b = 0; b < kTM; ++b) acc[a][b] = lost[a][b] = 0.f;
 
   // a tile written whole (both triangles, one split): the EMA's current
   // values are read now, so that their latency passes while the rows load
@@ -1110,6 +1128,11 @@ __global__ void __launch_bounds__(kThreads)
         make_float4(vb[0], vb[1], vb[2], vb[3]);
     __syncthreads();
     if (r0 + kBK < r_end) stage(r0 + kBK);
+    float rnd[kTM][kTM];
+#pragma unroll
+    for (int a = 0; a < kTM; ++a)
+#pragma unroll
+      for (int b = 0; b < kTM; ++b) rnd[a][b] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
       float av[kTM], bv[kTM];
@@ -1118,8 +1141,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int a = 0; a < kTM; ++a)
 #pragma unroll
-        for (int b = 0; b < kTM; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+        for (int b = 0; b < kTM; ++b) rnd[a][b] = fmaf(av[a], bv[b], rnd[a][b]);
     }
+#pragma unroll
+    for (int a = 0; a < kTM; ++a)
+#pragma unroll
+      for (int b = 0; b < kTM; ++b) {
+        const float y = __fsub_rn(rnd[a][b], lost[a][b]);
+        const float t = __fadd_rn(acc[a][b], y);
+        lost[a][b] = __fsub_rn(__fsub_rn(t, acc[a][b]), y);
+        acc[a][b] = t;
+      }
     buf ^= 1;
   }
 

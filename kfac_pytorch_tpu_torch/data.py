@@ -1,13 +1,14 @@
 """Input pipeline (port of ``kfac_pytorch_tpu/data.py``: the synthetic
 CIFAR source, normalization, numpy augmentation and the shuffling loader;
-and of the long-context trainer's corpus and batch sampler,
+of the ImageNet trainer's data, ``examples/imagenet_resnet.py``; and of
+the long-context trainer's corpus and batch sampler,
 ``examples/longcontext_lm.py``).
 
-Batches are host numpy dicts, ``{'input': [B, 32, 32, 3] float32 NHWC,
-'label': [B] int64}`` for CIFAR and ``{'input': [B, L] int32 tokens,
-'label': [B, L] int32 next tokens}`` for the LM, drawn from the same
-seeded streams as the JAX package's, so both packages see the same
-batches.
+Batches are host numpy dicts, ``{'input': [B, H, W, 3] float32 NHWC,
+'label': [B] int64}`` for CIFAR and ImageNet, and ``{'input': [B, L]
+int32 tokens, 'label': [B, L] int32 next tokens}`` for the LM, drawn from
+the same seeded streams as the JAX package's, so both packages see the
+same batches.
 """
 
 import collections
@@ -37,6 +38,23 @@ def get_cifar(num_classes=10, synthetic_size=2048):
                                     num_classes, seed=1)
     return (x[:synthetic_size], y[:synthetic_size]), \
         (x[synthetic_size:], y[synthetic_size:])
+
+
+def get_imagenet(train_dir=None, img_size=224, synthetic_size=1024):
+    """(train, val) arrays of the ImageNet trainer
+    (``examples/imagenet_resnet.py`` ``get_data``): ``images.npy``
+    (memory-mapped) and ``labels.npy`` from ``train_dir`` when it holds
+    them, validating on their first 1024; else the synthetic stand-in,
+    ``synthetic_size + 256`` images of ``img_size`` x ``img_size`` x 3 in
+    1000 classes, one draw split so train and val share the class
+    means."""
+    if train_dir and os.path.exists(os.path.join(train_dir, 'images.npy')):
+        x = np.load(os.path.join(train_dir, 'images.npy'), mmap_mode='r')
+        y = np.load(os.path.join(train_dir, 'labels.npy'))
+        return (x, y), (x[:1024], y[:1024])
+    x, y = synthetic_classification(synthetic_size + 256,
+                                    (img_size, img_size, 3), 1000, seed=1)
+    return (x[:-256], y[:-256]), (x[-256:], y[-256:])
 
 
 def _normalize(x):

@@ -25,28 +25,60 @@ class BatchNorm2d(torch.nn.Module):
     the biased batch variance, where ``torch.nn.BatchNorm2d`` uses the
     unbiased one. Training normalizes with ``F.batch_norm`` and updates
     the running statistics here, Flax's way; eval normalizes with them.
+
+    ``dtype`` is Flax's ``BatchNorm(dtype=...)``. With a reduced dtype
+    (bf16) the layer computes as ``flax.linen.normalization`` (flax 0.12)
+    does: ``_compute_stats`` (``force_float32_reductions``,
+    ``use_fast_variance``) takes the statistics in fp32 as ``E[x^2] -
+    E[x]^2`` clamped at zero, and ``_normalize`` computes ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in fp32 and rounds it once to
+    ``dtype``. Parameters and running statistics stay fp32. As there, the
+    input is converted to fp32 once for the statistics and once for the
+    normalization, so the backward rounds each use's gradient to
+    ``dtype`` and adds the two in ``dtype``, as JAX's transpose does.
     """
 
-    def __init__(self, num_features, momentum=0.9, eps=1e-5):
+    def __init__(self, num_features, momentum=0.9, eps=1e-5, dtype=None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.dtype = dtype
         self.weight = torch.nn.Parameter(torch.ones(num_features))
         self.bias = torch.nn.Parameter(torch.zeros(num_features))
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
 
+    def _update_running(self, mean, var):
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
     def forward(self, x):
+        if self.dtype not in (None, torch.float32):
+            return self._reduced_precision(x)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        self._update_running(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _reduced_precision(self, x):
+        if self.training:
+            xs = x.float()
+            mean = xs.mean(dim=(0, 2, 3))
+            var = torch.clamp_min((xs * xs).mean(dim=(0, 2, 3))
+                                  - mean * mean, 0.0)
+            self._update_running(mean.detach(), var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = ((x.float() - mean[:, None, None]) * mul[:, None, None]
+             + self.bias[:, None, None])
+        return y.to(self.dtype)
 
 
 def _conv3x3(cin, cout, stride):

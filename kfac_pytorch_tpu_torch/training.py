@@ -5,9 +5,10 @@ process group.
 One iteration: forward on this rank's shard (capture armed on
 factor-update steps) -> the LOCAL-mean loss -> backward (capture takes
 ``g``) -> gradients averaged over the group in fp32 -> ``KFAC.step``
-(preconditioned grads) -> SGD; BatchNorm running statistics are averaged
-over the group, and the reported loss is the group mean. Parameters and
-buffers stay bitwise identical across ranks. The JAX trainer's
+(preconditioned grads) -> SGD (or :class:`MultiSteps`, the gradient
+accumulation of ``optax.MultiSteps``); BatchNorm running statistics are
+averaged over the group, and the reported loss is the group mean.
+Parameters and buffers stay bitwise identical across ranks. The JAX trainer's
 numerical-health guard (bad-batch skip and the damping ladder), the F1mc
 Fisher, faults and tracing are not ported yet; the preconditioner's own
 non-finite screens are.
@@ -64,12 +65,54 @@ def sgd(lr_schedule, momentum=0.9, weight_decay=0.0):
     return SGD(lr_schedule, momentum=momentum, weight_decay=weight_decay)
 
 
+class MultiSteps:
+    """Gradient accumulation, ``optax.MultiSteps(inner, every_k)`` with
+    its default mean: every call folds the gradients into a running mean
+    (``acc + (g - acc) / (n + 1)``, optax's Welford update), and every
+    ``every_k``-th call applies ``inner`` to that mean and resets it; the
+    calls between change no parameter. ``inner``'s lr schedule counts its
+    own updates (``gradient_step``), not the calls."""
+
+    def __init__(self, inner, every_k):
+        if every_k < 1:
+            raise ValueError(f'every_k must be >= 1, got {every_k}')
+        self.inner = inner
+        self.every_k = every_k
+
+    def init(self, params):
+        return {'mini_step': 0, 'gradient_step': 0,
+                'inner': self.inner.init(params),
+                'acc': {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def apply(self, params, grads, opt_state, count):
+        """Accumulate ``grads``; on the ``every_k``-th call update
+        ``params`` in place. ``count`` (the caller's step) is unused: the
+        inner schedule reads ``gradient_step``."""
+        del count
+        n = opt_state['mini_step']
+        keys = list(params)
+        acc = [opt_state['acc'][k] for k in keys]
+        g = [grads[k] for k in keys]
+        torch._foreach_add_(acc, torch._foreach_div(
+            torch._foreach_sub(g, acc), n + 1))
+        if n == self.every_k - 1:
+            self.inner.apply(params, opt_state['acc'], opt_state['inner'],
+                             opt_state['gradient_step'])
+            opt_state['gradient_step'] += 1
+            torch._foreach_zero_(acc)
+        opt_state['mini_step'] = (n + 1) % self.every_k
+
+
 @dataclasses.dataclass
 class TrainState:
     step: int
     model: torch.nn.Module     # parameters and BN running statistics
-    opt_state: Dict[str, torch.Tensor]
+    opt_state: Dict[str, Any]
     kfac_state: Any
+    #: whether a decomposition exists yet (before one, the gradients pass
+    #: through while the factor statistics accumulate)
+    decomposed: bool = False
 
 
 def init_train_state(model, tx, precond, sample_input, device=None):
@@ -92,13 +135,15 @@ def init_train_state(model, tx, precond, sample_input, device=None):
                       kfac_state=kfac_state)
 
 
-def model_input(model, x):
+def model_input(model, x, dtype=None):
     """``batch['input']`` as ``model`` takes it, by ``model.input_layout``:
     an ``'NHWC'`` image batch becomes its NCHW view (channels_last in
-    memory when the batch is NHWC-contiguous); ``'tokens'`` pass as they
-    are."""
+    memory when the batch is NHWC-contiguous), cast to ``dtype`` if one is
+    given (the JAX trainers' ``batch['input'].astype(dtype)``);
+    ``'tokens'`` pass as they are."""
     if model.input_layout == 'NHWC':
-        return x.permute(0, 3, 1, 2)
+        x = x.permute(0, 3, 1, 2)
+        return x if dtype is None else x.to(dtype)
     if model.input_layout == 'tokens':
         return x
     raise ValueError(f'unknown input_layout {model.input_layout!r}')
@@ -128,18 +173,18 @@ def replica_digest(model):
     return h.hexdigest()
 
 
-def build_train_step(model, tx, precond, loss_fn):
+def build_train_step(model, tx, precond, loss_fn, input_dtype=None):
     """Return ``step_fn(state, batch, lr=None, damping=None) -> (state,
     metrics)``. ``batch`` holds this rank's shard as tensors on the
-    model's device: ``'input'`` (see :func:`model_input`) and whatever
-    ``loss_fn(outputs, batch)`` reads; ``loss_fn`` is the local-mean loss.
+    model's device: ``'input'`` (see :func:`model_input`; cast to
+    ``input_dtype`` if given) and whatever ``loss_fn(outputs, batch)``
+    reads; ``loss_fn`` is the local-mean loss.
     The data-parallel process group is the preconditioner's (``group``;
     None at world=1). ``lr``/``damping`` feed the preconditioner (KL clip
     and damping). ``step_fn.last_phases`` names the K-FAC phases of the
     last call ('pred', 'stats', 'decomp') and ``step_fn.last_grads``
     holds its preconditioned gradients."""
     group = None if precond is None else precond.group
-    seen = {'inverse': False}
 
     def step_fn(state, batch, lr=None, damping=None):
         step = state.step
@@ -149,11 +194,10 @@ def build_train_step(model, tx, precond, loss_fn):
             ui = precond.hook_enabled and precond.should_update_inverse(step)
             # before any decomposition exists the grads pass through while
             # the factor statistics accumulate
-            factors_only = not (seen['inverse'] or ui)
-            seen['inverse'] = seen['inverse'] or ui
+            factors_only = not (state.decomposed or ui)
 
         model.train()
-        x = model_input(model, batch['input'])
+        x = model_input(model, batch['input'], input_dtype)
         cap = capture.Capture(model, precond.plan.metas if uf else ())
         model.zero_grad(set_to_none=True)
         with cap:
@@ -186,7 +230,8 @@ def build_train_step(model, tx, precond, loss_fn):
         step_fn.last_phases = phases
         step_fn.last_grads = grads
         state = dataclasses.replace(state, step=step + 1,
-                                    kfac_state=kfac_state)
+                                    kfac_state=kfac_state,
+                                    decomposed=state.decomposed or ui)
         return state, {'loss': coll.pmean(loss.detach(), group)}
 
     step_fn.last_phases = ()
@@ -211,10 +256,18 @@ def _match_comm_err(precond, kfac_state):
     return kfac_state
 
 
-def eval_step(model, batch, loss_fn):
-    """``(loss, accuracy)`` of ``model`` in eval mode on one batch."""
+def eval_step(model, batch, loss_fn, input_dtype=None):
+    """``(loss, accuracy)`` of ``model`` in eval mode on one batch, the
+    input cast to ``input_dtype`` if given."""
     from kfac_pytorch_tpu_torch.utils.metrics import accuracy
     model.eval()
     with torch.no_grad():
-        out = model(model_input(model, batch['input']))
+        out = model(model_input(model, batch['input'], input_dtype))
         return loss_fn(out, batch), accuracy(out, batch['label'])
+
+
+def fp32_cross_entropy(outputs, batch):
+    """The ImageNet trainer's eval loss: softmax cross-entropy of the
+    logits cast to fp32 (``examples/imagenet_resnet.py`` ``eval_step``)."""
+    return torch.nn.functional.cross_entropy(outputs.float(),
+                                             batch['label'])
