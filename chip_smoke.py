@@ -34,7 +34,18 @@ launches:
   lockstep with ``capture_impl=None`` and an fp64-GEMM control; and a
   checkpoint saved after step 3, restored into a fresh trainer and run 2
   more steps, which must be bitwise equal to the uninterrupted run under
-  deterministic cuDNN.
+  deterministic cuDNN;
+- slice 8, the decomposition ladder, in the same phase: per bucket of the
+  trained ResNet-50 factors, ``eigh``, the cold Cholesky inverse and the
+  warm rungs seeded from the step before (the subspace tracker, the
+  eigenvalue-only refresh, the Newton-Schulz inverse, and up to dim 512
+  warm Jacobi sweeps), timed, each warm rung's damped inverse held to its
+  fp64 twin and its gap to the exact fp64 inverse printed, and the whole
+  decomposition of a step for each rung; then the trainer for 10 more
+  steps on each of two rungs (``--kfac-decomp-impl subspace
+  --kfac-basis-update-freq 5``; ``--kfac-update-freq 10 --kfac-stagger``),
+  which must run the expected decomposition each step with finite losses
+  and the default run's K1/K2 launches.
 
 After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
 fp32 and bf16 inputs, K4, K5a and K5b at every head dim), the tensor-core
@@ -1589,30 +1600,66 @@ R50_AGREE_STEPS = 2
 #: trainer, run R50_RESUME_MORE more
 R50_SAVE_AFTER, R50_RESUME_MORE = 3, 2
 R50_CKPT = os.path.join(OUT_DIR, 'ckpt_resnet50')
+#: each warm rung of the decomposition ladder on the card against its fp64
+#: twin (the same rung on the same inputs and seeds in fp64; Newton-Schulz
+#: with the fp32 run's per-slot gate decisions): the largest gap of its
+#: damped inverse (``Q diag(1/(d + lam)) Q^T``, or the inverse), relative to
+#: the twin's largest entry, lam the Cholesky path's pi-damping of the row.
+#: Each rung's gap to the exact fp64 inverse of the damped factor, the
+#: algorithm's own error, is printed beside it without a gate: the
+#: reference holds its tracker to 5e-2 of it (tests/test_linalg.py) and
+#: accepts a Newton-Schulz residual up to 5e-2
+RUNG_TOL = 1e-3
+#: Jacobi runs sweeps x (n - 1) sequential rounds of a few kernels each
+#: (thousands of launches a sweep at 4608): timed only up to this dim
+JACOBI_MAX_DIM = 512
+#: the ResNet-50 trainer on two more rungs of the ladder, R50_LADDER_STEPS
+#: steps each: (extra flags, the decomposition each step must run)
+R50_LADDER_STEPS = 10
+R50_LADDER_RUNS = {
+    'subspace, basis_update_freq 5': (
+        ['--kfac-decomp-impl', 'subspace', '--kfac-basis-update-freq', '5'],
+        ['full'] + ['refresh'] * 4 + ['warm'] + ['refresh'] * 4),
+    'stagger, kfac_update_freq 10': (
+        ['--kfac-update-freq', '10', '--kfac-stagger'],
+        ['full'] + ['cohort'] * 9),
+}
 
 
-def make_imagenet_trainer(capture_impl='pallas'):
+def make_imagenet_trainer(capture_impl='pallas', extra=()):
     from kfac_pytorch_tpu_torch import train_imagenet
-    argv = R50_ARGS + ['--checkpoint-format', R50_CKPT]
+    argv = R50_ARGS + ['--checkpoint-format', R50_CKPT] + list(extra)
     if capture_impl is not None:
         argv += ['--kfac-capture-impl', capture_impl]
     return train_imagenet.Trainer(train_imagenet.parse_args(argv))
 
 
-def run_resnet50():
-    """The ImageNet trainer for R50_STEPS steps: losses, host-clock step
-    times, images/s, and the K1/K2 launches against the plan's layers (a
-    factor update and a decomposition every step)."""
-    t0 = time.perf_counter()
-    tr = make_imagenet_trainer('pallas')
-    built_s = time.perf_counter() - t0
+def r50_launches_wanted(tr, steps):
+    """K1/K2 launches of ``steps`` ResNet-50 factor steps: one K1 a conv,
+    one K2 a conv's G and a dense layer's A and G."""
     layers = tr.precond.plan.metas
     n_conv = sum(m.kind == 'conv' for m in layers)
     n_dense = len(layers) - n_conv
+    return {'K1 conv_a': n_conv * steps,
+            'K2 stat_rows': (n_conv + 2 * n_dense) * steps,
+            'K3 ef_quantize': 0, 'K4 flash_fwd': 0, 'K5a flash_bwd_dq': 0,
+            'K5b flash_bwd_dkv': 0}, n_conv, n_dense
+
+
+def run_resnet50():
+    """The ImageNet trainer for R50_STEPS steps: losses, host-clock step
+    times, images/s, and the K1/K2 launches against the plan's layers (a
+    factor update and a decomposition every step). Also returns the
+    K-FAC state before the last step (the warm rungs' seeds)."""
+    t0 = time.perf_counter()
+    tr = make_imagenet_trainer('pallas')
+    built_s = time.perf_counter() - t0
+    want, n_conv, n_dense = r50_launches_wanted(tr, R50_STEPS)
     batches = tr.train_loader.epoch()
     reset_counts()
     losses, times, decomp_steps = [], [], []
     for i in range(R50_STEPS):
+        prev = tr.state.kfac_state
         batch = next(batches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1625,10 +1672,6 @@ def run_resnet50():
     launches = read_counts()
     if not all(np.isfinite(losses)):
         fail(f'resnet50: non-finite training loss: {losses}')
-    want = {'K1 conv_a': n_conv * R50_STEPS,
-            'K2 stat_rows': (n_conv + 2 * n_dense) * R50_STEPS,
-            'K3 ef_quantize': 0, 'K4 flash_fwd': 0, 'K5a flash_bwd_dq': 0,
-            'K5b flash_bwd_dkv': 0}
     if launches != want:
         fail(f'resnet50 kernel launches {launches}, expected {want}')
     if decomp_steps != list(range(R50_STEPS)):
@@ -1646,35 +1689,229 @@ def run_resnet50():
           f'a step), {len(tr.precond.plan.bucket_dims)} buckets '
           f'{tr.precond.plan.bucket_dims}, trainer built in {built_s:.1f} s',
           flush=True)
-    return tr, launches, times
+    return tr, launches, times, prev
 
 
-def time_decomposition(tr):
-    """``torch.linalg.eigh`` (``ops.sym_eig``) on the card for each
-    bucket's stack of the trained factors, and the whole decomposition
-    (``engine.compute_decomposition``), host clock included: ``eigh``
-    waits on the card for its error flags."""
+def rung_gap(op, ref):
+    """Largest ``|op - ref|`` of a stack relative to each matrix's largest
+    ``|ref|`` entry, the worst matrix's."""
+    err = (op.double() - ref).abs().amax(dim=(-2, -1))
+    return float((err / ref.abs().amax(dim=(-2, -1))).max())
+
+
+def eig_inverse(w, q, lam):
+    """``Q diag(1/(d + lam)) Q^T`` in fp64 (``lam`` one a matrix)."""
+    w, q = w.double(), q.double()
+    return q @ (q.mT / (w + lam.double()[:, None])[..., :, None])
+
+
+def time_decomposition(tr, prev):
+    """Each rung of the decomposition ladder on the card, for each
+    bucket's stack of the trained factors: ``eigh`` (``torch.linalg.eigh``)
+    and the cold Cholesky inverse; warm-started from ``prev`` (the K-FAC
+    state of the step before) the subspace tracker at its default 2 steps,
+    the eigenvalue-only refresh, the Newton-Schulz inverse (seeded with
+    ``prev``'s factors' Cholesky inverse) and, up to JACOBI_MAX_DIM, 5
+    warm Jacobi sweeps. Each warm rung's damped inverse is held to its
+    fp64 twin (RUNG_TOL), and its gap to the exact fp64 inverse of the
+    damped factor is printed (the refresh, inexact by design, only
+    that). Then the whole
+    decomposition of a step for each rung. Host clock included: the
+    solvers wait on the card for their error flags, and the Newton-Schulz
+    gate reads its residuals on the host."""
     from kfac_pytorch_tpu_torch import engine, ops
     plan = tr.precond.plan
     factors = tr.state.kfac_state.factors
-    rows = []
+    eps = tr.precond.eps
+    damping = torch.tensor(tr.precond.damping, device=tr.device)
+    basis = engine.local_evecs(plan, prev.decomp, None, 'pred')
+    lams = engine.pi_damping(plan, factors, damping)
+    seeds = engine.compute_decomposition(plan, prev.factors, damping,
+                                         'cholesky', eps)['invs']
+
+    def ms(fn):
+        return time_ms(fn, reps=3, hide_host=False)
+
+    rows, bad = [], []
     for d in plan.bucket_dims:
-        f = factors[str(d)]
+        k = str(d)
+        f, q0, lam = factors[k], basis[k], lams[k]
+        damped = ops.add_scaled_identity(f, lam)
+        ref = torch.linalg.inv(f.double() + lam.double()[:, None, None]
+                               * torch.eye(d, dtype=torch.float64,
+                                           device=f.device))
         row = {'bucket': d, 'matrices': f.shape[0],
-               'eigh_ms': time_ms(lambda f=f: ops.sym_eig(f), reps=3,
-                                  hide_host=False)}
+               'eigh_ms': ms(lambda: ops.sym_eig(f)),
+               'cholesky_ms': ms(lambda: ops.psd_inverse(damped)),
+               'subspace_ms': ms(lambda: ops.sym_eig(f, impl='subspace',
+                                                     basis=q0)),
+               'refresh_ms': ms(lambda: engine.refresh_evals(f, q0, eps)),
+               'newton_schulz_ms': ms(lambda: ops.warm_inverse(
+                   damped, seeds[k], accept_resid=engine.NS_ACCEPT_RESID))}
+
+        def eig_op(rung, x):
+            """The eigh rung's damped inverse of ``x`` (fp32, or the
+            fp64 twin), warm from ``q0``."""
+            w, q = ops.sym_eig(x, impl=rung, basis=q0.to(x.dtype))
+            return eig_inverse(ops.clamp_eigvals(w, eps), q, lam)
+
+        row['eigh_gap'] = rung_gap(eig_op('xla', f), ref)
+        row['cholesky_gap'] = rung_gap(ops.psd_inverse(damped), ref)
+        op = eig_op('subspace', f)
+        row['subspace_gap'] = rung_gap(op, ref)
+        row['subspace_fp64_gap'] = rung_gap(op, eig_op('subspace',
+                                                         f.double()))
+        row['refresh_gap'] = rung_gap(
+            eig_inverse(engine.refresh_evals(f, q0, eps), q0, lam), ref)
+        ns_ok = ops.newton_schulz_inverse(damped, seeds[k])[1] \
+            < engine.NS_ACCEPT_RESID
+        x = ops.warm_inverse(damped, seeds[k],
+                             accept_resid=engine.NS_ACCEPT_RESID)
+        x64 = torch.where(ns_ok[:, None, None], ops.newton_schulz_inverse(
+            damped.double(), seeds[k].double())[0], ref)
+        row['newton_schulz_gap'] = rung_gap(x, ref)
+        row['newton_schulz_fp64_gap'] = rung_gap(x, x64)
+        row['newton_schulz_fallbacks'] = int((~ns_ok).sum())
+        if d <= JACOBI_MAX_DIM:
+            row['jacobi_ms'] = ms(lambda: ops.sym_eig(f, impl='jacobi',
+                                                      basis=q0))
+            op = eig_op('jacobi', f)
+            row['jacobi_gap'] = rung_gap(op, ref)
+            row['jacobi_fp64_gap'] = rung_gap(op, eig_op('jacobi',
+                                                           f.double()))
+        else:
+            row['jacobi_ms'] = row['jacobi_gap'] = None
+            row['jacobi_fp64_gap'] = None
+            row['jacobi_skipped'] = (
+                f'{5 * (d - 1)} sequential rounds for 5 warm sweeps: not '
+                f'timed above dim {JACOBI_MAX_DIM}')
+        for rung in ('subspace', 'jacobi', 'newton_schulz'):
+            gap = row[f'{rung}_fp64_gap']
+            if gap is not None and not gap <= RUNG_TOL:
+                bad.append(f'{rung} at bucket {d}: {gap:.3e}')
         rows.append(row)
         print(json.dumps({'path': 'resnet50', 'decomposition': row}),
               flush=True)
-    damping = torch.tensor(tr.precond.damping, device=tr.device)
-    whole = time_ms(lambda: engine.compute_decomposition(
-        plan, factors, damping, 'eigh', tr.precond.eps), reps=3,
-        hide_host=False)
-    print(f'decomposition (resnet50): {whole:.1f} ms a step over '
+    whole = {
+        'eigh': ms(lambda: engine.compute_decomposition(
+            plan, factors, damping, 'eigh', eps)),
+        'cholesky': ms(lambda: engine.compute_decomposition(
+            plan, factors, damping, 'cholesky', eps)),
+        'subspace': ms(lambda: engine.compute_decomposition(
+            plan, factors, damping, 'eigh', eps, basis_local=basis,
+            impl='subspace')),
+        'refresh': ms(lambda: engine.refresh_decomposition(
+            plan, factors, prev.decomp, eps, None, 'pred')),
+        'newton_schulz': ms(lambda: engine.compute_decomposition(
+            plan, factors, damping, 'cholesky', eps, invs_prev_local=seeds)),
+        'jacobi': None}
+    print(f'decomposition (resnet50): {whole["eigh"]:.1f} ms a step over '
           f'{sum(r["matrices"] for r in rows)} factors, eigh by bucket '
           f'{json.dumps({r["bucket"]: round(r["eigh_ms"], 2) for r in rows})}',
           flush=True)
-    return {'buckets': rows, 'ms_per_step': whole}
+    print('decomposition ladder (resnet50, ms a step, warm rungs seeded '
+          'from the step before): ' + ', '.join(
+              f'{k} {v:.1f}' for k, v in whole.items() if v is not None)
+          + f'; jacobi not timed whole (buckets above {JACOBI_MAX_DIM}); '
+          'damped-inverse gaps by bucket, to the exact fp64 inverse and '
+          '(gated) to the rung\'s fp64 twin: ' + json.dumps(
+              {r['bucket']: {g: r[g] and float(f'{r[g]:.3e}')
+                             for g in ('eigh_gap', 'cholesky_gap',
+                                       'subspace_gap', 'subspace_fp64_gap',
+                                       'refresh_gap', 'newton_schulz_gap',
+                                       'newton_schulz_fp64_gap',
+                                       'jacobi_gap', 'jacobi_fp64_gap')}
+               for r in rows}), flush=True)
+    if bad:
+        fail(f'decomposition ladder: gap to the fp64 twin over {RUNG_TOL}: '
+             + '; '.join(bad))
+    return {'buckets': rows, 'ms_per_step': whole['eigh'],
+            'ladder_ms_per_step': whole}
+
+
+def run_resnet50_ladder(name, default_ms, default_decomp_ms):
+    """The ImageNet trainer on one more rung of the ladder
+    (R50_LADDER_RUNS) for R50_LADDER_STEPS steps: finite losses, the
+    expected decomposition each step, K1/K2 launches as the default
+    run's; a staggered run's cohorts must hold every valid row once a
+    window. Prints the step median and the decomposition ms a step beside
+    the default run's."""
+    from kfac_pytorch_tpu_torch import engine
+    extra, expect = R50_LADDER_RUNS[name]
+    tr = make_imagenet_trainer('pallas', extra)
+    want, _, _ = r50_launches_wanted(tr, R50_LADDER_STEPS)
+    # more steps than one epoch of the synthetic set has: epoch after epoch
+    batches = (b for _ in iter(int, 1) for b in tr.train_loader.epoch())
+    reset_counts()
+    losses, times, decomps = [], [], []
+    for _ in range(R50_LADDER_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m['loss']))
+        decomps.append(tr.step_fn.last_decomp)
+    launches = read_counts()
+    if not all(np.isfinite(losses)):
+        fail(f'resnet50 {name}: non-finite training loss: {losses}')
+    if decomps != expect:
+        fail(f'resnet50 {name}: decompositions {decomps}, expected {expect}')
+    if launches != want:
+        fail(f'resnet50 {name}: kernel launches {launches}, expected {want}')
+    pre, kstate = tr.precond, tr.state.kfac_state
+    plan, eps = pre.plan, pre.eps
+    damping = torch.tensor(pre.damping, device=tr.device)
+    ms = {}
+    if pre.stagger:
+        cohorts = pre.cohorts
+        for b in plan.bucket_dims:
+            seen = np.concatenate(
+                [cohorts.rows[b][c, 0][cohorts.valid[b][c, 0]]
+                 for c in range(cohorts.num_cohorts)])
+            valid = np.flatnonzero(plan.buckets[b].valid)
+            if cohorts.num_cohorts != R50_LADDER_STEPS or \
+                    sorted(seen.tolist()) != valid.tolist():
+                fail(f'resnet50 {name}: bucket {b} rows {sorted(seen)} over '
+                     f'{cohorts.num_cohorts} cohorts, expected each of '
+                     f'{valid.tolist()} once in {R50_LADDER_STEPS}')
+
+        def cohort(c):
+            return engine.merge_cohort_decomposition(
+                plan, cohorts, kstate.decomp,
+                engine.compute_cohort_decomposition(
+                    plan, cohorts, kstate.factors, c, damping, 'eigh', eps),
+                c, None, 'pred', 'eigh')
+
+        per = [time_ms(lambda c=c: cohort(c), reps=1, hide_host=False)
+               for c in range(cohorts.num_cohorts)]
+        ms = {'cohort_mean': float(np.mean(per)),
+              'cohort_max': float(np.max(per)),
+              'max_rows_per_step': cohorts.max_rows_per_step(),
+              'padded_rows_per_step': cohorts.padded_rows_per_step()}
+        decomp_ms = ms['cohort_mean']
+    else:
+        basis = engine.local_evecs(plan, kstate.decomp, None, 'pred')
+        ms = {'warm_full': time_ms(lambda: engine.compute_decomposition(
+                  plan, kstate.factors, damping, 'eigh', eps,
+                  basis_local=basis, impl='subspace'), reps=3,
+                  hide_host=False),
+              'refresh': time_ms(lambda: engine.refresh_decomposition(
+                  plan, kstate.factors, kstate.decomp, eps, None, 'pred'),
+                  reps=3, hide_host=False)}
+        f = pre.basis_update_freq
+        decomp_ms = (ms['warm_full'] + (f - 1) * ms['refresh']) / f
+    med = float(np.median(times))
+    print(f'resnet50 ladder ({name}): {R50_LADDER_STEPS} steps, losses '
+          f'{[round(x, 4) for x in losses]}, decompositions {decomps}, step '
+          f'ms median {med:.1f} (first {times[0]:.1f}; default run '
+          f'{default_ms:.1f}), decomposition ms a step {decomp_ms:.1f} '
+          f'(default eigh every step {default_decomp_ms:.1f}; '
+          f'{json.dumps({k: round(v, 2) for k, v in ms.items()})}), '
+          f'launches as the default run\'s', flush=True)
+    return {'losses': losses, 'step_ms': times, 'decomps': decomps,
+            'decomp_ms_per_step': decomp_ms, 'decomp_ms': ms}
 
 
 def resnet50_cases(tr):
@@ -1876,14 +2113,15 @@ def main():
         print(f'resnet50 {what} done, {time.perf_counter() - t0:.1f} s into '
               'the phase', flush=True)
 
-    r50, r50_launches, r50_times = run_resnet50()
+    r50, r50_launches, r50_times, r50_prev = run_resnet50()
     lap('trainer')
     profiles.append(profile_steps(
         r50, r50.train_loader.epoch(), 'resnet50',
         {k: v // R50_STEPS for k, v in r50_launches.items()},
         steps=R50_PROFILE_STEPS, host=False))
     lap('profile')
-    decomp = time_decomposition(r50)
+    decomp = time_decomposition(r50, r50_prev)
+    del r50_prev
     lap('decomposition')
     r50_rows = check_kernels(resnet50_cases(r50), 'resnet50',
                              dtypes=(torch.bfloat16,), timed=torch.bfloat16)
@@ -1894,6 +2132,13 @@ def main():
     torch.cuda.empty_cache()
     resume = check_resnet50_resume()
     lap('resume')
+    torch.cuda.empty_cache()
+    ladder = {}
+    for name in R50_LADDER_RUNS:
+        ladder[name] = run_resnet50_ladder(name, float(np.median(r50_times)),
+                                           decomp['ms_per_step'])
+        torch.cuda.empty_cache()
+        lap(f'ladder run ({name})')
 
     kernels = kernel_summary(rows, {'resnet32': launches,
                                     'transformer_lm': lm_launches,
@@ -1913,7 +2158,8 @@ def main():
                    'world2': w2, 'nccl': nccl,
                    'resnet50': {'decomposition': decomp,
                                 'resume': {k: v for k, v in resume.items()
-                                           if k != 'differ'}},
+                                           if k != 'differ'},
+                                'ladder_runs': ladder},
                    'profiles': profiles}, f, indent=1)
     print(json.dumps({'kernels': kernels}))
     print(smi)

@@ -6,7 +6,9 @@
   update_factors_fused     world=1 local statistics with the EMA inside
                            the capture kernels
   compute_decomposition    batched eigh (or pi-damped Cholesky inverse)
-                           of this rank's factor rows
+                           of this rank's factor rows, cold or warm
+  refresh_decomposition    eigenvalues only, in the retained basis
+  compute/merge_cohort_decomposition   one staggered cohort's rows
   gather_decomposition     all-gather of the decomposition (comm_inverse)
   compute_pred_replicated  every layer preconditioned on every rank
   compute_pred_local       owner-computes preconditioning + gather
@@ -238,33 +240,67 @@ def _local_trace_avgs(plan, factors_local, group):
     return torch.cat(trace_parts) / torch.cat(dim_parts).to(torch.float32)
 
 
+#: Newton-Schulz acceptance threshold on the result's residual ``max |I -
+#: A X|``: healthy tracking sits at fp32 noise, and a slot still 5% off
+#: had too stale a seed, so the batched Cholesky recomputes that slot
+NS_ACCEPT_RESID = 0.05
+
+
+def _ns_iters(warm_sweeps):
+    return 2 if warm_sweeps is None else max(int(warm_sweeps), 1)
+
+
 def compute_decomposition(plan, factors_local, damping, method, eps,
-                          group=None):
+                          group=None, basis_local=None, warm_sweeps=None,
+                          invs_prev_local=None, impl=None):
     """Batched eigh (eigenvalues ``<= eps`` clamped to zero) or pi-damped
     Cholesky inverse of this rank's factor rows: both factor sides take
     ``sqrt(damping * own_trace_avg / mate_trace_avg)`` on the diagonal
-    (the plan's mate maps keep a layer's two factors on one rank)."""
+    (the plan's mate maps keep a layer's two factors on one rank).
+
+    ``basis_local`` (:func:`local_evecs`) warm-starts the eigh path when
+    ``impl`` (``ops.sym_eig``'s; None reads ``KFAC_EIGH_IMPL``) is
+    'subspace', 'auto' or 'jacobi'; ``invs_prev_local``
+    (:func:`local_invs`) seeds the Cholesky path's Newton-Schulz warm
+    inverse, each slot gated at ``NS_ACCEPT_RESID``. ``warm_sweeps``
+    overrides the warm iteration count (None = the kernel's default)."""
     if method == 'eigh':
         evals, evecs = {}, {}
         for bdim in plan.bucket_dims:
             key = _key(bdim)
-            d, q = ops.sym_eig(factors_local[key])
+            basis = None if basis_local is None else basis_local[key]
+            d, q = ops.sym_eig(factors_local[key], impl=impl, basis=basis,
+                               sweeps=warm_sweeps if basis is not None
+                               else None)
             evals[key] = ops.clamp_eigvals(d, eps)
             evecs[key] = q
         return {'evals': evals, 'evecs': evecs}
 
-    flat_avg = _local_trace_avgs(plan, factors_local, group)
     invs = {}
+    for key, lam in pi_damping(plan, factors_local, damping, group).items():
+        damped = ops.add_scaled_identity(factors_local[key], lam)
+        if invs_prev_local is None:
+            invs[key] = ops.psd_inverse(damped)
+        else:
+            invs[key] = ops.warm_inverse(damped, invs_prev_local[key],
+                                         iters=_ns_iters(warm_sweeps),
+                                         accept_resid=NS_ACCEPT_RESID)
+    return {'invs': invs}
+
+
+def pi_damping(plan, factors_local, damping, group=None):
+    """Per bucket, the Cholesky path's diagonal shift of each of this
+    rank's factor rows, ``sqrt(damping * own_trace_avg /
+    mate_trace_avg)``."""
+    flat_avg = _local_trace_avgs(plan, factors_local, group)
+    out = {}
     for bdim in plan.bucket_dims:
-        key = _key(bdim)
         b = plan.buckets[bdim]
         off = plan.local_flat_offsets[bdim]
         own_avg = flat_avg[off:off + b.per_dev]
         mate = _long(_local_table(b.mate_flat, group), flat_avg.device)
-        damp_vec = torch.sqrt(damping * own_avg / flat_avg[mate])
-        invs[key] = ops.psd_inverse(
-            ops.add_scaled_identity(factors_local[key], damp_vec))
-    return {'invs': invs}
+        out[_key(bdim)] = torch.sqrt(damping * own_avg / flat_avg[mate])
+    return out
 
 
 def _local_rows(plan, tree, group, comm_mode):
@@ -292,6 +328,175 @@ def local_decomposition(plan, decomp, group, comm_mode, method):
                 'evecs': _local_rows(plan, decomp['evecs'], group,
                                      comm_mode)}
     return {'invs': _local_rows(plan, decomp['invs'], group, comm_mode)}
+
+
+def local_evecs(plan, decomp, group, comm_mode):
+    """This rank's eigenbasis rows of a stored decomposition, a
+    never-decomposed (all-zero) row as the identity: a warm request on a
+    fresh state then degrades to a cold decomposition instead of rotating
+    into a zero basis."""
+    out = {}
+    for key, q in _local_rows(plan, decomp['evecs'], group,
+                              comm_mode).items():
+        valid = torch.any((q != 0).flatten(1), dim=1)[:, None, None]
+        out[key] = torch.where(valid, q, torch.eye(q.shape[-1],
+                                                   dtype=q.dtype,
+                                                   device=q.device))
+    return out
+
+
+def local_invs(plan, decomp, group, comm_mode):
+    """This rank's stored inverse rows, the Newton-Schulz seeds. A
+    never-computed (all-zero) row stays zero: its residual ``||I|| = 1``
+    fails the acceptance gate and the slot takes the Cholesky."""
+    return _local_rows(plan, decomp['invs'], group, comm_mode)
+
+
+def refresh_decomposition(plan, factors_local, decomp_prev, eps, group,
+                          comm_mode, comm_precision='fp32'):
+    """Eigenvalue-only refresh in the retained basis: ``d <- clamp(diag(Q^T
+    F Q))`` per bucket, two batched matmuls instead of an eigh. In
+    comm_mode 'inverse' only the eigenvalue vectors are re-gathered (the
+    replicated basis stays put). ``decomp_prev`` is the stored
+    decomposition (this rank's rows in 'pred' mode, all rows in
+    'inverse'); the result has the same layout."""
+    evecs_local = local_evecs(plan, decomp_prev, group, comm_mode)
+    evals = {key: refresh_evals(factors_local[key], q, eps)
+             for key, q in evecs_local.items()}
+    if comm_mode == 'inverse':
+        with coll.named_scope('kfac.CommunicateInverse'):
+            evals = {k: coll.all_gather_rows_compressed(v, group,
+                                                        comm_precision)
+                     for k, v in evals.items()}
+        return {'evals': evals, 'evecs': decomp_prev['evecs']}
+    return {'evals': evals, 'evecs': evecs_local}
+
+
+def refresh_evals(f, q, eps):
+    """One bucket's refreshed eigenvalues ``clamp(diag(Q^T F Q))``."""
+    with ops.fp32_matmul():
+        return ops.clamp_eigvals(torch.sum(q * (f @ q), dim=1), eps)
+
+
+def _cohort_rows(tbl, cohort_idx, group, device):
+    """This rank's row of a static ``[F, P, R]`` cohort table at the
+    step's cohort, on ``device``."""
+    return _long(tbl[cohort_idx, coll.axis_index(group)], device)
+
+
+def compute_cohort_decomposition(plan, cohorts, factors_local, cohort_idx,
+                                 damping, method, eps, group=None,
+                                 impl=None, decomp_prev=None,
+                                 comm_mode=None, warm_sweeps=None):
+    """Decompose only cohort ``cohort_idx``'s rows of this rank's factors
+    (``plan.build_cohorts``): ``R_b`` rows per bucket instead of
+    ``per_dev``. Returns cohort-shaped components for
+    :func:`merge_cohort_decomposition`; padding rows decompose a real
+    row whose result the merge discards. The Cholesky path damps with
+    the traces of all local rows, as the full path would. With an
+    iterative ``impl`` and the stored ``decomp_prev`` (in ``comm_mode``'s
+    layout) the rows warm-start from their own stored basis or
+    inverse."""
+    dev = next(iter(factors_local.values())).device
+    sel = {bdim: _cohort_rows(cohorts.rows[bdim], cohort_idx, group, dev)
+           for bdim in plan.bucket_dims}
+    if method == 'eigh':
+        basis_local = None
+        if (impl in ('subspace', 'jacobi', 'auto')
+                and decomp_prev is not None):
+            basis_local = local_evecs(plan, decomp_prev, group, comm_mode)
+        evals, evecs = {}, {}
+        for bdim in plan.bucket_dims:
+            key = _key(bdim)
+            basis = (None if basis_local is None
+                     else basis_local[key][sel[bdim]])
+            d, q = ops.sym_eig(factors_local[key][sel[bdim]], impl=impl,
+                               basis=basis,
+                               sweeps=warm_sweeps if basis is not None
+                               else None)
+            evals[key] = ops.clamp_eigvals(d, eps)
+            evecs[key] = q
+        return {'evals': evals, 'evecs': evecs}
+
+    invs_prev = None
+    if impl == 'newton_schulz' and decomp_prev is not None:
+        invs_prev = local_invs(plan, decomp_prev, group, comm_mode)
+    flat_avg = _local_trace_avgs(plan, factors_local, group)
+    invs = {}
+    for bdim in plan.bucket_dims:
+        key = _key(bdim)
+        own = _cohort_rows(cohorts.own_flat[bdim], cohort_idx, group, dev)
+        mate = _cohort_rows(cohorts.mate_flat[bdim], cohort_idx, group, dev)
+        damp_vec = torch.sqrt(damping * flat_avg[own] / flat_avg[mate])
+        damped = ops.add_scaled_identity(factors_local[key][sel[bdim]],
+                                         damp_vec)
+        if invs_prev is None:
+            invs[key] = ops.psd_inverse(damped)
+        else:
+            invs[key] = ops.warm_inverse(damped, invs_prev[key][sel[bdim]],
+                                         iters=_ns_iters(warm_sweeps),
+                                         accept_resid=NS_ACCEPT_RESID)
+    return {'invs': invs}
+
+
+def merge_cohort_decomposition(plan, cohorts, decomp_stored, cohort_new,
+                               cohort_idx, group, comm_mode, method,
+                               comm_precision='fp32'):
+    """Write the freshly decomposed cohort rows into the stored
+    decomposition; every other row keeps its stored bits. comm_mode
+    'pred': a local scatter; 'inverse': the cohort rows are all-gathered
+    first (``sum_b R_b`` rows a step). A row that is not finite keeps its
+    stored value (the staggered form of :func:`guard_decomposition`;
+    evals and evecs commit together); padding rows write their stored
+    value back, so no two writes to a row differ."""
+    part = 'evals' if method == 'eigh' else 'invs'
+    dev = next(iter(decomp_stored[part].values())).device
+    if comm_mode == 'inverse':
+        rows = {b: _long(cohorts.global_rows[b][cohort_idx], dev)
+                for b in plan.bucket_dims}
+        valid = {b: torch.as_tensor(cohorts.global_valid[b][cohort_idx],
+                                    device=dev) for b in plan.bucket_dims}
+
+        def gather(x):
+            with coll.named_scope('kfac.CommunicateInverse'):
+                return coll.all_gather_rows_compressed(x, group,
+                                                       comm_precision)
+    else:
+        idx = coll.axis_index(group)
+        rows = {b: _long(cohorts.rows[b][cohort_idx, idx], dev)
+                for b in plan.bucket_dims}
+        valid = {b: torch.as_tensor(cohorts.valid[b][cohort_idx, idx],
+                                    device=dev) for b in plan.bucket_dims}
+
+        def gather(x):
+            return x
+
+    def put(stored, r, ok, fresh):
+        out = stored.clone()
+        okr = ok.reshape(ok.shape + (1,) * (stored.ndim - 1))
+        out[r] = torch.where(okr, fresh, stored[r])
+        return out
+
+    out = dict(decomp_stored)
+    if method == 'eigh':
+        new_d, new_q = {}, {}
+        for bdim in plan.bucket_dims:
+            key = _key(bdim)
+            dn = gather(cohort_new['evals'][key])
+            qn = gather(cohort_new['evecs'][key])
+            ok = valid[bdim] & _rows_finite(dn) & _rows_finite(qn)
+            new_d[key] = put(decomp_stored['evals'][key], rows[bdim], ok, dn)
+            new_q[key] = put(decomp_stored['evecs'][key], rows[bdim], ok, qn)
+        out['evals'], out['evecs'] = new_d, new_q
+        return out
+    new_i = {}
+    for bdim in plan.bucket_dims:
+        key = _key(bdim)
+        xn = gather(cohort_new['invs'][key])
+        ok = valid[bdim] & _rows_finite(xn)
+        new_i[key] = put(decomp_stored['invs'][key], rows[bdim], ok, xn)
+    out['invs'] = new_i
+    return out
 
 
 def _rows_finite(x):

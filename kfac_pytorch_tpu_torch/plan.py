@@ -9,6 +9,7 @@ to one.
 """
 
 import dataclasses
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -318,3 +319,157 @@ def build_plan(metas: Dict[str, LayerMeta], num_devices: int, comm_mode: str,
                       pred_groups=pred_groups, bucket_dims=bucket_dims,
                       local_flat_offsets=local_flat_offsets,
                       assignment=assignment)
+
+
+@dataclasses.dataclass
+class CohortPlan:
+    """Staggered-refresh layout: every rank's valid factor rows split into
+    ``num_cohorts`` cost-balanced cohorts, cohort ``step % num_cohorts``
+    decomposed each step (each row refreshed once a window). Per bucket
+    ``R_b`` is the largest cohort's row count, so smaller cohorts carry
+    padding rows: real rows outside the cohort whose results the merge
+    discards. Tables are host arrays indexed by the step's cohort."""
+    num_cohorts: int
+    # per bucket dim, [F, P, R_b]: local row (within the rank's per_dev
+    # rows) decomposed on cohort f by rank p, and whether it is real
+    rows: Dict[int, np.ndarray]
+    valid: Dict[int, np.ndarray]
+    # comm_mode 'inverse' merge tables, device-major as all_gather_rows
+    # returns them: [F, P*R_b] global row / validity
+    global_rows: Dict[int, np.ndarray]
+    global_valid: Dict[int, np.ndarray]
+    # Cholesky pi-damping lookups, [F, P, R_b]: the flat local slot index
+    # of the row and of its mate factor
+    own_flat: Dict[int, np.ndarray]
+    mate_flat: Dict[int, np.ndarray]
+    cohort_cost: np.ndarray             # [P, F] sum of bucket_dim^3
+    cohort_count: np.ndarray            # [P, F] valid rows
+    # the base window the layout was built for and its {bucket dim:
+    # stretch} overrides (num_cohorts = base * lcm(stretches))
+    base_freq: int = 0
+    bucket_freq: Dict[int, int] = dataclasses.field(default_factory=dict)
+
+    def max_rows_per_step(self):
+        """Most real rows one rank decomposes in one step."""
+        return int(self.cohort_count.max()) if self.cohort_count.size else 0
+
+    def padded_rows_per_step(self):
+        """Rows a rank decomposes every step, padding included
+        (``sum_b R_b``)."""
+        return int(sum(t.shape[2] for t in self.rows.values()))
+
+    def total_rows(self):
+        """Valid rows a rank refreshes over a window."""
+        return int(self.cohort_count.sum(axis=1).max()) \
+            if self.cohort_count.size else 0
+
+
+def build_cohorts(plan: FactorPlan, num_cohorts: int,
+                  bucket_freq: Optional[Dict[int, int]] = None) -> CohortPlan:
+    """Split each rank's valid factor rows into ``num_cohorts`` refresh
+    cohorts, balanced by eigh cost ~ D^3: buckets largest first, each row
+    to the cohort with the least (row count, cost, index).
+
+    ``bucket_freq`` maps a bucket dim to a stretch ``m``: its rows refresh
+    every ``num_cohorts * m`` steps, and the table window becomes the lcm
+    ``W`` of those periods (at most 128 x ``num_cohorts``); a stretched row
+    appears in ``W / (num_cohorts * m)`` cohorts and the greedy balances
+    the sums over its appearances. Without overrides this is the
+    one-appearance layout."""
+    F = max(1, int(num_cohorts))
+    P = plan.num_devices
+    bucket_freq = {int(k): max(1, int(v))
+                   for k, v in (bucket_freq or {}).items()}
+    unknown = sorted(set(bucket_freq) - set(plan.bucket_dims))
+    if unknown:
+        raise ValueError(f'bucket_freq names unknown bucket dims '
+                         f'{unknown} (plan has {plan.bucket_dims})')
+    stretch = {b: bucket_freq.get(b, 1) for b in plan.bucket_dims}
+    W = F
+    for m in stretch.values():
+        W = math.lcm(W, F * m)
+    if W > 128 * F:
+        raise ValueError(
+            f'bucket_freq window {W} exceeds {128 * F} '
+            f'(= 128 * base {F}): use power-of-two stretches '
+            f'(got {bucket_freq})')
+
+    def _appearances(bdim, c0):
+        return range(c0, W, F * stretch[bdim])
+
+    assign: Dict[int, np.ndarray] = {}
+    cohort_cost = np.zeros((P, W), dtype=np.float64)
+    cohort_count = np.zeros((P, W), dtype=np.int64)
+    for bdim in plan.bucket_dims:
+        assign[bdim] = np.full((P, plan.buckets[bdim].per_dev), -1,
+                               dtype=np.int64)
+    for d in range(P):
+        loads = np.zeros(W, dtype=np.float64)
+        counts = np.zeros(W, dtype=np.int64)
+        for bdim in sorted(plan.bucket_dims, reverse=True):
+            b = plan.buckets[bdim]
+            period = F * stretch[bdim]
+            for k in range(b.per_dev):
+                if not b.valid[d * b.per_dev + k]:
+                    continue
+                c = min(range(period), key=lambda c0: (
+                    sum(counts[a] for a in _appearances(bdim, c0)),
+                    sum(loads[a] for a in _appearances(bdim, c0)), c0))
+                assign[bdim][d, k] = c
+                # cost at the padded dim: what the batched solver runs
+                for a in _appearances(bdim, c):
+                    loads[a] += _slot_cost(bdim)
+                    counts[a] += 1
+        cohort_cost[d] = loads
+        cohort_count[d] = counts
+
+    def _in_cohort(bdim, c0, f):
+        return c0 >= 0 and (f - c0) % (F * stretch[bdim]) == 0
+
+    rows, valid, grows, gvalid, own_flat, mate_flat = {}, {}, {}, {}, {}, {}
+    for bdim in plan.bucket_dims:
+        b = plan.buckets[bdim]
+        counts = np.zeros((W, P), dtype=np.int64)
+        for d in range(P):
+            for k in range(b.per_dev):
+                c = assign[bdim][d, k]
+                if c >= 0:
+                    for a in _appearances(bdim, c):
+                        counts[a, d] += 1
+        R = max(1, int(counts.max()))
+        r_tbl = np.zeros((W, P, R), dtype=np.int32)
+        v_tbl = np.zeros((W, P, R), dtype=bool)
+        for f in range(W):
+            for d in range(P):
+                members = [k for k in range(b.per_dev)
+                           if _in_cohort(bdim, assign[bdim][d, k], f)]
+                # padding points at a row outside the cohort (compared
+                # with the row's first cohort, as the reference does), so
+                # padding writes never collide with real updates
+                spare = next((k for k in range(b.per_dev)
+                              if assign[bdim][d, k] != f), 0)
+                for j in range(R):
+                    if j < len(members):
+                        r_tbl[f, d, j] = members[j]
+                        v_tbl[f, d, j] = True
+                    else:
+                        r_tbl[f, d, j] = spare
+        rows[bdim] = r_tbl
+        valid[bdim] = v_tbl
+        dev_off = (np.arange(P, dtype=np.int32) * b.per_dev)[None, :, None]
+        grows[bdim] = (r_tbl + dev_off).reshape(W, P * R)
+        gvalid[bdim] = v_tbl.reshape(W, P * R)
+        own_flat[bdim] = (r_tbl + plan.local_flat_offsets[bdim]).astype(
+            np.int32)
+        if b.mate_flat is not None:
+            mate_flat[bdim] = np.take_along_axis(
+                np.broadcast_to(b.mate_flat[None], (W,) + b.mate_flat.shape),
+                r_tbl, axis=2).astype(np.int32)
+        else:
+            # factor-wise layouts carry no mate maps (eigh only)
+            mate_flat[bdim] = own_flat[bdim]
+    return CohortPlan(num_cohorts=W, rows=rows, valid=valid,
+                      global_rows=grows, global_valid=gvalid,
+                      own_flat=own_flat, mate_flat=mate_flat,
+                      cohort_cost=cohort_cost, cohort_count=cohort_count,
+                      base_freq=F, bucket_freq=bucket_freq)

@@ -17,14 +17,20 @@ process group (``group``). ``ekfac``/``ekfac_dp`` raise
 
 ``step`` maps ``(state, grads, captured a/g) -> (preconditioned grads,
 new state)`` and leaves its inputs untouched, like the JAX version; the
-trainer picks ``update_factors``/``update_inverse`` on the host from
-``should_update_*``. At world>1 the state is each rank's own: its factor
-rows, its error-feedback residual, and (comm_mode 'pred') its
-decomposition rows; in comm_mode 'inverse' the gathered decomposition is
-the same on every rank.
+trainer picks ``update_factors``/``update_inverse``/``update_basis``/
+``warm_basis``/``stagger_update`` on the host (``should_update_*``).
+The decomposition ladder: a full decomposition, cold or warm-started
+from the stored one (``decomp_impl``, ``warm_start_basis``), an
+eigenvalue-only refresh in the retained basis (``basis_update_freq``),
+or one staggered cohort a step (``stagger``, world=1). At world>1 the
+state is each rank's own: its factor rows, its error-feedback residual,
+and (comm_mode 'pred') its decomposition rows; in comm_mode 'inverse'
+the gathered decomposition is the same on every rank.
 """
 
 import dataclasses
+import os
+import warnings
 from typing import Dict, Optional
 
 import torch
@@ -32,7 +38,8 @@ import torch
 from kfac_pytorch_tpu_torch import engine
 from kfac_pytorch_tpu_torch.capture import filter_vocab_head
 from kfac_pytorch_tpu_torch.parallel import collectives as coll
-from kfac_pytorch_tpu_torch.plan import build_plan, default_bucket_fn
+from kfac_pytorch_tpu_torch.plan import (build_cohorts, build_plan,
+                                         default_bucket_fn)
 from kfac_pytorch_tpu_torch.utils.platform import resolve_device
 
 #: capture-kernel ladder, the JAX package's values: 'xla' is the
@@ -43,6 +50,18 @@ from kfac_pytorch_tpu_torch.utils.platform import resolve_device
 #: torch.matmul. So the four values select two paths: 'xla' is the same
 #: as None, and 'auto' observes nothing yet (it always picks the kernels).
 CAPTURE_IMPLS = ('xla', 'pallas', 'auto')
+
+#: decomposition ladder, the JAX package's values: 'xla' the cold solver
+#: (``torch.linalg.eigh`` / batched Cholesky), 'subspace' and 'jacobi'
+#: warm eigh kernels (eigh variants), 'newton_schulz' the warm inverse
+#: (Cholesky variants), 'auto' the method's warm kernel (subspace or
+#: Newton-Schulz; the JAX package's choice, not yet measured against the
+#: others on the card)
+DECOMP_IMPLS = ('xla', 'auto', 'jacobi', 'subspace', 'newton_schulz')
+
+#: impls that warm-start from the stored decomposition without
+#: ``warm_start_basis``
+_WARM_IMPLS = ('auto', 'jacobi', 'subspace', 'newton_schulz')
 
 
 @dataclasses.dataclass
@@ -80,8 +99,8 @@ _VARIANTS = {
 }
 
 _LATER = {
-    'ekfac': 'slice D (E-KFAC moments)',
-    'ekfac_dp': 'slice D (E-KFAC moments)',
+    'ekfac': 'ROADMAP queue 1, slice D item 18 (E-KFAC)',
+    'ekfac_dp': 'ROADMAP queue 1, slice D item 18 (E-KFAC)',
 }
 
 
@@ -117,6 +136,29 @@ class KFAC:
         one fused launch per factor row with the EMA in its epilogue
         (``engine.update_factors_fused``) — and a lossy stats reduce's
         prep through K3.
+      basis_update_freq: eigh variants — a full eigendecomposition every
+        this many steps; the inverse updates between refresh only the
+        eigenvalues in the retained basis (two matmuls a bucket). None:
+        every inverse update is full.
+      warm_start_basis: full decompositions after the first start from
+        the stored one: eigh variants track the stored basis
+        (``KFAC_EIGH_IMPL`` 'subspace'/'auto' or 'jacobi'), Cholesky
+        variants iterate Newton-Schulz from the stored inverse with a
+        per-slot Cholesky fallback.
+      warm_sweeps: iterations of a warm full decomposition (None = the
+        kernel's default: 2 subspace steps, 5 Jacobi sweeps, 2
+        Newton-Schulz iterations).
+      cold_restart_every: a cold full decomposition after this many
+        consecutive warm ones (the chained basis gathers orthogonality
+        error); a positive int.
+      stagger: staggered refresh (world=1): after the first full
+        decomposition, each step decomposes one of ``kfac_update_freq``
+        cost-balanced cohorts (``plan.build_cohorts``) and merges it for
+        the next step, preconditioning with the stored table. Excludes
+        ``basis_update_freq`` and ``warm_start_basis``.
+      decomp_impl: None (``KFAC_EIGH_IMPL`` decides, warm only with
+        ``warm_start_basis``) or one of ``DECOMP_IMPLS``; an explicit
+        iterative value implies warm starts.
 
     The JAX package's in-engine health screens are always on: factor and
     decomposition rows that come back non-finite fall back to their last
@@ -131,12 +173,15 @@ class KFAC:
                  hook_enabled=True, batch_averaged=True, num_devices=1,
                  group=None, assignment='round_robin',
                  distribute_layer_factors=None, bucket_fn=None, eps=1e-10,
-                 comm_precision='fp32', comm_mode=None, capture_impl=None):
+                 comm_precision='fp32', comm_mode=None, capture_impl=None,
+                 basis_update_freq=None, warm_start_basis=False,
+                 warm_sweeps=None, cold_restart_every=50, stagger=False,
+                 decomp_impl=None):
         if variant not in _VARIANTS:
             raise KeyError(f'unknown variant {variant!r}')
         if variant in _LATER:
             raise NotImplementedError(
-                f'variant {variant!r} is not ported yet: port '
+                f'variant {variant!r} is not ported yet: '
                 f'{_LATER[variant]}')
         if capture_impl is not None and capture_impl not in CAPTURE_IMPLS:
             raise ValueError(f'capture_impl must be one of {CAPTURE_IMPLS}, '
@@ -174,7 +219,73 @@ class KFAC:
         self.eps = eps
         self.comm_precision = coll.check_wire_dtype(comm_precision)
         self.capture_impl = capture_impl
+        self._set_decomp_ladder(basis_update_freq, warm_start_basis,
+                                warm_sweeps, cold_restart_every, stagger,
+                                decomp_impl)
         self.plan = None
+        self._cohorts = None
+
+    def _set_decomp_ladder(self, basis_update_freq, warm_start_basis,
+                           warm_sweeps, cold_restart_every, stagger,
+                           decomp_impl):
+        """Validate and keep the decomposition-ladder options, with the
+        JAX constructor's errors and warnings."""
+        if basis_update_freq is not None and self.method != 'eigh':
+            raise ValueError('basis_update_freq applies to eigh variants')
+        self.basis_update_freq = basis_update_freq
+        if (warm_start_basis and self.method == 'eigh'
+                and os.environ.get('KFAC_EIGH_IMPL', 'xla') == 'xla'):
+            warnings.warn(
+                'warm_start_basis has no effect on the cold eigh path '
+                "(torch.linalg.eigh cannot warm-start) — set "
+                "KFAC_EIGH_IMPL='subspace' (or 'auto'/'jacobi') to use it",
+                stacklevel=3)
+        self.warm_start_basis = warm_start_basis
+        if warm_start_basis and warm_sweeps is None:
+            interval = basis_update_freq or self.kfac_update_freq
+            if interval > 10:
+                warnings.warn(
+                    f'warm_start_basis with a {interval}-step interval '
+                    'between full decompositions: the default warm_sweeps '
+                    '(5) is calibrated for <=10-step basis drift — pass '
+                    'warm_sweeps>=8 if eigen accuracy degrades',
+                    stacklevel=3)
+        self.warm_sweeps = warm_sweeps
+        if not (isinstance(cold_restart_every, int)
+                and cold_restart_every > 0):
+            raise ValueError('cold_restart_every must be a positive int '
+                             f'(got {cold_restart_every!r})')
+        self.cold_restart_every = cold_restart_every
+        if decomp_impl is not None:
+            if decomp_impl not in DECOMP_IMPLS:
+                raise ValueError(
+                    f'decomp_impl must be one of {DECOMP_IMPLS}, '
+                    f'got {decomp_impl!r}')
+            if (decomp_impl in ('subspace', 'jacobi')
+                    and self.method != 'eigh'):
+                raise ValueError(
+                    f'decomp_impl={decomp_impl!r} is an eigh kernel; '
+                    f'variant {self.variant!r} decomposes by Cholesky — use '
+                    "'newton_schulz' (or 'auto') there")
+            if decomp_impl == 'newton_schulz' and self.method != 'cholesky':
+                raise ValueError(
+                    "decomp_impl='newton_schulz' replaces the Cholesky "
+                    f'inverse; variant {self.variant!r} eigendecomposes — '
+                    "use 'subspace' (or 'auto') there")
+        self.decomp_impl = decomp_impl
+        self.stagger = bool(stagger)
+        if self.stagger:
+            if basis_update_freq is not None or warm_start_basis:
+                raise ValueError(
+                    'stagger is an alternative amortization of the inverse '
+                    'refresh — it does not compose with basis_update_freq '
+                    'or warm_start_basis (pick one; see README '
+                    '"Staggered refresh")')
+            if self.num_devices > 1:
+                raise NotImplementedError(
+                    'stagger at world>1 is not ported yet: ROADMAP queue 1, '
+                    "slice D item 15's remainder (the double-buffered "
+                    'cohort gather and comm_prefetch, with item 16)')
 
     def setup(self, metas):
         """Build the static factor plan from ``{name: LayerMeta}`` (or a
@@ -194,7 +305,41 @@ class KFAC:
                                assignment=self.assignment,
                                distribute_layer_factors=bool(distribute),
                                bucket_fn=self.bucket_fn)
+        self._cohorts = None
+        if self.stagger:
+            self.rebase_cohorts()
         return self.plan
+
+    def rebase_cohorts(self):
+        """(Re)build the staggered cohort layout for the current
+        ``kfac_update_freq`` (after ``setup``, a scheduler rescale, and on
+        every staggered dispatch); a no-op when it already matches.
+        Returns the layout (None without stagger or a plan)."""
+        if not self.stagger or self.plan is None:
+            return None
+        f = max(1, int(self.kfac_update_freq))
+        if self._cohorts is None or self._cohorts.base_freq != f:
+            self._cohorts = build_cohorts(self.plan, f)
+        return self._cohorts
+
+    @property
+    def cohorts(self):
+        """The current staggered cohort layout (``plan.CohortPlan``)."""
+        return self._cohorts
+
+    @property
+    def resolved_decomp_impl(self):
+        """'auto' resolves per method (subspace for eigh, Newton-Schulz
+        for Cholesky); None stays None (``KFAC_EIGH_IMPL`` decides)."""
+        if self.decomp_impl == 'auto':
+            return 'subspace' if self.method == 'eigh' else 'newton_schulz'
+        return self.decomp_impl
+
+    @property
+    def warm_impl(self):
+        """Does the explicit ``decomp_impl`` warm-start from the stored
+        decomposition? (An impl chosen by ``KFAC_EIGH_IMPL`` does not.)"""
+        return self.decomp_impl in _WARM_IMPLS
 
     @property
     def resolved_capture_impl(self):
@@ -251,16 +396,36 @@ class KFAC:
     def should_update_inverse(self, step: int) -> bool:
         return step % self.kfac_update_freq == 0
 
+    def should_update_basis(self, step: int,
+                            last_full_step: Optional[int] = None) -> bool:
+        """Full eigendecomposition (True) or eigenvalue-only refresh at an
+        inverse-update step: full once ``basis_update_freq`` steps have
+        passed since the last full one (staleness, not step modulo, so a
+        rescaled ``kfac_update_freq`` cannot alias it away)."""
+        if self.basis_update_freq is None or last_full_step is None:
+            return True
+        return step - last_full_step >= self.basis_update_freq
+
     def step(self, state: KFACState, grads, acts=None, gs=None,
              hyper: Optional[KFACHyperParams] = None, *,
              update_factors: bool = True, update_inverse: bool = True,
-             factors_only: bool = False):
+             update_basis: bool = True, warm_basis: bool = False,
+             factors_only: bool = False, stagger_update: bool = False):
         """One K-FAC step: ``(state, grads, captured a/g) ->
         (preconditioned grads, new state)``. ``grads`` is
         ``{parameter name: tensor}``, already averaged over the group;
         only K-FAC layers' entries change. ``acts``/``gs`` are this rank's
         captures. ``factors_only`` accumulates statistics and returns the
-        grads untouched (before any decomposition exists)."""
+        grads untouched (before any decomposition exists).
+
+        An inverse update is a full decomposition, or with
+        ``update_basis=False`` (eigh) an eigenvalue-only refresh;
+        ``warm_basis`` (set once a decomposition exists) seeds a full one
+        from the stored decomposition when ``warm_start_basis`` or an
+        iterative ``decomp_impl`` asks for it. ``stagger_update`` replaces
+        the inverse update: cohort ``state.step % num_cohorts`` is
+        decomposed and merged for the next step, and this step
+        preconditions with the stored table."""
         assert self.plan is not None, 'call setup() first'
         plan = self.plan
         group = self.group
@@ -308,10 +473,29 @@ class KFAC:
             return grads, KFACState(step=state.step + 1, factors=factors,
                                     decomp=decomp, comm_err=comm_err)
 
-        if update_inverse:
+        if stagger_update:
+            update_inverse = False
+        impl = self.resolved_decomp_impl
+        if update_inverse and self.method == 'eigh' and not update_basis:
+            decomp = engine.guard_decomposition(
+                engine.refresh_decomposition(
+                    plan, factors, decomp, self.eps, group, self.comm_mode,
+                    comm_precision=self.comm_precision),
+                decomp, 'eigh')
+        elif update_inverse:
+            basis_local = invs_prev = None
+            if (self.warm_start_basis or self.warm_impl) and warm_basis:
+                if self.method == 'eigh':
+                    basis_local = engine.local_evecs(plan, decomp, group,
+                                                     self.comm_mode)
+                else:
+                    invs_prev = engine.local_invs(plan, decomp, group,
+                                                  self.comm_mode)
             decomp_local = engine.guard_decomposition(
-                engine.compute_decomposition(plan, factors, damping,
-                                             self.method, self.eps, group),
+                engine.compute_decomposition(
+                    plan, factors, damping, self.method, self.eps, group,
+                    basis_local=basis_local, warm_sweeps=self.warm_sweeps,
+                    invs_prev_local=invs_prev, impl=impl),
                 engine.local_decomposition(plan, decomp, group,
                                            self.comm_mode, self.method),
                 self.method)
@@ -321,14 +505,29 @@ class KFAC:
                     comm_precision=self.comm_precision)
             else:
                 decomp = decomp_local
+        pred_decomp = decomp
+        if stagger_update:
+            cohorts = self._cohorts
+            assert cohorts is not None, \
+                'stagger_update requires KFAC(stagger=True) + setup()'
+            cohort_idx = state.step % cohorts.num_cohorts
+            cohort_new = engine.compute_cohort_decomposition(
+                plan, cohorts, factors, cohort_idx, damping, self.method,
+                self.eps, group, impl=impl,
+                decomp_prev=decomp if self.warm_impl else None,
+                comm_mode=self.comm_mode, warm_sweeps=self.warm_sweeps)
+            decomp = engine.merge_cohort_decomposition(
+                plan, cohorts, decomp, cohort_new, cohort_idx, group,
+                self.comm_mode, self.method,
+                comm_precision=self.comm_precision)
 
         grad_mats = [engine.layer_grad_matrix(m, grads) for m in plan.metas]
         if self.comm_mode == 'inverse':
-            preds = engine.compute_pred_replicated(plan, decomp, grad_mats,
-                                                   damping, self.method)
+            preds = engine.compute_pred_replicated(
+                plan, pred_decomp, grad_mats, damping, self.method)
         else:
             preds = engine.compute_pred_local(
-                plan, decomp, grad_mats, damping, self.method, group,
+                plan, pred_decomp, grad_mats, damping, self.method, group,
                 comm_precision=self.comm_precision)
         new_grads = engine.preconditioned_grads(plan, grads, grad_mats,
                                                 preds, lr, self.kl_clip)

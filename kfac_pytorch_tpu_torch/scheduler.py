@@ -5,7 +5,8 @@ and of the factor/inverse update frequencies at listed epochs.
 The JAX scheduler proposes its factors to a knob arbiter shared with the
 straggler governor and the autotuner; neither exists in the port yet, so
 this one applies them directly, with the arbiter's rule: damping
-``base * factor``, frequencies ``max(1, int(base * factor))``.
+``base * factor``, frequencies ``max(1, int(base * factor))``, and a
+staggered preconditioner's cohort layout rebased to the new window.
 """
 
 
@@ -44,6 +45,7 @@ class KFACParamScheduler:
         f = self.update_freq_factor_func(self.epoch)
         for k in ('fac_update_freq', 'kfac_update_freq'):
             setattr(self.kfac, k, max(1, int(self.base[k] * f)))
+        self.kfac.rebase_cohorts()   # a no-op unless the window changed
 
     def step(self, epoch=None):
         """Advance to ``epoch`` (or by one) and update the wrapped KFAC's

@@ -24,6 +24,8 @@ from kfac_pytorch_tpu_torch import data as kdata
 from kfac_pytorch_tpu_torch import models, training, utils
 from kfac_pytorch_tpu_torch.parallel import collectives as coll
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
+from kfac_pytorch_tpu_torch.train_imagenet import (add_decomp_flags,
+                                                   decomp_kwargs)
 
 
 def parse_args(argv=None):
@@ -46,6 +48,7 @@ def parse_args(argv=None):
                    help="capture path: unset or 'xla' = plain torch ops; "
                         "'pallas'/'auto' = the fused CUDA capture kernels")
     p.add_argument('--kfac-cov-update-freq', type=int, default=1)
+    add_decomp_flags(p)
     p.add_argument('--kfac-name', default='eigen_dp',
                    choices=list(kfac.KFAC_VARIANTS))
     p.add_argument('--stat-decay', type=float, default=0.95)
@@ -148,7 +151,7 @@ class Trainer:
                 comm_mode=args.kfac_comm_mode,
                 kl_clip=args.kl_clip, factor_decay=args.stat_decay,
                 num_devices=world, group=group,
-                assignment=args.assignment)
+                assignment=args.assignment, **decomp_kwargs(args))
             self.scheduler = kfac.KFACParamScheduler(
                 self.precond, damping_alpha=args.damping_alpha,
                 damping_schedule=args.damping_decay,

@@ -34,13 +34,8 @@ from kfac_pytorch_tpu_torch.utils.losses import label_smoothing_cross_entropy
 #: flags of the JAX trainer the port does not honour yet: (flag, the value
 #: that leaves the feature off, the ROADMAP item that brings it)
 UNPORTED = [
-    ('kfac_basis_update_freq', 0, 'queue 1, slice D item 17 (warm '
-                                  'decompositions)'),
-    ('kfac_warm_start', False, 'queue 1, slice D item 17'),
-    ('kfac_stagger', False, 'queue 1, slice D item 15 (stagger cohorts)'),
-    ('kfac_comm_prefetch', False, 'queue 1, slice D item 15'),
-    ('kfac_decomp_impl', None, 'queue 1, slice D item 17 (the decomp_impl '
-                               'ladder)'),
+    ('kfac_comm_prefetch', False, 'queue 1, slice D item 15\'s remainder '
+                                  '(with item 16)'),
     ('kfac_decomp_shard', False, 'queue 1, slice D item 16'),
     ('kfac_autotune', False, 'queue 1, slice F item 22 (autotune)'),
     ('trace', None, 'queue 1, slice F item 22 (obs)'),
@@ -111,14 +106,9 @@ def parse_args(argv=None):
                    help='cut each epoch to this many steps (default: the '
                         'whole training set)')
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
+    add_decomp_flags(p)
     # the JAX trainer's flags whose features are not ported (UNPORTED)
-    p.add_argument('--kfac-basis-update-freq', type=int, default=0)
-    p.add_argument('--kfac-warm-start', action='store_true')
-    p.add_argument('--kfac-stagger', action='store_true')
     p.add_argument('--kfac-comm-prefetch', action='store_true')
-    p.add_argument('--kfac-decomp-impl', default=None,
-                   choices=['xla', 'auto', 'jacobi', 'subspace',
-                            'newton_schulz'])
     p.add_argument('--kfac-decomp-shard', action='store_true')
     p.add_argument('--kfac-autotune', action='store_true')
     p.add_argument('--exclude-parts', default='')
@@ -129,6 +119,41 @@ def parse_args(argv=None):
     p.add_argument('--trace', default=None)
     p.add_argument('--prom-file', default=None)
     return p.parse_args(argv)
+
+
+def add_decomp_flags(p):
+    """The decomposition-ladder flags of the JAX trainers."""
+    p.add_argument('--kfac-basis-update-freq', type=int, default=0,
+                   help='full eigendecomposition cadence; intermediate '
+                        'inverse updates refresh eigenvalues in the '
+                        'retained basis (0 = always full)')
+    p.add_argument('--kfac-warm-start', action='store_true',
+                   help='warm-start decompositions from the stored one: '
+                        'eigen variants track the previous eigenbasis '
+                        '(KFAC_EIGH_IMPL=subspace|auto|jacobi), Cholesky '
+                        'variants Newton-Schulz-iterate the previous '
+                        'inverse')
+    p.add_argument('--kfac-stagger', action='store_true',
+                   help='staggered inverse refresh (world=1): decompose '
+                        'one cost-balanced cohort of factors per step '
+                        'instead of all factors every --kfac-update-freq '
+                        'steps')
+    p.add_argument('--kfac-decomp-impl', default=None,
+                   choices=['xla', 'auto', 'jacobi', 'subspace',
+                            'newton_schulz'],
+                   help='decomposition kernel (unset = KFAC_EIGH_IMPL '
+                        'decides): xla = cold eigh / Cholesky; subspace|'
+                        'jacobi (eigh variants) and newton_schulz '
+                        '(Cholesky variants) warm-start from the stored '
+                        'decomposition; auto = subspace or newton_schulz')
+
+
+def decomp_kwargs(args):
+    """``KFAC`` keyword arguments of the decomposition-ladder flags."""
+    return dict(basis_update_freq=args.kfac_basis_update_freq or None,
+                warm_start_basis=args.kfac_warm_start,
+                stagger=args.kfac_stagger,
+                decomp_impl=args.kfac_decomp_impl)
 
 
 def check_ported(args):
@@ -189,7 +214,7 @@ class Trainer:
                 comm_precision=args.kfac_comm_precision,
                 comm_mode=args.kfac_comm_mode,
                 kl_clip=args.kl_clip, factor_decay=args.stat_decay,
-                assignment=args.assignment)
+                assignment=args.assignment, **decomp_kwargs(args))
             self.scheduler = kfac.KFACParamScheduler(
                 self.precond, damping_alpha=args.damping_alpha,
                 damping_schedule=args.damping_decay,

@@ -8,7 +8,9 @@ factor-update steps) -> the LOCAL-mean loss -> backward (capture takes
 (preconditioned grads) -> SGD (or :class:`MultiSteps`, the gradient
 accumulation of ``optax.MultiSteps``); BatchNorm running statistics are
 averaged over the group, and the reported loss is the group mean.
-Parameters and buffers stay bitwise identical across ranks. The JAX trainer's
+Parameters and buffers stay bitwise identical across ranks. Each step
+makes the JAX trainer's choice of decomposition (full cold or warm, an
+eigenvalue-only refresh, a staggered cohort). The JAX trainer's
 numerical-health guard (bad-batch skip and the damping ladder), the F1mc
 Fisher, faults and tracing are not ported yet; the preconditioner's own
 non-finite screens are.
@@ -173,6 +175,46 @@ def replica_digest(model):
     return h.hexdigest()
 
 
+def _warm_basis_gate(precond, seen, step, ui, ub):
+    """Warm or cold, for a full decomposition, updating the run's ``seen``
+    record: warm only once a full one exists in this process (the stored
+    basis must be orthogonal, not zeros) and cold again after
+    ``cold_restart_every`` warm ones in a row. An explicit iterative
+    ``decomp_impl`` warms through the same gate."""
+    streak = seen.get('warm_streak', 0)
+    warm = ((precond.warm_start_basis or precond.warm_impl)
+            and 'last_full' in seen
+            and streak < precond.cold_restart_every)
+    if ui and ub:
+        seen['last_full'] = step
+        seen['warm_streak'] = streak + 1 if warm else 0
+    return warm
+
+
+def _dispatch(precond, seen, step):
+    """The JAX trainer's host-side choice for one step: ``(uf, ui, ub,
+    warm, st)`` (factor update, inverse update, full decomposition rather
+    than refresh, warm start, staggered cohort), updating ``seen``. After
+    the first decomposition a staggered preconditioner decomposes a cohort
+    every step; the first inverse update of a process is always full and
+    cold."""
+    enabled = precond.hook_enabled
+    uf = precond.should_update_factors(step)
+    st = precond.stagger and enabled and seen['yes']
+    if st:
+        return uf, False, True, False, True
+    ui = enabled and precond.should_update_inverse(step)
+    ub = (not seen['yes']
+          or precond.should_update_basis(step, seen.get('last_full')))
+    warm = _warm_basis_gate(precond, seen, step, ui, ub)
+    seen['yes'] = seen['yes'] or ui
+    if not ui:
+        ub, warm = True, False
+    if not ub:
+        warm = False
+    return uf, ui, ub, warm, False
+
+
 def build_train_step(model, tx, precond, loss_fn, input_dtype=None):
     """Return ``step_fn(state, batch, lr=None, damping=None) -> (state,
     metrics)``. ``batch`` holds this rank's shard as tensors on the
@@ -182,19 +224,32 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None):
     The data-parallel process group is the preconditioner's (``group``;
     None at world=1). ``lr``/``damping`` feed the preconditioner (KL clip
     and damping). ``step_fn.last_phases`` names the K-FAC phases of the
-    last call ('pred', 'stats', 'decomp') and ``step_fn.last_grads``
-    holds its preconditioned gradients."""
+    last call ('pred', 'stats', 'decomp', 'gather'), as the JAX trainer
+    does; ``step_fn.last_decomp`` says which decomposition it ran (None,
+    'full', 'warm', 'refresh' or 'cohort'), and ``step_fn.last_grads``
+    holds its preconditioned gradients.
+
+    ``step_fn.warm_tracking`` is the process's record of the
+    decomposition cadence (the JAX trainer's): ``'yes'`` (a decomposition
+    exists: ``state.decomposed``), ``'last_full'`` (the step of the last
+    full one) and ``'warm_streak'``. The last two are not part of the
+    state: a resumed run's first decomposition is full and cold, and the
+    streak restarts from zero."""
     group = None if precond is None else precond.group
+    seen = {}
 
     def step_fn(state, batch, lr=None, damping=None):
         step = state.step
-        uf = ui = factors_only = False
+        uf = ui = st = factors_only = False
+        ub, warm = True, False
         if precond is not None:
-            uf = precond.should_update_factors(step)
-            ui = precond.hook_enabled and precond.should_update_inverse(step)
+            seen['yes'] = bool(state.decomposed)
+            uf, ui, ub, warm, st = _dispatch(precond, seen, step)
+            if st:
+                precond.rebase_cohorts()
             # before any decomposition exists the grads pass through while
             # the factor statistics accumulate
-            factors_only = not (state.decomposed or ui)
+            factors_only = not seen['yes']
 
         model.train()
         x = model_input(model, batch['input'], input_dtype)
@@ -218,24 +273,33 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None):
                 damping=precond.damping if damping is None else damping)
             grads, kfac_state = precond.step(
                 kfac_state, grads, cap.acts, cap.gs, hyper=hyper,
-                update_factors=uf, update_inverse=ui,
-                factors_only=factors_only)
+                update_factors=uf, update_inverse=ui, update_basis=ub,
+                warm_basis=warm, factors_only=factors_only,
+                stagger_update=st)
         tx.apply(params, grads, state.opt_state, step)
 
+        decomp = None
         if precond is None or factors_only:
             phases = ('stats',) if uf else ()
         else:
-            phases = ('pred',) + (('stats',) if uf else ()) \
-                + (('decomp',) if ui else ())
+            phases = ('pred',) + (('stats',) if uf else ())
+            if ui or st:
+                phases += ('decomp',) + (
+                    ('gather',) if precond.comm_mode == 'inverse' else ())
+                decomp = ('cohort' if st else 'refresh' if not ub
+                          else 'warm' if warm else 'full')
         step_fn.last_phases = phases
+        step_fn.last_decomp = decomp
         step_fn.last_grads = grads
-        state = dataclasses.replace(state, step=step + 1,
-                                    kfac_state=kfac_state,
-                                    decomposed=state.decomposed or ui)
+        state = dataclasses.replace(
+            state, step=step + 1, kfac_state=kfac_state,
+            decomposed=precond is not None and seen['yes'])
         return state, {'loss': coll.pmean(loss.detach(), group)}
 
     step_fn.last_phases = ()
+    step_fn.last_decomp = None
     step_fn.last_grads = None
+    step_fn.warm_tracking = seen
     return step_fn
 
 

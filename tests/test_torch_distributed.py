@@ -124,13 +124,15 @@ def _port_runs(world):
 _JAX_RUNS = {}
 
 
-def _jax_mesh_run(cfg, world):
+def _jax_mesh_run(cfg, world, feeds=None):
     """``cfg``'s steps under shard_map on ``world`` CPU devices: per step
     the preconditioned grads (as a torch state_dict of numpy) and the
-    new state (numpy)."""
+    new state (numpy). ``cfg['phases']`` drives the decomposition ladder
+    as in ``torch_dist_workers.run_steps``; ``feeds[i]`` (numpy) replaces
+    the stored decomposition before step ``i``."""
     key = (cfg['model'], cfg['variant'], cfg['comm_precision'], world,
            cfg['steps'])
-    if key in _JAX_RUNS:
+    if feeds is None and key in _JAX_RUNS:
         return _JAX_RUNS[key]
     kind = cfg['model']
     model, variables = _jax_model(kind)
@@ -139,33 +141,46 @@ def _jax_mesh_run(cfg, world):
     pre = jkfac.KFAC(variant=cfg['variant'], num_devices=world,
                      axis_name='batch', health=False,
                      bucket_fn=workers.BUCKETS[cfg['buckets']],
-                     comm_precision=cfg['comm_precision'])
+                     comm_precision=cfg['comm_precision'],
+                     decomp_impl=cfg.get('decomp_impl'),
+                     basis_update_freq=cfg.get('basis_update_freq'))
     pre.setup(metas)
     mesh = Mesh(np.array(jax.devices()[:world]), ('batch',))
     pspecs = pre.state_pspecs('batch')
     mutable = ('batch_stats',) if 'batch_stats' in variables else ()
 
-    @jax.jit
-    @functools.partial(jax.shard_map, mesh=mesh,
-                       in_specs=(P(), pspecs, P('batch'), P('batch')),
-                       out_specs=(P(), pspecs))
-    def step(variables, state, xs, ys):
-        def loss_fn(out):
-            return jnp.mean((out - ys) ** 2)
-        _, _, grads, acts, gs, _ = jcapture.value_and_grad_with_capture(
-            model, loss_fn, variables, xs, mutable=mutable,
-            axis_name='batch')
-        grads = jkfac.parallel.average_grads(grads, 'batch')
-        return pre.step(state, grads, acts, gs, axis_name='batch')
+    @functools.lru_cache(maxsize=None)
+    def step_of(ladder):
+        @jax.jit
+        @functools.partial(jax.shard_map, mesh=mesh,
+                           in_specs=(P(), pspecs, P('batch'), P('batch')),
+                           out_specs=(P(), pspecs))
+        def step(variables, state, xs, ys):
+            def loss_fn(out):
+                return jnp.mean((out - ys) ** 2)
+            _, _, grads, acts, gs, _ = jcapture.value_and_grad_with_capture(
+                model, loss_fn, variables, xs, mutable=mutable,
+                axis_name='batch')
+            grads = jkfac.parallel.average_grads(grads, 'batch')
+            return pre.step(state, grads, acts, gs, axis_name='batch',
+                            **dict(ladder))
+        return step
 
     state = pre.init()
     out = []
-    for _ in range(cfg['steps']):
-        grads, state = step(variables, state, x, y)
+    for i in range(cfg['steps']):
+        ladder = ()
+        if cfg.get('phases') is not None:
+            ladder = tuple(zip(('update_basis', 'warm_basis'),
+                               cfg['phases'][i]))
+        if feeds is not None:
+            state = state.replace(decomp=jax.tree.map(jnp.asarray, feeds[i]))
+        grads, state = step_of(ladder)(variables, state, x, y)
         sd = weights.params_from_jax(jax.tree.map(np.asarray, grads))
         out.append(({k: v.numpy() for k, v in sd.items()},
                     jax.tree.map(np.asarray, state), pre.plan))
-    _JAX_RUNS[key] = out
+    if feeds is None:
+        _JAX_RUNS[key] = out
     return out
 
 
@@ -315,6 +330,36 @@ def test_mpd_eigen_matches_jax_mesh(world, kind):
         # more ranks than layers: the eigen auto rule splits A and G
         assert plan.layer_rows[0][1] // plan.buckets[16].per_dev != \
             plan.layer_rows[0][3] // plan.buckets[16].per_dev
+
+
+def test_basis_refresh_matches_jax_mesh():
+    """``basis_update_freq`` at world 2: MPD ``eigen`` (the decomposition
+    replicated by a gather) with ``decomp_impl='subspace'``, four steps:
+    a cold full decomposition, an eigenvalue-only refresh (only the
+    eigenvalue vectors gathered), a warm full one, a refresh. The mesh is
+    handed the port's stored decomposition before each step: inside an
+    eigenvalue cluster two eigh solvers pick different bases, and the
+    refresh and the warm start depend on the basis
+    (``tests/test_torch_decomp_trainer.py``)."""
+    cfg = dict(_cfg('mlp', 'eigen', steps=4), decomp_impl='subspace',
+               basis_update_freq=2,
+               phases=[(True, False), (False, False), (True, True),
+                       (False, False)])
+    ranks = launch.spawn(workers.run_many, 2, args=([cfg],), timeout=300)
+    feeds = [s['decomp_in'] for s in ranks[0][0]['steps']]
+    want = _jax_mesh_run(cfg, 2, feeds=feeds)
+    for r in range(2):
+        steps = ranks[r][0]['steps']
+        for i, (grads, _, _) in enumerate(want):
+            _assert_grads(steps[i]['grads'], grads, f'rank {r} step {i}')
+            # the replicated table is the same on both ranks
+            for part, tree in steps[i]['decomp_in'].items():
+                for k, v in tree.items():
+                    np.testing.assert_array_equal(v, feeds[i][part][k])
+    # the refresh keeps the basis: the table after step 1 has step 0's
+    for k, q in feeds[1]['evecs'].items():
+        np.testing.assert_array_equal(feeds[2]['evecs'][k], q)
+        assert not np.array_equal(feeds[2]['evals'][k], feeds[1]['evals'][k])
 
 
 @pytest.mark.parametrize('variant', ['eigen_dp', 'inverse_dp'])

@@ -45,8 +45,10 @@ def test_sym_eig_reconstructs_and_matches_jax_eigenvalues():
     dj, _ = jlinalg.sym_eig(jnp.asarray(x), impl='xla')
     np.testing.assert_allclose(d.numpy(), np.asarray(dj), rtol=1e-5,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        tlinalg.sym_eig(torch.from_numpy(x), impl='subspace')
+    # 'subspace' with no basis yet is the cold solver (the warm ladder is
+    # tests/test_torch_decomp.py's)
+    ds, qs = tlinalg.sym_eig(torch.from_numpy(x), impl='subspace')
+    assert torch.equal(ds, d) and torch.equal(qs, q)
 
 
 def test_psd_inverse_matches_jax():

@@ -77,7 +77,11 @@ def run_steps(rank, world, group, cfg):
     ``KFAC.step``. With ``cfg['sgd']`` the parameters take ``p -= lr *
     preconditioned grad`` after each step. Returns per step the
     preconditioned grads, this rank's factor rows and residual (numpy) and
-    the loss; the first step's collectives as a ledger."""
+    the loss; the first step's collectives as a ledger. ``cfg['phases']``
+    (one ``(update_basis, warm_basis)`` a step) drives the decomposition
+    ladder (with ``cfg['decomp_impl']``/``cfg['basis_update_freq']``);
+    then each step also returns the stored decomposition it started from
+    (``'decomp_in'``)."""
     torch.manual_seed(0)
     kind = cfg['model']
     model = MODELS[kind]()
@@ -91,12 +95,20 @@ def run_steps(rank, world, group, cfg):
                bucket_fn=BUCKETS[cfg['buckets']],
                comm_precision=cfg.get('comm_precision', 'fp32'),
                capture_impl=cfg.get('capture_impl'),
-               assignment=cfg.get('assignment', 'round_robin'))
+               assignment=cfg.get('assignment', 'round_robin'),
+               decomp_impl=cfg.get('decomp_impl'),
+               basis_update_freq=cfg.get('basis_update_freq'))
     pre.setup(capture.collect_layer_meta(model, x))
     state = pre.init('cpu')
     params = dict(model.named_parameters())
     out = {'steps': [], 'ledger': None}
+    phases = cfg.get('phases')
     for i in range(cfg['steps']):
+        ladder = {}
+        if phases is not None:
+            ladder = dict(zip(('update_basis', 'warm_basis'), phases[i]))
+            decomp_in = {part: {k: v.numpy().copy() for k, v in tree.items()}
+                         for part, tree in state.decomp.items()}
         model.zero_grad(set_to_none=True)
         with capture.Capture(model, pre.plan.metas) as cap:
             loss = ((model(x) - y) ** 2).mean()
@@ -105,7 +117,8 @@ def run_steps(rank, world, group, cfg):
         with coll.ledger() as led:
             grads = coll.average_grads(
                 {k: p.grad for k, p in params.items()}, group)
-            new_grads, state = pre.step(state, grads, cap.acts, cap.gs)
+            new_grads, state = pre.step(state, grads, cap.acts, cap.gs,
+                                        **ladder)
         if i == 0:
             out['ledger'] = [(scope, op, str(dtype), n)
                              for scope, op, dtype, n in led]
@@ -121,6 +134,8 @@ def run_steps(rank, world, group, cfg):
             'comm_err': (None if state.comm_err is None else
                          {k: v.numpy().copy()
                           for k, v in state.comm_err.items()})})
+        if phases is not None:
+            out['steps'][-1]['decomp_in'] = decomp_in
     return out
 
 
