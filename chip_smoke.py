@@ -45,7 +45,21 @@ launches:
   steps on each of two rungs (``--kfac-decomp-impl subspace
   --kfac-basis-update-freq 5``; ``--kfac-update-freq 10 --kfac-stagger``),
   which must run the expected decomposition each step with finite losses
-  and the default run's K1/K2 launches.
+  and the default run's K1/K2 launches;
+- slice 9, right after slice 1: the health guard on ResNet-32
+  (``--kfac-capture-impl pallas``): all-NaN batches at steps 3 and 10 (a
+  decomposition step) of 12 skipped, the run bitwise equal to a control
+  without them (deterministic cuDNN, a constant lr); NaN batches at
+  steps 2-5 climbing JAX's ladder (rungs 0,0,0,1,2,2,2,0,0,0); F1mc's
+  factors in lockstep with the plain path (fp64 factor GEMMs) over 3
+  factor steps, and K1/K2 launches a factor step for Femp and F1mc; the
+  step median with the guard on and off (ResNet-32, and ResNet-50 after
+  its lockstep) and the synchronizing calls of one steady step
+  (``set_sync_debug_mode``), none added by the guard; the native
+  crop-flip bitwise against numpy, the loader at prefetch depth 2 batch
+  for batch against depth 0, and the ResNet-32 step median and device
+  idle share at both depths. The world=2 phase checks that the guard
+  adds one scalar all-reduce a step.
 
 After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
 fp32 and bf16 inputs, K4, K5a and K5b at every head dim), the tensor-core
@@ -520,9 +534,9 @@ def kernel_summary(rows, launches, names=tuple(KERNELS), suffix=''):
 # phases 4 and 5: the trainer, fused and against the unfused path
 # ---------------------------------------------------------------------------
 
-def make_trainer(capture_impl):
+def make_trainer(capture_impl, extra=()):
     from kfac_pytorch_tpu_torch import train_cifar
-    argv = ['--device', 'cuda']
+    argv = ['--device', 'cuda'] + list(extra)
     if capture_impl is not None:
         argv += ['--kfac-capture-impl', capture_impl]
     return train_cifar.Trainer(train_cifar.parse_args(argv))
@@ -1384,6 +1398,12 @@ def world2_rank(rank, world, group):
         agree.append(tr.replicas_agree())
     out['launches'] = read_counts()
     timer.close()
+    # one more step's collectives by scope: the health guard's flag is one
+    # scalar all-reduce (host-staged on gloo)
+    with coll.ledger() as led:
+        tr.train_step(next(batches))
+    out['step_collectives'] = [[scope, op, str(dtype), n]
+                               for scope, op, dtype, n in led]
     out.update(step_ms=times, comm_ms=comm_s, losses=losses,
                residual_norm=resid, replicas_agree=agree)
     del tr
@@ -1552,6 +1572,12 @@ def run_world2():
                   f'{g["fused"][0]:.3e} ({g["fused"][1]}); control (fp64 '
                   f'factor GEMMs) {g["control"][0]:.3e} '
                   f'({g["control"][1]})', flush=True)
+    guard = [c for c in o['step_collectives'] if c[0] == 'health.batch_ok']
+    if len(guard) != 1:
+        fail(f'world2: the health guard ran {len(guard)} collectives in a '
+             f'step, expected one scalar all-reduce: {guard}')
+    print(f'world2 collectives in one step: {len(o["step_collectives"])}, '
+          f'of which the health guard\'s: {guard}', flush=True)
     print(f'world2 ({o["backend"]}) eigen_dp fp32: {WORLD2_DP_STEPS} steps, '
           f'losses {[round(x, 4) for x in o["dp_losses"]]}, replicas '
           f'bitwise equal, no residual; phase {time.perf_counter() - t0:.1f}'
@@ -2055,6 +2081,498 @@ def check_resnet50_resume():
          f'{sorted(differ)}')
 
 
+# ---------------------------------------------------------------------------
+# slice 9: the health guard, the F1mc Fisher and the prefetched data path
+# ---------------------------------------------------------------------------
+
+#: steps of the skip check, the batches made all-NaN there (step 10 is a
+#: decomposition step at the trainer's kfac_update_freq 10)
+SKIP_STEPS, SKIP_NAN = 12, (3, 10)
+#: the ladder check: HealthConfig, steps, NaN steps and the rung sequence
+#: of the JAX oracle (tests/test_health.py)
+LADDER_CFG = dict(escalate_after=2, max_rungs=2, recover_after=2)
+LADDER_STEPS, LADDER_NAN = 10, (2, 3, 4, 5)
+LADDER_RUNGS = [0, 0, 0, 1, 2, 2, 2, 0, 0, 0]
+F1MC_STEPS = 3
+#: timed steps of the guard's cost (after GUARD_WARM untimed ones), in
+#: rounds alternating on and off
+GUARD_STEPS_R32, GUARD_STEPS_R50, GUARD_WARM = 15, 5, 2
+#: steps of each loader-depth timing, in rounds alternating 2 and 0
+DEPTH_STEPS, DEPTH_ROUNDS = 6, 3
+
+
+def align(tr, batch, r):
+    """Step ``tr`` on ``batch`` until its step is ``r`` modulo
+    ``kfac_update_freq``: timed windows that start there see the same
+    decomposition steps."""
+    freq = tr.precond.kfac_update_freq
+    while tr.state.step % freq != r % freq:
+        tr.train_step(batch)
+
+
+def set_guard(tr, health, loss_fn, **kw):
+    """Rebuild ``tr``'s step with the guard ``health`` (True, False or a
+    HealthConfig), the preconditioner's in-engine screens to match."""
+    from kfac_pytorch_tpu_torch import health as health_lib
+    from kfac_pytorch_tpu_torch import training
+    tr.precond.health = health_lib.resolve(health)
+    tr.step_fn = training.build_train_step(
+        tr.state.model, tr.tx, tr.precond, loss_fn,
+        input_dtype=getattr(tr, 'dtype', None), health=health, **kw)
+
+
+def nan_batch(batch):
+    return {**batch, 'input': np.full_like(batch['input'], np.nan)}
+
+
+def skip_state(state):
+    """``{name: tensor}`` a skipped batch must leave alone: parameters,
+    BN buffers, momentum, factors and decomposition."""
+    out = _state_tensors(state)
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+def state_gap(got, want):
+    """Tensors of ``got`` that differ from ``want`` bit for bit, with
+    their largest difference."""
+    return {k: float((got[k].double() - want[k].double()).abs().max())
+            for k in want if not torch.equal(got[k], want[k])}
+
+
+def check_skip():
+    """ResNet-32 (``--kfac-capture-impl pallas``, a constant lr:
+    ``--warmup-epochs 0``) for SKIP_STEPS steps with all-NaN input batches
+    at SKIP_NAN, against a control run of the same batches without them,
+    under deterministic cuDNN: the two must end bitwise equal (parameters,
+    BN buffers, momentum, factors, decomposition). The lr is constant
+    because the trainer feeds the KL clip the lr at its own step, as the
+    JAX trainer does, and a skipped batch shifts that step against the
+    control's. The control runs twice: if it does not repeat itself
+    bitwise, the faulted run may part from it as far as its rerun
+    does."""
+    extra = ['--warmup-epochs', '0']
+    with deterministic_cudnn():
+        tr = make_trainer('pallas', extra)
+        it = tr.train_loader.epoch()
+        batches = [next(it) for _ in range(SKIP_STEPS)]
+        mets = []
+        for i, b in enumerate(batches):
+            m = tr.train_step(nan_batch(b) if i in SKIP_NAN else b)
+            mets.append({k: int(v) for k, v in m.items()
+                         if k.startswith('health/')})
+        faulted = skip_state(tr.state)
+        health = {k[len('health/'):]: v for k, v in mets[-1].items()}
+        oks = [m['health/ok'] for m in mets]
+        del tr
+        controls = []
+        for _ in range(2):
+            ctl = make_trainer('pallas', extra)
+            for i, b in enumerate(batches):
+                if i not in SKIP_NAN:
+                    ctl.train_step(b)
+            controls.append(skip_state(ctl.state))
+            del ctl
+    want_ok = [int(i not in SKIP_NAN) for i in range(SKIP_STEPS)]
+    if oks != want_ok or health['skipped'] != len(SKIP_NAN) \
+            or health['rung'] != 0:
+        fail(f'health skip: ok per step {oks}, expected {want_ok}; '
+             f'counters {health}')
+    gap = state_gap(faulted, controls[0])
+    rerun = state_gap(controls[1], controls[0])
+    worst = max(gap.values(), default=0.0)
+    worst_rerun = max(rerun.values(), default=0.0)
+    if gap and worst > worst_rerun:
+        fail(f'health skip: {len(gap)} of {len(faulted)} tensors differ '
+             f'from the control (largest {worst:.3e}, control rerun '
+             f'{worst_rerun:.3e}): {sorted(gap)[:8]}')
+    print(f'health skip: resnet32 bs128 capture_impl=pallas, NaN batches at '
+          f'steps {list(SKIP_NAN)} of {SKIP_STEPS} (step 10 decomposes), '
+          f'health after the last step {json.dumps(health)}; against the '
+          f'control without them: {len(gap)} of {len(faulted)} tensors '
+          f'differ (largest {worst:.3e}; control rerun: {len(rerun)}, '
+          f'{worst_rerun:.3e})', flush=True)
+    return {'health': health, 'ok': oks, 'tensors': len(faulted),
+            'differ': len(gap), 'max_diff': worst,
+            'rerun_differ': len(rerun), 'rerun_max_diff': worst_rerun}
+
+
+def check_ladder():
+    """ResNet-32 with HealthConfig(**LADDER_CFG) and NaN batches at
+    LADDER_NAN: the rung after each step must be JAX's oracle
+    LADDER_RUNGS and the parameters finite."""
+    from kfac_pytorch_tpu_torch import health as health_lib
+    from kfac_pytorch_tpu_torch import train_cifar
+    tr = make_trainer('pallas')
+    set_guard(tr, health_lib.HealthConfig(**LADDER_CFG), train_cifar.loss_fn)
+    it = tr.train_loader.epoch()
+    rungs, skipped = [], []
+    for i in range(LADDER_STEPS):
+        b = next(it)
+        m = tr.train_step(nan_batch(b) if i in LADDER_NAN else b)
+        rungs.append(int(m['health/rung']))
+        skipped.append(int(m['health/skipped']))
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in tr.state.model.parameters())
+    if rungs != LADDER_RUNGS or not finite:
+        fail(f'health ladder: rungs {rungs}, expected {LADDER_RUNGS}; '
+             f'parameters finite: {finite}')
+    print(f'health ladder: {LADDER_CFG}, NaN at steps {list(LADDER_NAN)}: '
+          f'rungs {rungs} (the JAX oracle), skipped {skipped[-1]}, '
+          f'parameters finite', flush=True)
+    return {'rungs': rungs, 'skipped': skipped[-1]}
+
+
+def take_batches(loader, n):
+    """The first ``n`` batches of ``loader``'s epochs, one epoch after
+    another."""
+    out = []
+    while len(out) < n:
+        with loader.epoch() as it:
+            out.extend(b for _, b in zip(range(n - len(out)), it))
+    return out
+
+
+def step_times(tr, batches, n, step=None):
+    """Host-clock ms of ``n`` synchronized steps on ``batches`` (host
+    batches, or an iterator), the batch fetch included."""
+    it = iter(batches)
+    step = step or tr.train_step
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(next(it))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def check_f1mc():
+    """F1mc on ResNet-32: the kernels' preconditioner (the trainer's,
+    ``--kfac-capture-impl pallas --kfac-type F1mc``, pseudo labels from a
+    numpy sampler) in lockstep with a capture_impl=None one that takes the
+    same gradients and F1mc captures each step under fp64 factor GEMMs:
+    the factors are held to check_kernels' RTOL/ATOL. Then K1/K2 launches
+    of one factor step and the median factor step, Femp against F1mc."""
+    import kfac_pytorch_tpu_torch as tkfac
+    from kfac_pytorch_tpu_torch import train_cifar
+    rng = np.random.RandomState(9)
+
+    def sampler(gen, out):
+        return torch.from_numpy(rng.randint(0, out.shape[-1],
+                                            out.shape[0])).to(out.device)
+
+    tr = make_trainer('pallas', ['--kfac-type', 'F1mc'])
+    set_guard(tr, True, train_cifar.loss_fn, fisher_type='F1mc',
+              fisher_seed=tr.args.seed, fisher_sample_fn=sampler)
+    a = tr.args
+    ref = tkfac.get_kfac_module(a.kfac_name)(
+        lr=a.base_lr, damping=a.damping, kfac_update_freq=a.kfac_update_freq,
+        kl_clip=a.kl_clip, factor_decay=a.stat_decay)
+    ref.setup(tr.precond.plan.metas)
+    ref_state = [ref.init(tr.device)]
+    inner = tr.precond.step
+    worst = [0.0]
+    bad = []
+
+    def lockstep(state, grads, acts=None, gs=None, **kw):
+        out = inner(state, grads, acts, gs, **kw)
+        with fp64_stat_gemm():
+            _, ref_state[0] = ref.step(ref_state[0], grads, acts, gs, **kw)
+        for k, v in ref_state[0].factors.items():
+            s = cs_scale(v)
+            err, ok = close(out[1].factors[k], v, RTOL, ATOL, s)
+            worst[0] = max(worst[0], float(((out[1].factors[k].double()
+                                             - v.double()).abs() / s).max()))
+            if not ok:
+                bad.append(f'step {state.step} bucket {k}: {err:.3e}')
+        return out
+
+    tr.precond.step = lockstep
+    it = tr.train_loader.epoch()
+    for _ in range(F1MC_STEPS):
+        tr.train_step(next(it))
+    tr.precond.step = inner
+    if bad:
+        fail('f1mc lockstep: factors off the fp64-GEMM plain path: '
+             + '; '.join(bad))
+    femp = make_trainer('pallas')
+    batch = next(it)
+    launches, ms = {}, {}
+    for name, t in (('Femp', femp), ('F1mc', tr)):
+        t.train_step(batch)
+        reset_counts()
+        t.train_step(batch)
+        launches[name] = {k: v for k, v in read_counts().items()
+                          if k in ('K1 conv_a', 'K2 stat_rows')}
+        ms[name] = float(np.median(step_times(t, [batch] * 10, 10)))
+    print(f'f1mc: {F1MC_STEPS} steps in lockstep (kernels vs the plain path '
+          f'under fp64 factor GEMMs, same F1mc captures): factors max err '
+          f'{worst[0]:.3e} x sqrt(F_ii F_jj) (tolerance {ATOL} + {RTOL} '
+          f'relative); K1/K2 launches a factor step {json.dumps(launches)}; '
+          f'factor step ms median Femp {ms["Femp"]:.3f}, F1mc '
+          f'{ms["F1mc"]:.3f}', flush=True)
+    return {'factor_max_err': worst[0], 'launches': launches,
+            'step_ms': ms}
+
+
+def count_syncs(fn):
+    """The synchronizing CUDA calls that ``fn`` makes
+    (``torch.cuda.set_sync_debug_mode('warn')``), each as the
+    ``file:line`` of the Python call that made it."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [f'{os.path.relpath(w.filename)}:{w.lineno}' for w in caught
+            if 'called a synchronizing' in str(w.message)]
+
+
+def guard_parts(tr):
+    """Host ms of each part of the guard (its device work included:
+    each part ends in a synchronize), on the tensors of one ResNet-32
+    factor step: the screens, the selects, the snapshot, the ladder and
+    the device lr; 50 calls each."""
+    from kfac_pytorch_tpu_torch import capture, training
+    from kfac_pytorch_tpu_torch import health as health_lib
+    rec = {}
+    inner = tr.precond.step
+
+    def spy(state, grads, acts=None, gs=None, **kw):
+        out = inner(state, grads, acts, gs, **kw)
+        rec.update(grads=grads, acts=acts, gs=gs, pgrads=out[0], old=state,
+                   new=out[1])
+        return out
+
+    tr.precond.step = spy
+    tr.train_step(next(tr.train_loader.epoch()))
+    tr.precond.step = inner
+    g, pg = rec['grads'], rec['pgrads']
+    changed = [k for k in g if pg[k] is not g[k]]
+    hs, cfg, keep = tr.state.health, tr.step_fn.health, tr.step_fn.keep
+    model = tr.state.model
+    ok = torch.ones((), dtype=torch.bool, device=DEVICE)
+    loss = torch.zeros((), device=DEVICE)
+    parts = {
+        'screen a, g, loss': lambda: capture.all_finite(rec['acts'],
+                                                        rec['gs'], loss),
+        'screen grads': lambda: capture.all_finite(g),
+        'screen preconditioned': lambda: capture.all_finite(
+            [pg[k] for k in changed]),
+        'select grads': lambda: [torch.where(ok, pg[k], g[k])
+                                 for k in changed],
+        'snapshot lookup': lambda: training.Snapshot.of(
+            list(model.parameters()) + list(model.buffers())
+            + capture.tensor_leaves(tr.state.opt_state), keep),
+        'snapshot save': keep.save,
+        'snapshot restore': lambda: keep.restore_unless(ok),
+        'select K-FAC state': lambda: training._select_kfac_state(
+            ok, rec['new'], rec['old']),
+        'ladder': lambda: health_lib.on_good_batch(hs, cfg, ok).select(
+            ok, health_lib.on_bad_batch(hs, cfg)),
+        'ladder damping': lambda: health_lib.effective_damping(
+            hs, tr.precond.damping, cfg),
+        'lr on the device': lambda: tr.tx.lr(tr.state.step - hs.skipped),
+    }
+    out = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / 50 * 1e3
+    return out
+
+
+#: the CUDA runtime calls that launch a kernel, as torch.profiler names them
+LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC',
+                'cudaLaunchCooperativeKernel', 'cuLaunchKernel',
+                'cuLaunchKernelEx')
+
+
+def launches_a_step(tr, batch, steps=3):
+    """Kernel launches and host (self CPU) ms a step of ``tr``'s step
+    function over ``steps`` steps after a warm one (torch.profiler, host
+    and device), none a decomposition step."""
+    from torch.profiler import ProfilerActivity, profile
+    align(tr, batch, 1)
+    b = tr.to_device(batch)
+
+    def step():
+        tr.state, _ = tr.step_fn(tr.state, b, lr=tr.lr_fn(tr.state.step),
+                                 damping=tr.precond.damping)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    return {'launches': sum(e.count for e in ev
+                            if e.key in LAUNCH_CALLS) / steps,
+            'host_ms': sum(e.self_cpu_time_total for e in ev) / steps / 1e3}
+
+
+def guard_cost(tr, loss_fn, steps, label, rounds=3, parts=False):
+    """Median step ms of ``tr`` with the guard on and off: ``rounds``
+    rounds, each a block of ``steps`` timed steps (after GUARD_WARM
+    untimed ones) on and one off, every block starting at the same step
+    of the decomposition cycle; the synchronizing calls of one step of
+    each, half way between decompositions (its step function on a batch
+    already on the card); with ``parts``, :func:`guard_parts`."""
+    batches = take_batches(tr.train_loader, steps + GUARD_WARM)
+    out = {}
+    for _ in range(rounds):
+        for on in (True, False):
+            set_guard(tr, on, loss_fn)
+            align(tr, batches[0], 1)
+            times = step_times(tr, batches, len(batches))[GUARD_WARM:]
+            out.setdefault('on' if on else 'off', []).append(
+                float(np.median(times)))
+    syncs = {}
+    dev_batch = tr.to_device(batches[1])
+    freq = tr.precond.kfac_update_freq
+    for on in (True, False):
+        set_guard(tr, on, loss_fn)
+        tr.train_step(batches[0])
+        tr.train_step(batches[0])
+        align(tr, batches[0], freq // 2)
+        lr = tr.lr_fn(tr.state.step)
+
+        torch.cuda.synchronize()
+
+        def one():
+            tr.state, _ = tr.step_fn(tr.state, dev_batch, lr=lr,
+                                     damping=tr.precond.damping)
+        syncs['on' if on else 'off'] = count_syncs(one)
+        torch.cuda.synchronize()
+    host, prof = {}, {}
+    if parts:
+        for on in (True, False):
+            set_guard(tr, on, loss_fn)
+            prof['on' if on else 'off'] = launches_a_step(tr, batches[0])
+    set_guard(tr, True, loss_fn)
+    if parts:
+        host = guard_parts(tr)
+    n_on, n_off = len(syncs['on']), len(syncs['off'])
+    if host:
+        print(f'guard cost ({label}): host ms of its parts (device work '
+              f'included) {json.dumps({k: round(v, 4) for k, v in host.items()})}, '
+              f'sum {sum(host.values()):.3f}; a factor step under '
+              f'torch.profiler, on / off: {prof["on"]["launches"]:.0f} / '
+              f'{prof["off"]["launches"]:.0f} kernel launches, host '
+              f'{prof["on"]["host_ms"]:.2f} / {prof["off"]["host_ms"]:.2f} '
+              'ms (self CPU, profiled)', flush=True)
+    print(f'guard cost ({label}): step ms median, guard on '
+          f'{out["on"]} vs off {out["off"]} ({rounds} x {steps} steps); '
+          f'synchronizing calls in one step (step % kfac_update_freq = '
+          f'{freq // 2}): on {n_on}, off {n_off}, at '
+          f'{json.dumps(sorted(set(syncs["on"] + syncs["off"])))}',
+          flush=True)
+    if n_on > n_off:
+        fail(f'guard cost ({label}): the guard adds synchronizing calls: '
+             f'{syncs["on"]} against {syncs["off"]}')
+    return {'step_ms_on': out['on'], 'step_ms_off': out['off'],
+            'parts_ms': host, 'profiled_step': prof,
+            'syncs_on': n_on, 'syncs_off': n_off,
+            'sync_sites': {k: sorted(set(v)) for k, v in syncs.items()}}
+
+
+def check_data(tr, launches):
+    """The native augmentation (built from native/kfac_native.cc) bitwise
+    against the numpy branch on a batch of 128, with host ms of each; the
+    first epoch at prefetch depth 2 batch for batch the one at depth 0;
+    the ResNet-32 step median (batch fetch included) and a profile's
+    device busy share at depth 2 and at depth 0."""
+    from kfac_pytorch_tpu_torch import data as kdata
+    from kfac_pytorch_tpu_torch import native_lib
+    if native_lib.get_lib() is None:
+        fail(f'native library did not build: {native_lib.build_error}')
+    x = kdata._normalize(tr.train_loader.x[:128])
+    r = np.random.RandomState(3)
+    offs = r.randint(0, 9, size=(len(x), 2)).astype(np.int32)
+    flips = r.rand(len(x)) < 0.5
+    host = {}
+    outs = {}
+    for name, fn in (('native', lambda: native_lib.augment_crop_flip(
+            x, offs, flips.astype(np.uint8))),
+                     ('numpy', lambda: kdata.crop_flip(x, offs, flips))):
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        host[name] = float(np.median(ts))
+    if not np.array_equal(outs['native'], outs['numpy']):
+        fail('data: the native crop-flip differs from the numpy branch')
+    a = kdata.Loader(tr.train_loader.x, tr.train_loader.y, 128, seed=5,
+                     augment=kdata.augment_cifar)
+    b = kdata.Loader(tr.train_loader.x, tr.train_loader.y, 128, seed=5,
+                     augment=kdata.augment_cifar)
+    n = 0
+    for ba, bb in zip(a.epoch(prefetch_depth=2), b.epoch(prefetch_depth=0)):
+        n += 1
+        if not (np.array_equal(ba['input'], bb['input'])
+                and np.array_equal(ba['label'], bb['label'])):
+            fail(f'data: batch {n - 1} at prefetch depth 2 differs from '
+                 'depth 0')
+    calls = native_lib.augment_crop_flip.calls
+    depth = {d: {'step_ms_median': []} for d in (2, 0)}
+    b0 = next(tr.train_loader.epoch())
+    for _ in range(DEPTH_ROUNDS):
+        for d in (2, 0):
+            align(tr, b0, 1)
+            times = step_times(tr, tr.train_loader.epoch(prefetch_depth=d),
+                               DEPTH_STEPS + 1)
+            depth[d]['step_ms_median'].append(float(np.median(times[1:])))
+    for d in (2, 0):
+        # one warm step and 3 profiled ones, none a decomposition step
+        align(tr, b0, 1)
+        prof = profile_steps(tr, tr.train_loader.epoch(prefetch_depth=d),
+                             f'resnet32 prefetch depth {d}',
+                             per_step(launches))
+        busy = prof['device_ms_per_step'] / prof['wall_ms_per_step']
+        depth[d].update(device_busy=busy, idle_share=1.0 - busy)
+    if native_lib.augment_crop_flip.calls <= calls:
+        fail('data: the trainer\'s loader did not use the native library')
+    print(f'data: native augment bitwise the numpy branch on 128 images '
+          f'(host ms {host["native"]:.3f} native, {host["numpy"]:.3f} '
+          f'numpy); {n} batches at prefetch depth 2 equal depth 0; resnet32 '
+          f'step ms medians (fetch included, {DEPTH_ROUNDS} alternating '
+          f'rounds of {DEPTH_STEPS}) depth 2 {depth[2]["step_ms_median"]} '
+          f'(device idle {100 * depth[2]["idle_share"]:.1f}%), depth 0 '
+          f'{depth[0]["step_ms_median"]} (idle '
+          f'{100 * depth[0]["idle_share"]:.1f}%)', flush=True)
+    return {'augment_host_ms': host, 'epoch_batches_equal': n,
+            'depth': depth}
+
+
+def run_slice9(launches):
+    """The slice-9 phase on ResNet-32 (and the guard's cost there); the
+    ResNet-50 guard cost runs in the ResNet-50 phase."""
+    from kfac_pytorch_tpu_torch import train_cifar
+    t0 = time.perf_counter()
+    out = {'skip': check_skip(), 'ladder': check_ladder(),
+           'f1mc': check_f1mc()}
+    torch.cuda.empty_cache()
+    tr = make_trainer('pallas')
+    out['guard_cost_resnet32'] = guard_cost(tr, train_cifar.loss_fn,
+                                            GUARD_STEPS_R32, 'resnet32',
+                                            parts=True)
+    out['data'] = check_data(tr, launches)
+    del tr
+    torch.cuda.empty_cache()
+    print(f'slice 9 phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
+
+
 def build_kernels():
     """Compile every ``csrc/*.cu`` at once (one nvcc each), then load."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2089,6 +2607,9 @@ def main():
     check_off_path()
     check_agreement()
     del tr
+
+    # slice 9: the health guard, F1mc and the prefetched data path
+    slice9 = run_slice9(launches)
 
     # slice 2: the long-context LM, attention kernels K4/K5a/K5b and K2
     lm, lm_launches, lm_times = run_lm_trainer()
@@ -2128,6 +2649,9 @@ def main():
     lap('kernel checks')
     check_resnet50_lockstep(r50)
     lap('lockstep')
+    slice9['guard_cost_resnet50'] = guard_cost(
+        r50, r50.loss_fn, GUARD_STEPS_R50, 'resnet50 bs32', rounds=1)
+    lap('guard cost')
     del r50
     torch.cuda.empty_cache()
     resume = check_resnet50_resume()
@@ -2155,7 +2679,7 @@ def main():
                                'transformer_lm': lm_times,
                                'resnet32_world2_eigen_bf16': w2['step_ms'],
                                'resnet50': r50_times},
-                   'world2': w2, 'nccl': nccl,
+                   'world2': w2, 'nccl': nccl, 'slice9': slice9,
                    'resnet50': {'decomposition': decomp,
                                 'resume': {k: v for k, v in resume.items()
                                            if k != 'differ'},

@@ -174,13 +174,15 @@ class Capture:
     cap: loss.backward()`` leaves ``cap.acts`` and ``cap.gs`` as ``{meta
     name: tensor}`` (NHWC for convs). Layers outside the plan, such as an
     excluded vocabulary head, are not hooked and keep nothing. Hooks are
-    removed on exit."""
+    removed on exit. :meth:`regrad`, inside the block, takes ``g`` again
+    from a second loss of the same forward."""
 
     def __init__(self, model, metas):
         self.model = model
         self.metas = list(metas)
         self.acts = {}
         self.gs = {}
+        self._outs = {}
         self._handles = []
 
     def __enter__(self):
@@ -195,6 +197,7 @@ class Capture:
     def _on_forward(self, key, inp, out):
         self.acts[key] = _nhwc(inp[0].detach())
         if out.requires_grad:
+            self._outs[key] = out
             def save_g(grad, key=key):
                 self.gs[key] = _nhwc(grad)
             out.register_hook(save_g)
@@ -203,7 +206,57 @@ class Capture:
         for h in self._handles:
             h.remove()
         self._handles = []
+        # the outputs' gradient hooks hold this object: keeping the
+        # outputs past the block would make a cycle that pins them (and
+        # their memory) until the garbage collector runs
+        self._outs = {}
         return False
+
+    def regrad(self, loss):
+        """Replace ``gs`` with ``d loss / d output`` of every captured
+        layer: a backward of ``loss``, a second loss on the outputs of the
+        captured forward (whose graph the first backward retained), that
+        computes the layers' output gradients only: no parameter gradient
+        is formed or accumulated. The F1mc Fisher's recapture; ``acts``
+        stay the forward's."""
+        keys = list(self._outs)
+        grads = torch.autograd.grad(loss, [self._outs[k] for k in keys],
+                                    allow_unused=True)
+        for key, g in zip(keys, grads):
+            self.gs[key] = _nhwc(torch.zeros_like(self._outs[key])
+                                 if g is None else g)
+
+
+def tensor_leaves(tree):
+    """The tensors of a tree of dicts, lists and tuples (None skipped)."""
+    if torch.is_tensor(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in tensor_leaves(sub)]
+    return []
+
+
+def all_finite(*trees):
+    """0-d bool tensor: every floating leaf of every tree is finite (the
+    health guard's batch screen; integer leaves are finite by definition,
+    and no leaves at all is healthy). The leaves of one dtype and device
+    are screened together, in a few launches and host calls however many
+    there are: ``x * 0`` is 0 where ``x`` is finite and NaN where it is
+    not, so the sum of ``|x * 0|`` (``torch._foreach_norm``, ord 1) is
+    finite exactly when every entry is (no overflow, unlike a norm of
+    ``x`` itself)."""
+    groups = {}
+    for leaf in tensor_leaves(trees):
+        if leaf.is_floating_point():
+            groups.setdefault((leaf.dtype, leaf.device), []).append(leaf)
+    ok = None
+    for leaves in groups.values():
+        sums = torch._foreach_norm(torch._foreach_mul(leaves, 0.0), 1)
+        part = torch.isfinite(torch.stack(sums)).all()
+        ok = part if ok is None else ok & part
+    return torch.ones((), dtype=torch.bool) if ok is None else ok
 
 
 def layer_act(acts, meta: LayerMeta):

@@ -1,20 +1,29 @@
-"""Input pipeline (port of ``kfac_pytorch_tpu/data.py``: the synthetic
-CIFAR source, normalization, numpy augmentation and the shuffling loader;
-of the ImageNet trainer's data, ``examples/imagenet_resnet.py``; and of
-the long-context trainer's corpus and batch sampler,
-``examples/longcontext_lm.py``).
+"""Input pipeline (port of ``kfac_pytorch_tpu/data.py``: the CIFAR-10
+archive reader and the synthetic CIFAR source, normalization, the
+augmentation (native, with its numpy branch), the background prefetch and
+the shuffling loader; of the ImageNet trainer's data,
+``examples/imagenet_resnet.py``; and of the long-context trainer's corpus
+and batch sampler, ``examples/longcontext_lm.py``).
 
 Batches are host numpy dicts, ``{'input': [B, H, W, 3] float32 NHWC,
 'label': [B] int64}`` for CIFAR and ImageNet, and ``{'input': [B, L]
 int32 tokens, 'label': [B, L] int32 next tokens}`` for the LM, drawn from
 the same seeded streams as the JAX package's, so both packages see the
-same batches.
+same batches. Not ported yet: the loader's ``retry`` (RetryPolicy,
+ROADMAP queue 1, item 13), its multi-host ``shard`` and its fault hook
+(slice G).
 """
 
 import collections
 import os
+import pickle
+import queue
+import tarfile
+import threading
 
 import numpy as np
+
+from kfac_pytorch_tpu_torch import native_lib
 
 CIFAR10_MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
 CIFAR10_STD = np.array([0.2470, 0.2435, 0.2616], np.float32)
@@ -30,9 +39,40 @@ def synthetic_classification(n, shape, num_classes, seed=0):
     return x, labels.astype(np.int64)
 
 
-def get_cifar(num_classes=10, synthetic_size=2048):
-    """(train, val) arrays of the synthetic CIFAR stand-in: one draw, then
+def load_cifar10(data_dir):
+    """``((train_x, train_y), (test_x, test_y))`` from the standard
+    ``cifar-10-batches-py`` pickles under ``data_dir`` (extracted from
+    ``cifar-10-python.tar.gz`` there first if only the archive is):
+    uint8 NHWC images, int64 labels."""
+    base = os.path.join(data_dir, 'cifar-10-batches-py')
+    if not os.path.isdir(base):
+        archive = os.path.join(data_dir, 'cifar-10-python.tar.gz')
+        if os.path.exists(archive):
+            with tarfile.open(archive) as tf:
+                tf.extractall(data_dir, filter='data')
+    xs, ys = [], []
+    for name in [f'data_batch_{i}' for i in range(1, 6)]:
+        with open(os.path.join(base, name), 'rb') as f:
+            d = pickle.load(f, encoding='bytes')
+        xs.append(d[b'data'])
+        ys.extend(d[b'labels'])
+    train_x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    with open(os.path.join(base, 'test_batch'), 'rb') as f:
+        d = pickle.load(f, encoding='bytes')
+    test_x = d[b'data'].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return ((train_x, np.asarray(ys, np.int64)),
+            (test_x, np.asarray(d[b'labels'], np.int64)))
+
+
+def get_cifar(data_dir=None, num_classes=10, synthetic_size=2048):
+    """(train, val) arrays: CIFAR-10 from ``data_dir`` when it holds it
+    (:func:`load_cifar10`), else the synthetic stand-in: one draw, then
     split, so train and val share the class means."""
+    if data_dir and num_classes == 10:
+        try:
+            return load_cifar10(data_dir)
+        except (FileNotFoundError, OSError):
+            pass
     n_val = synthetic_size // 4
     x, y = synthetic_classification(synthetic_size + n_val, (32, 32, 3),
                                     num_classes, seed=1)
@@ -65,17 +105,105 @@ def _normalize(x):
 
 
 def augment_cifar(rng, x):
-    """Pad-4 (reflect) random crop + horizontal flip, in numpy."""
-    n, h, w, c = x.shape
+    """Pad-4 (reflect) random crop + horizontal flip: the native batched
+    kernel (``native_lib.augment_crop_flip``) when the library builds,
+    else :func:`crop_flip` in numpy; the same bits either way."""
+    n = x.shape[0]
     offs = rng.randint(0, 9, size=(n, 2)).astype(np.int32)
     flips = (rng.rand(n) < 0.5)
-    xp = np.pad(x, ((0, 0), (4, 4), (4, 4), (0, 0)), mode='reflect')
+    out = native_lib.augment_crop_flip(
+        x.astype(np.float32, copy=False), offs, flips.astype(np.uint8))
+    return crop_flip(x, offs, flips) if out is None else out
+
+
+def crop_flip(x, offs, flips, pad=4):
+    """The numpy branch of :func:`augment_cifar`: ``x`` ``[N, H, W, C]``
+    reflect-padded by ``pad``, cropped at ``offs[i]`` and flipped where
+    ``flips[i]``."""
+    n, h, w, c = x.shape
+    xp = np.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0)), mode='reflect')
     out = np.empty_like(x)
     for i in range(n):
         oy, ox = offs[i]
         win = xp[i, oy:oy + h, ox:ox + w]
         out[i] = win[:, ::-1] if flips[i] else win
     return out
+
+
+class PrefetchIterator:
+    """Iterator over prefetched batches with deterministic release:
+    ``close()`` (idempotent) stops the producer thread at once, and the
+    object is its own context manager (``with loader.epoch() as it``)."""
+
+    def __init__(self, gen):
+        self._gen = gen
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._gen)
+
+    def close(self):
+        self._gen.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def prefetch(gen, depth=2):
+    """Run a batch generator on a background thread, ``depth`` items
+    ahead, so host batch assembly (gather, normalize, augment) overlaps
+    the device's step. Exceptions in the producer re-raise at the
+    consumer; the sequence is ``gen``'s. Returns a
+    :class:`PrefetchIterator`."""
+    return PrefetchIterator(_prefetch_gen(gen, depth))
+
+
+def _prefetch_gen(gen, depth):
+    if depth <= 0:
+        yield from gen
+        return
+    q = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put(msg):
+        # a put that gives up once the consumer is gone, so an abandoned
+        # epoch does not pin this thread, its queue and the source
+        while not stop.is_set():
+            try:
+                q.put(msg, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in gen:
+                if not put(('item', item)):
+                    gen.close()
+                    return
+            put(('end', None))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            put(('exc', e))
+
+    t = threading.Thread(target=worker, daemon=True, name='kfac-prefetch')
+    t.start()
+    try:
+        while True:
+            kind, payload = q.get()
+            if kind == 'end':
+                break
+            if kind == 'exc':
+                raise payload
+            yield payload
+    finally:
+        stop.set()
+        t.join()
 
 
 class Loader:
@@ -91,9 +219,16 @@ class Loader:
         self.rng = np.random.RandomState(seed)
         self.steps_per_epoch = len(x) // batch_size
 
-    def epoch(self):
-        """One epoch of batches."""
-        rng = np.random.RandomState(self.rng.randint(1 << 31))
+    def epoch(self, prefetch_depth=2):
+        """One epoch of batches, assembled ``prefetch_depth`` ahead on a
+        background thread (:func:`prefetch`; 0 = synchronous). The child
+        seed is drawn here, at the call, so the batch sequence is the same
+        at any depth and however far the producer ran ahead."""
+        seed = self.rng.randint(1 << 31)
+        return prefetch(self._epoch_sync(np.random.RandomState(seed)),
+                        depth=prefetch_depth)
+
+    def _epoch_sync(self, rng):
         idx = np.arange(len(self.x))
         if self.train:
             rng.shuffle(idx)

@@ -441,14 +441,15 @@ def compute_cohort_decomposition(plan, cohorts, factors_local, cohort_idx,
 
 def merge_cohort_decomposition(plan, cohorts, decomp_stored, cohort_new,
                                cohort_idx, group, comm_mode, method,
-                               comm_precision='fp32'):
+                               guard=True, comm_precision='fp32'):
     """Write the freshly decomposed cohort rows into the stored
     decomposition; every other row keeps its stored bits. comm_mode
     'pred': a local scatter; 'inverse': the cohort rows are all-gathered
-    first (``sum_b R_b`` rows a step). A row that is not finite keeps its
-    stored value (the staggered form of :func:`guard_decomposition`;
-    evals and evecs commit together); padding rows write their stored
-    value back, so no two writes to a row differ."""
+    first (``sum_b R_b`` rows a step). With ``guard`` a row that is not
+    finite keeps its stored value (the staggered form of
+    :func:`guard_decomposition`; evals and evecs commit together); padding
+    rows write their stored value back, so no two writes to a row
+    differ."""
     part = 'evals' if method == 'eigh' else 'invs'
     dev = next(iter(decomp_stored[part].values())).device
     if comm_mode == 'inverse':
@@ -484,7 +485,9 @@ def merge_cohort_decomposition(plan, cohorts, decomp_stored, cohort_new,
             key = _key(bdim)
             dn = gather(cohort_new['evals'][key])
             qn = gather(cohort_new['evecs'][key])
-            ok = valid[bdim] & _rows_finite(dn) & _rows_finite(qn)
+            ok = valid[bdim]
+            if guard:
+                ok = ok & _rows_finite(dn) & _rows_finite(qn)
             new_d[key] = put(decomp_stored['evals'][key], rows[bdim], ok, dn)
             new_q[key] = put(decomp_stored['evecs'][key], rows[bdim], ok, qn)
         out['evals'], out['evecs'] = new_d, new_q
@@ -493,7 +496,9 @@ def merge_cohort_decomposition(plan, cohorts, decomp_stored, cohort_new,
     for bdim in plan.bucket_dims:
         key = _key(bdim)
         xn = gather(cohort_new['invs'][key])
-        ok = valid[bdim] & _rows_finite(xn)
+        ok = valid[bdim]
+        if guard:
+            ok = ok & _rows_finite(xn)
         new_i[key] = put(decomp_stored['invs'][key], rows[bdim], ok, xn)
     out['invs'] = new_i
     return out

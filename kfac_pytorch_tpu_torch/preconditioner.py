@@ -36,6 +36,7 @@ from typing import Dict, Optional
 import torch
 
 from kfac_pytorch_tpu_torch import engine
+from kfac_pytorch_tpu_torch import health as health_lib
 from kfac_pytorch_tpu_torch.capture import filter_vocab_head
 from kfac_pytorch_tpu_torch.parallel import collectives as coll
 from kfac_pytorch_tpu_torch.plan import (build_cohorts, build_plan,
@@ -160,10 +161,15 @@ class KFAC:
         ``warm_start_basis``) or one of ``DECOMP_IMPLS``; an explicit
         iterative value implies warm starts.
 
-    The JAX package's in-engine health screens are always on: factor and
-    decomposition rows that come back non-finite fall back to their last
-    good value, and a non-finite residual row resets to zero (pure
-    pass-through on finite values).
+      health: the numerical-health guard (``health.py``). True (the
+        default) turns on the in-engine screens with the default ladder:
+        factor and decomposition rows that come back non-finite fall back
+        to their last good value (the identity when cold), and a
+        non-finite residual row resets to zero (pure pass-through on
+        finite values). A ``health.HealthConfig`` tunes the damping ladder
+        the trainer drives; False turns every screen off
+        (``self.health`` is then None). The E-KFAC scales screen comes
+        with E-KFAC (ROADMAP queue 1, item 18).
     """
 
     def __init__(self, variant='eigen_dp', lr=0.1, damping=0.001,
@@ -176,7 +182,7 @@ class KFAC:
                  comm_precision='fp32', comm_mode=None, capture_impl=None,
                  basis_update_freq=None, warm_start_basis=False,
                  warm_sweeps=None, cold_restart_every=50, stagger=False,
-                 decomp_impl=None):
+                 decomp_impl=None, health=True):
         if variant not in _VARIANTS:
             raise KeyError(f'unknown variant {variant!r}')
         if variant in _LATER:
@@ -219,6 +225,7 @@ class KFAC:
         self.eps = eps
         self.comm_precision = coll.check_wire_dtype(comm_precision)
         self.capture_impl = capture_impl
+        self.health = health_lib.resolve(health)
         self._set_decomp_ladder(basis_update_freq, warm_start_basis,
                                 warm_sweeps, cold_restart_every, stagger,
                                 decomp_impl)
@@ -460,14 +467,17 @@ class KFAC:
                     self.stats_reduce, group,
                     comm_precision=self.comm_precision, comm_err=comm_err,
                     capture_impl=cap_impl)
-            if comm_err is not None:
+            if self.health is not None and comm_err is not None:
                 # a non-finite residual row resets to zero (feedback is a
                 # correction, never load-bearing)
                 comm_err = engine.where_finite_rows(
                     comm_err, {k: torch.zeros_like(v)
                                for k, v in comm_err.items()})
-            factors = engine.where_finite_rows(factors, state.factors,
-                                               reinit_identity=True)
+            if self.health is not None:
+                # a non-finite EMA row keeps the last good factor; a row
+                # whose stored value is corrupt too restarts from identity
+                factors = engine.where_finite_rows(factors, state.factors,
+                                                   reinit_identity=True)
 
         if factors_only:
             return grads, KFACState(step=state.step + 1, factors=factors,
@@ -477,11 +487,13 @@ class KFAC:
             update_inverse = False
         impl = self.resolved_decomp_impl
         if update_inverse and self.method == 'eigh' and not update_basis:
-            decomp = engine.guard_decomposition(
-                engine.refresh_decomposition(
-                    plan, factors, decomp, self.eps, group, self.comm_mode,
-                    comm_precision=self.comm_precision),
-                decomp, 'eigh')
+            refreshed = engine.refresh_decomposition(
+                plan, factors, decomp, self.eps, group, self.comm_mode,
+                comm_precision=self.comm_precision)
+            if self.health is not None:
+                refreshed = engine.guard_decomposition(refreshed, decomp,
+                                                       'eigh')
+            decomp = refreshed
         elif update_inverse:
             basis_local = invs_prev = None
             if (self.warm_start_basis or self.warm_impl) and warm_basis:
@@ -491,14 +503,16 @@ class KFAC:
                 else:
                     invs_prev = engine.local_invs(plan, decomp, group,
                                                   self.comm_mode)
-            decomp_local = engine.guard_decomposition(
-                engine.compute_decomposition(
-                    plan, factors, damping, self.method, self.eps, group,
-                    basis_local=basis_local, warm_sweeps=self.warm_sweeps,
-                    invs_prev_local=invs_prev, impl=impl),
-                engine.local_decomposition(plan, decomp, group,
-                                           self.comm_mode, self.method),
-                self.method)
+            decomp_local = engine.compute_decomposition(
+                plan, factors, damping, self.method, self.eps, group,
+                basis_local=basis_local, warm_sweeps=self.warm_sweeps,
+                invs_prev_local=invs_prev, impl=impl)
+            if self.health is not None:
+                decomp_local = engine.guard_decomposition(
+                    decomp_local,
+                    engine.local_decomposition(plan, decomp, group,
+                                               self.comm_mode, self.method),
+                    self.method)
             if self.comm_mode == 'inverse':
                 decomp = engine.gather_decomposition(
                     plan, decomp_local, group,
@@ -518,7 +532,7 @@ class KFAC:
                 comm_mode=self.comm_mode, warm_sweeps=self.warm_sweeps)
             decomp = engine.merge_cohort_decomposition(
                 plan, cohorts, decomp, cohort_new, cohort_idx, group,
-                self.comm_mode, self.method,
+                self.comm_mode, self.method, guard=self.health is not None,
                 comm_precision=self.comm_precision)
 
         grad_mats = [engine.layer_grad_matrix(m, grads) for m in plan.metas]

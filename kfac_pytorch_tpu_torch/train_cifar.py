@@ -7,7 +7,13 @@ flags the port supports, plus ``--device`` (default ``cuda``),
   python -m kfac_pytorch_tpu_torch.launch --nproc 2 -- train_cifar \\
       --kfac-name eigen --kfac-comm-precision bf16 --kfac-capture-impl auto
 
-Trains on the synthetic CIFAR stand-in (``data.get_cifar``). At
+Trains on CIFAR-10 from ``--dir`` when it holds the archive, else on the
+synthetic stand-in (``data.get_cifar``), with batches assembled two ahead
+on a background thread (``data.Loader.epoch``). The numerical-health
+guard is on (``KFAC(health=True)``): skipped batches and the damping
+ladder are logged as WARNINGs at their step and summarized on the epoch
+line (`` [health: ...]``). ``--kfac-type F1mc`` estimates the factors'
+Fisher from labels sampled from the model (seeded by ``--seed``). At
 ``--num-devices`` > 1 each rank is one process (started by the launcher,
 which sets ``--num-devices``), ``--batch-size`` is the GLOBAL batch and
 rank r trains on its rows ``[r*B/P, (r+1)*B/P)``; rank 0 prints.
@@ -33,6 +39,9 @@ def parse_args(argv=None):
     p.add_argument('--model', default='resnet32')
     p.add_argument('--dataset', default='cifar10',
                    choices=['cifar10', 'cifar100'])
+    p.add_argument('--dir', default=None,
+                   help='dataset directory (cifar-10-batches-py or its '
+                        'tar.gz); synthetic data when absent')
     p.add_argument('--batch-size', type=int, default=128)
     p.add_argument('--val-batch-size', type=int, default=128)
     p.add_argument('--epochs', type=int, default=100)
@@ -48,6 +57,11 @@ def parse_args(argv=None):
                    help="capture path: unset or 'xla' = plain torch ops; "
                         "'pallas'/'auto' = the fused CUDA capture kernels")
     p.add_argument('--kfac-cov-update-freq', type=int, default=1)
+    p.add_argument('--kfac-type', '--fisher-type', default='Femp',
+                   choices=['Femp', 'F1mc'],
+                   help='Fisher estimator: empirical-gradient (Femp) or '
+                        '1-sample MC with model-sampled pseudo labels '
+                        '(F1mc)')
     add_decomp_flags(p)
     p.add_argument('--kfac-name', default='eigen_dp',
                    choices=list(kfac.KFAC_VARIANTS))
@@ -121,7 +135,8 @@ class Trainer:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         num_classes = 10 if args.dataset == 'cifar10' else 100
-        (train_x, train_y), (val_x, val_y) = kdata.get_cifar(num_classes)
+        (train_x, train_y), (val_x, val_y) = kdata.get_cifar(args.dir,
+                                                             num_classes)
         self.train_loader = kdata.Loader(train_x, train_y, args.batch_size,
                                          train=True,
                                          augment=kdata.augment_cifar,
@@ -160,8 +175,9 @@ class Trainer:
         sample = torch.zeros((args.batch_size // world, 32, 32, 3))
         self.state = training.init_train_state(model, self.tx, self.precond,
                                                sample, self.device)
-        self.step_fn = training.build_train_step(model, self.tx,
-                                                 self.precond, loss_fn)
+        self.step_fn = training.build_train_step(
+            model, self.tx, self.precond, loss_fn,
+            fisher_type=args.kfac_type, fisher_seed=args.seed)
 
     def to_device(self, batch):
         """This rank's rows of a global host batch, on the device."""
@@ -204,17 +220,22 @@ def main(argv=None):
     args = parse_args(argv)
     tr = Trainer(args)
     say = print if tr.rank == 0 else (lambda *a, **k: None)
+    # skipped batches and ladder climbs as WARNINGs at their step, and a
+    # per-epoch suffix
+    monitor = utils.HealthMonitor(state=tr.state)
     for epoch in range(args.epochs):
         t0 = time.time()
         total = count = 0.0
-        for batch in tr.train_loader.epoch():
-            m = tr.train_step(batch)
-            total += float(m['loss']) * len(batch['label'])
-            count += len(batch['label'])
+        with tr.train_loader.epoch() as batches:
+            for batch in batches:
+                m = tr.train_step(batch)
+                total += float(m['loss']) * len(batch['label'])
+                count += len(batch['label'])
+                monitor.update(m, step=tr.state.step - 1)
         vl, va = tr.evaluate()
         say(f'epoch {epoch}: train_loss {total / count:.4f} '
-            f'val_loss {vl:.4f} val_acc {va:.4f} ({time.time() - t0:.1f}s)',
-            flush=True)
+            f'val_loss {vl:.4f} val_acc {va:.4f} ({time.time() - t0:.1f}s)'
+            f'{utils.health_suffix(monitor.epoch_flush())}', flush=True)
         if tr.scheduler is not None:
             tr.scheduler.step(epoch + 1)
     if tr.world > 1:

@@ -14,7 +14,10 @@ accumulated batches, 5 warmup epochs, wd 5e-5, label smoothing 0.1,
       --epochs 1
 
 Reads ``images.npy``/``labels.npy`` from ``--train-dir`` when present,
-else the synthetic stand-in (``data.get_imagenet``). World=1 only: flags
+else the synthetic stand-in (``data.get_imagenet``), two batches ahead on
+a background thread (``data.Loader.epoch``). The numerical-health guard
+is on (``KFAC(health=True)``), its events logged at their step and
+summarized on the epoch line. World=1 only: flags
 of the JAX trainer whose features the port does not have yet raise
 NotImplementedError naming their ROADMAP item.
 """
@@ -308,16 +311,19 @@ def main(argv=None):
         speed(tr)
         return
     guard = checkpoint.PreemptionGuard()
+    monitor = utils.HealthMonitor(state=tr.state)
     try:
         for epoch in range(start_epoch, args.epochs):
             t0 = time.time()
             total = count = 0.0
-            for batch in tr.train_loader.epoch():
-                if guard.should_stop():
-                    break
-                m = tr.train_step(batch)
-                total += float(m['loss']) * len(batch['label'])
-                count += len(batch['label'])
+            with tr.train_loader.epoch() as batches:
+                for batch in batches:
+                    if guard.should_stop():
+                        break
+                    m = tr.train_step(batch)
+                    total += float(m['loss']) * len(batch['label'])
+                    count += len(batch['label'])
+                    monitor.update(m, step=tr.state.step - 1)
             if guard.should_stop():
                 # tagged with the last completed epoch: the resume replays
                 # the interrupted one (the step count keeps the lr exact)
@@ -330,7 +336,9 @@ def main(argv=None):
             vl, va = tr.evaluate()
             print(f'epoch {epoch}: train_loss {total / max(count, 1):.4f} '
                   f'val_loss {vl:.4f} val_acc {va:.4f} '
-                  f'({time.time() - t0:.1f}s)', flush=True)
+                  f'({time.time() - t0:.1f}s)'
+                  f'{utils.health_suffix(monitor.epoch_flush())}',
+                  flush=True)
             if tr.scheduler is not None:
                 tr.scheduler.step(epoch + 1)
             tr.save(epoch)

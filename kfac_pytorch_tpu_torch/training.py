@@ -1,19 +1,23 @@
-"""The K-FAC + SGD training step (port of the Femp path of
-``kfac_pytorch_tpu/training.py``), at world=1 or data-parallel over a
-process group.
+"""The K-FAC + SGD training step (port of ``kfac_pytorch_tpu/training.py``),
+at world=1 or data-parallel over a process group.
 
 One iteration: forward on this rank's shard (capture armed on
 factor-update steps) -> the LOCAL-mean loss -> backward (capture takes
-``g``) -> gradients averaged over the group in fp32 -> ``KFAC.step``
+``g``) -> with the F1mc Fisher, a second backward of the same forward
+against labels sampled from the model, whose ``g`` replaces the first ->
+gradients averaged over the group in fp32 -> ``KFAC.step``
 (preconditioned grads) -> SGD (or :class:`MultiSteps`, the gradient
 accumulation of ``optax.MultiSteps``); BatchNorm running statistics are
 averaged over the group, and the reported loss is the group mean.
 Parameters and buffers stay bitwise identical across ranks. Each step
 makes the JAX trainer's choice of decomposition (full cold or warm, an
-eigenvalue-only refresh, a staggered cohort). The JAX trainer's
-numerical-health guard (bad-batch skip and the damping ladder), the F1mc
-Fisher, faults and tracing are not ported yet; the preconditioner's own
-non-finite screens are.
+eigenvalue-only refresh, a staggered cohort).
+
+The numerical-health guard (``health.py``, on by default as in JAX)
+screens each batch on the device and skips a non-finite one without a
+host round trip: parameters, optimizer state, BatchNorm statistics and
+the K-FAC state come out bit for bit as they went in. Faults and tracing
+are not ported yet (ROADMAP queue 1, slices F and G).
 """
 
 import dataclasses
@@ -24,20 +28,23 @@ import numpy as np
 import torch
 
 from kfac_pytorch_tpu_torch import capture
+from kfac_pytorch_tpu_torch import health as health_lib
 from kfac_pytorch_tpu_torch.parallel import collectives as coll
-from kfac_pytorch_tpu_torch.preconditioner import KFACHyperParams
+from kfac_pytorch_tpu_torch.preconditioner import KFACHyperParams, KFACState
+from kfac_pytorch_tpu_torch.utils.losses import sample_pseudo_labels
 from kfac_pytorch_tpu_torch.utils.platform import resolve_device
 
 
 class SGD:
     """SGD with momentum and weight decay in ``torch.optim.SGD``'s order:
     ``g + wd * p``, then ``buf = momentum * buf + g``, then
-    ``p += -lr * buf``, with ``lr = lr_schedule(step)`` at the step index
-    the JAX optimizer's count gives (0 on the first step)."""
+    ``p += -lr * buf``, with ``lr = lr_schedule(count)`` at the count of
+    updates the JAX optimizer has applied (0 on the first step; a batch
+    the health guard skipped is not counted). ``lr_schedule`` is a number
+    or a schedule of ``utils.lr``."""
 
     def __init__(self, lr_schedule, momentum=0.9, weight_decay=0.0):
-        self.lr_schedule = (lr_schedule if callable(lr_schedule)
-                            else (lambda step: lr_schedule))
+        self.lr_schedule = lr_schedule
         self.momentum = momentum
         self.weight_decay = weight_decay
 
@@ -45,11 +52,28 @@ class SGD:
         """Zero momentum buffers, one per parameter."""
         return {k: torch.zeros_like(p) for k, p in params.items()}
 
+    def lr(self, count):
+        """The lr at ``count``: a float for an int count; for a 0-d
+        integer tensor (the guarded step's device count) a float32 0-d
+        tensor on its device, from the schedule's ``device`` form."""
+        sched = self.lr_schedule
+        if not callable(sched):
+            return float(np.float32(sched))
+        if not torch.is_tensor(count):
+            return float(np.float32(sched(count)))
+        on_device = getattr(sched, 'device', None)
+        if on_device is None:
+            raise TypeError(
+                'the guarded step counts updates on the device: give SGD a '
+                'number or a utils.lr schedule (with a device form), not '
+                f'{sched!r}')
+        return on_device(count)
+
     @torch.no_grad()
     def apply(self, params, grads, opt_state, count):
         """Update ``params`` (and the buffers in ``opt_state``) in place,
         each op once over all tensors (``torch._foreach_*``)."""
-        lr = float(np.float32(self.lr_schedule(count)))
+        lr = self.lr(count)
         keys = list(params)
         p = [params[k] for k in keys]
         g = [grads[k] for k in keys]
@@ -73,16 +97,26 @@ class MultiSteps:
     (``acc + (g - acc) / (n + 1)``, optax's Welford update), and every
     ``every_k``-th call applies ``inner`` to that mean and resets it; the
     calls between change no parameter. ``inner``'s lr schedule counts its
-    own updates (``gradient_step``), not the calls."""
+    own updates (``gradient_step``), not the calls.
+
+    The counters ``mini_step`` and ``gradient_step`` are 0-d int64
+    tensors on the parameters' device and every call is the same launches
+    with no branch on them: the inner update runs into the tensors and is
+    kept only on the ``every_k``-th call (a select, never read back to the
+    host)."""
 
     def __init__(self, inner, every_k):
         if every_k < 1:
             raise ValueError(f'every_k must be >= 1, got {every_k}')
         self.inner = inner
         self.every_k = every_k
+        self._keep = self._zero = None
 
     def init(self, params):
-        return {'mini_step': 0, 'gradient_step': 0,
+        dev = next(iter(params.values())).device
+        return {'mini_step': torch.zeros((), dtype=torch.int64, device=dev),
+                'gradient_step': torch.zeros((), dtype=torch.int64,
+                                             device=dev),
                 'inner': self.inner.init(params),
                 'acc': {k: torch.zeros_like(p) for k, p in params.items()}}
 
@@ -97,13 +131,82 @@ class MultiSteps:
         acc = [opt_state['acc'][k] for k in keys]
         g = [grads[k] for k in keys]
         torch._foreach_add_(acc, torch._foreach_div(
-            torch._foreach_sub(g, acc), n + 1))
-        if n == self.every_k - 1:
-            self.inner.apply(params, opt_state['acc'], opt_state['inner'],
-                             opt_state['gradient_step'])
-            opt_state['gradient_step'] += 1
-            torch._foreach_zero_(acc)
-        opt_state['mini_step'] = (n + 1) % self.every_k
+            torch._foreach_sub(g, acc), (n + 1).to(acc[0].dtype)))
+        final = n == self.every_k - 1
+        self._keep = Snapshot.of([params[k] for k in keys]
+                                 + capture.tensor_leaves(opt_state['inner']),
+                                 self._keep)
+        self._zero = Snapshot.of(acc, self._zero, zeros=True)
+        self._keep.save()
+        self.inner.apply(params, opt_state['acc'], opt_state['inner'],
+                         opt_state['gradient_step'])
+        self._keep.restore_unless(final)
+        self._zero.restore_unless(~final)
+        opt_state['gradient_step'].add_(final.to(torch.int64))
+        n.copy_(torch.remainder(n + 1, self.every_k))
+
+
+def _memory_flat(t):
+    """A 1-D view of tensor ``t`` in its memory order (NCHW, channels_last
+    and their permuted views alike), or a flat copy when ``t`` is not
+    dense."""
+    if t.is_contiguous():
+        return t.view(-1)
+    p = t.permute(sorted(range(t.ndim), key=lambda d: -t.stride(d)))
+    return p.view(-1) if p.is_contiguous() else t.reshape(-1)
+
+
+class Snapshot:
+    """A saved copy of a fixed set of dense tensors, put back where a 0-d
+    bool flag is false: ``save()`` copies them, ``restore_unless(ok)``
+    leaves each tensor as it is where ``ok`` holds and bit for bit as
+    saved where it does not (all zeros with ``zeros``, and no ``save``).
+    A select, never a multiply by a 0/1 mask (``NaN * 0`` is NaN). The
+    tensors are grouped by dtype and device into flat buffers made once
+    (:meth:`of` keeps them while the tensors stay the same), so each call
+    is a few launches and host ops for any number of tensors: a
+    ``torch.cat``, a ``torch.where`` and one ``torch._foreach_copy_`` a
+    group."""
+
+    def __init__(self, tensors, zeros=False):
+        self.key = self._key(tensors)
+        self._groups = []
+        groups = {}
+        for t in tensors:
+            flat = _memory_flat(t)
+            if flat.numel() and flat.data_ptr() != t.data_ptr():
+                raise ValueError('Snapshot takes dense tensors only')
+            groups.setdefault((t.dtype, t.device), []).append(flat)
+        for (dtype, dev), flats in groups.items():
+            n = sum(f.numel() for f in flats)
+            saved, now, sel = (torch.zeros(n, dtype=dtype, device=dev)
+                               for _ in range(3))
+            self._groups.append((flats, saved, now, sel, list(sel.split(
+                [f.numel() for f in flats]))))
+
+    @staticmethod
+    def _key(tensors):
+        return tuple((t.data_ptr(), t.dtype, t.shape, t.stride())
+                     for t in tensors)
+
+    @classmethod
+    def of(cls, tensors, prev, zeros=False):
+        """``prev`` if it holds these same tensors, else a new one."""
+        if prev is not None and prev.key == cls._key(tensors):
+            return prev
+        return cls(tensors, zeros=zeros)
+
+    @torch.no_grad()
+    def save(self):
+        for flats, saved, _, _, _ in self._groups:
+            torch.cat(flats, out=saved)
+
+    @torch.no_grad()
+    def restore_unless(self, ok):
+        for flats, saved, now, sel, chunks in self._groups:
+            torch.cat(flats, out=now)
+            torch.where(ok, now, saved, out=sel)
+            torch._foreach_copy_(flats, chunks)
 
 
 @dataclasses.dataclass
@@ -115,14 +218,28 @@ class TrainState:
     #: whether a decomposition exists yet (before one, the gradients pass
     #: through while the factor statistics accumulate)
     decomposed: bool = False
+    #: the health guard's counters (``health.HealthState``); None when the
+    #: guard is off
+    health: Any = None
 
 
-def init_train_state(model, tx, precond, sample_input, device=None):
+def _resolve_health(health, precond):
+    """``'auto'`` -> the preconditioner's guard (off without one);
+    else ``health.resolve``."""
+    if health == 'auto':
+        return getattr(precond, 'health', None)
+    return health_lib.resolve(health)
+
+
+def init_train_state(model, tx, precond, sample_input, device=None,
+                     health='auto'):
     """Move ``model`` to ``device`` (the GPU unless ``device='cpu'``),
     channels_last for its 4-D weights, discover its K-FAC layers from
     ``sample_input`` (a batch input, numpy or tensor, laid out as
     ``batch['input']``) if the preconditioner is not set up, and initialize
-    the optimizer and K-FAC state."""
+    the optimizer and K-FAC state. ``health`` is ``build_train_step``'s:
+    'auto' seeds the health counters iff the preconditioner's guard is
+    on; True/False/a HealthConfig override it."""
     device = resolve_device(device)
     model.to(device=device, memory_format=torch.channels_last)
     kfac_state = None
@@ -133,8 +250,10 @@ def init_train_state(model, tx, precond, sample_input, device=None):
                                                      model_input(model, x)))
         kfac_state = precond.init(device)
     params = dict(model.named_parameters())
+    hstate = (health_lib.HealthState.init(device)
+              if _resolve_health(health, precond) is not None else None)
     return TrainState(step=0, model=model, opt_state=tx.init(params),
-                      kfac_state=kfac_state)
+                      kfac_state=kfac_state, health=hstate)
 
 
 def model_input(model, x, dtype=None):
@@ -215,7 +334,33 @@ def _dispatch(precond, seen, step):
     return uf, ui, ub, warm, False
 
 
-def build_train_step(model, tx, precond, loss_fn, input_dtype=None):
+def softmax_cross_entropy(outputs, labels):
+    """Mean softmax cross-entropy over the last axis with integer labels,
+    in the logits' dtype (``optax.softmax_cross_entropy_with_integer_labels
+    (...).mean()``): the F1mc Fisher's default sampling loss, for
+    classifiers and LM token heads alike."""
+    logp = torch.nn.functional.log_softmax(outputs, dim=-1)
+    return -logp.gather(-1, labels.unsqueeze(-1)).mean()
+
+
+def fisher_generator(seed, step, rank, device):
+    """The F1mc pseudo-label stream of one step: a ``torch.Generator`` on
+    ``device`` seeded from ``seed``, the domain tag ``0xF15C``, ``step``
+    and (under data parallelism) ``rank``, folded in that order as the
+    JAX trainer folds its key. A host-side seed: no device round trip."""
+    key = seed
+    for part in (0xF15C, step) + (() if rank is None else (rank,)):
+        digest = hashlib.blake2b(f'{key}:{part}'.encode(),
+                                 digest_size=8).digest()
+        key = int.from_bytes(digest, 'little') >> 1
+    gen = torch.Generator(device=device)
+    gen.manual_seed(key)
+    return gen
+
+
+def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
+                     health='auto', fisher_type='Femp', fisher_loss_fn=None,
+                     fisher_sample_fn=None, fisher_seed=0):
     """Return ``step_fn(state, batch, lr=None, damping=None) -> (state,
     metrics)``. ``batch`` holds this rank's shard as tensors on the
     model's device: ``'input'`` (see :func:`model_input`; cast to
@@ -227,14 +372,52 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None):
     last call ('pred', 'stats', 'decomp', 'gather'), as the JAX trainer
     does; ``step_fn.last_decomp`` says which decomposition it ran (None,
     'full', 'warm', 'refresh' or 'cohort'), and ``step_fn.last_grads``
-    holds its preconditioned gradients.
+    holds the gradients it handed the optimizer.
+
+    ``health``: the numerical-health guard (``health.py``). 'auto' (the
+    default) inherits the preconditioner's ``health`` (off without one);
+    True/False/a ``HealthConfig`` override it. When on, the step screens
+    the local loss, the averaged gradients and the captured a/g
+    (:func:`health.batch_ok`, one scalar all-reduce over the group) and,
+    with no host round trip, either applies the update or leaves the
+    parameters, optimizer state, BatchNorm buffers and K-FAC factors and
+    decompositions bit for bit as they were (the work is done and its
+    result dropped by ``torch.where``); consecutive failures climb the
+    damping ladder (``effective_damping`` feeds the preconditioner), a
+    non-finite preconditioner output or the ladder's top rung gives the
+    optimizer the raw gradients, and the optimizer counts only applied
+    updates (its lr is taken at ``state.step - health.skipped``, on the
+    device). The metrics gain ``health/ok``, ``health/skipped``,
+    ``health/rung``, ``health/fallbacks`` and ``health/bad_streak``
+    (device tensors; ``utils.metrics.HealthMonitor`` reads them).
+
+    ``fisher_type``: 'Femp' (the empirical Fisher of the real loss) or
+    'F1mc', the one-sample Monte-Carlo true Fisher: on factor-update steps
+    a second backward of the same forward, against labels drawn from the
+    model's own outputs (``fisher_sample_fn(generator, outputs.detach())``,
+    default :func:`utils.losses.sample_pseudo_labels`, the generator from
+    :func:`fisher_generator`) through ``fisher_loss_fn(outputs, labels)``
+    (default :func:`softmax_cross_entropy`), gives the ``g`` the factors
+    take; the parameter update keeps the real loss's gradients, and the
+    BatchNorm statistics move once (the forward is shared, as XLA shares
+    it in the JAX trainer).
 
     ``step_fn.warm_tracking`` is the process's record of the
     decomposition cadence (the JAX trainer's): ``'yes'`` (a decomposition
     exists: ``state.decomposed``), ``'last_full'`` (the step of the last
     full one) and ``'warm_streak'``. The last two are not part of the
     state: a resumed run's first decomposition is full and cold, and the
-    streak restarts from zero."""
+    streak restarts from zero. The choice is made on the host before the
+    batch is screened, as in JAX, so a skipped batch still counts as the
+    step that decomposed."""
+    if fisher_type not in ('Femp', 'F1mc'):
+        raise ValueError(f'fisher_type must be Femp or F1mc, '
+                         f'got {fisher_type!r}')
+    health_cfg = _resolve_health(health, precond)
+    if fisher_loss_fn is None:
+        fisher_loss_fn = softmax_cross_entropy
+    if fisher_sample_fn is None:
+        fisher_sample_fn = sample_pseudo_labels
     group = None if precond is None else precond.group
     seen = {}
 
@@ -250,33 +433,90 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None):
             # before any decomposition exists the grads pass through while
             # the factor statistics accumulate
             factors_only = not seen['yes']
+        params = dict(model.named_parameters())
+        hstate = state.health
+        guard = health_cfg is not None
+        if guard:
+            dev = next(iter(params.values())).device
+            if hstate is None:
+                # a state from before the guard (an old checkpoint, a
+                # hand-built state) starts from zeroed counters
+                hstate = health_lib.HealthState.init(dev)
+            # what a skipped batch must leave as it found it; the forward
+            # below moves the BatchNorm statistics
+            step_fn.keep = Snapshot.of(
+                list(params.values()) + list(model.buffers())
+                + capture.tensor_leaves(state.opt_state), step_fn.keep)
+            step_fn.keep.save()
 
         model.train()
         x = model_input(model, batch['input'], input_dtype)
         cap = capture.Capture(model, precond.plan.metas if uf else ())
+        f1mc = fisher_type == 'F1mc' and uf
         model.zero_grad(set_to_none=True)
         with cap:
             out = model(x)
             loss = loss_fn(out, batch)
             capture.check_local_mean_loss(loss, batch, group)
-            loss.backward()
-        params = dict(model.named_parameters())
+            loss.backward(retain_graph=f1mc)
+            if f1mc:
+                rank = None if group is None else coll.axis_index(group)
+                pseudo = fisher_sample_fn(
+                    fisher_generator(fisher_seed, step, rank, out.device),
+                    out.detach())
+                floss = fisher_loss_fn(out, pseudo)
+                capture.check_local_mean_loss(floss, pseudo, group)
+                cap.regrad(floss)
         grads = coll.average_grads({k: p.grad for k, p in params.items()},
                                    group)
         sync_buffers(model, group)
+        acts, gs = (cap.acts, cap.gs) if uf else (None, None)
+        if guard:
+            ok = health_lib.batch_ok(group, grads, loss.detach(), acts, gs)
 
-        kfac_state = state.kfac_state
+        kfac_state = old_kfac = state.kfac_state
+        new_grads = grads
+        precond_ok = None
         if precond is not None:
-            kfac_state = _match_comm_err(precond, kfac_state)
-            hyper = KFACHyperParams(
-                lr=precond.lr if lr is None else lr,
-                damping=precond.damping if damping is None else damping)
-            grads, kfac_state = precond.step(
-                kfac_state, grads, cap.acts, cap.gs, hyper=hyper,
+            kfac_state = old_kfac = _match_comm_err(precond, kfac_state)
+            d = precond.damping if damping is None else damping
+            if guard:
+                d = health_lib.effective_damping(hstate, d, health_cfg)
+            hyper = KFACHyperParams(lr=precond.lr if lr is None else lr,
+                                    damping=d)
+            pgrads, kfac_state = precond.step(
+                kfac_state, grads, acts, gs, hyper=hyper,
                 update_factors=uf, update_inverse=ui, update_basis=ub,
                 warm_basis=warm, factors_only=factors_only,
                 stagger_update=st)
-        tx.apply(params, grads, state.opt_state, step)
+            new_grads = pgrads
+            changed = [k for k in grads if pgrads[k] is not grads[k]]
+            if guard and changed:
+                # a non-finite preconditioner output, or the ladder's top
+                # rung, gives this step the raw gradients; the factor
+                # statistics above still accumulated
+                precond_ok = capture.all_finite([pgrads[k] for k in changed])
+                use = precond_ok & ~health_lib.degraded(hstate, health_cfg)
+                new_grads = {**grads, **{k: torch.where(use, pgrads[k],
+                                                        grads[k])
+                                         for k in changed}}
+        # the optimizer counts the updates it applied: a skipped batch is
+        # not one
+        count = step - hstate.skipped if guard else step
+        tx.apply(params, new_grads, state.opt_state, count)
+
+        mets = {'loss': coll.pmean(loss.detach(), group)}
+        if guard:
+            step_fn.keep.restore_unless(ok)
+            if precond is not None:
+                kfac_state = _select_kfac_state(ok, kfac_state, old_kfac)
+            if precond_ok is None:
+                precond_ok = torch.ones((), dtype=torch.bool, device=dev)
+            hstate = health_lib.on_good_batch(
+                hstate, health_cfg, precond_ok).select(
+                    ok, health_lib.on_bad_batch(hstate, health_cfg))
+            mets.update({'health/' + k: v for k, v in
+                         health_lib.metrics(hstate, ok).items()})
 
         decomp = None
         if precond is None or factors_only:
@@ -290,17 +530,35 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None):
                           else 'warm' if warm else 'full')
         step_fn.last_phases = phases
         step_fn.last_decomp = decomp
-        step_fn.last_grads = grads
+        step_fn.last_grads = new_grads
         state = dataclasses.replace(
             state, step=step + 1, kfac_state=kfac_state,
-            decomposed=precond is not None and seen['yes'])
-        return state, {'loss': coll.pmean(loss.detach(), group)}
+            decomposed=precond is not None and seen['yes'],
+            health=hstate if guard else state.health)
+        return state, mets
 
     step_fn.last_phases = ()
     step_fn.last_decomp = None
     step_fn.last_grads = None
     step_fn.warm_tracking = seen
+    step_fn.health = health_cfg
+    step_fn.keep = None
     return step_fn
+
+
+def _select_kfac_state(ok, new, old):
+    """The K-FAC state ``new`` where ``ok`` holds, else ``old``'s tensors
+    with ``new``'s step (a skipped batch advances the step counter, as
+    the JAX skip branch does)."""
+    def pick(a, b):
+        if a is None or a is b:
+            return a
+        if isinstance(a, dict):
+            return {k: pick(a[k], b[k]) for k in a}
+        return torch.where(ok, a, b)
+    return KFACState(step=new.step, factors=pick(new.factors, old.factors),
+                     decomp=pick(new.decomp, old.decomp),
+                     comm_err=pick(new.comm_err, old.comm_err))
 
 
 def _match_comm_err(precond, kfac_state):

@@ -13,9 +13,13 @@ The blob holds the model's ``state_dict`` (parameters and BatchNorm
 running statistics), the optimizer state (SGD momentum, or
 :class:`~kfac_pytorch_tpu_torch.training.MultiSteps`' counters,
 accumulator and inner state), the step count, the K-FAC state (factors,
-decompositions, step counter, ``comm_err``) and whether a decomposition
-exists yet (``TrainState.decomposed``), so a resumed run continues bit for
-bit, as the JAX docstring promises. ``include_kfac=False`` leaves the
+decompositions, step counter, ``comm_err``), whether a decomposition
+exists yet (``TrainState.decomposed``) and the health guard's counters
+(``TrainState.health``), so a resumed run continues bit for bit, as the
+JAX docstring promises. A blob written before the guard existed restores
+with zeroed counters (``HealthState.init``), as the JAX pre-health
+fallback does, and its ``MultiSteps`` counters, Python ints then, land
+in the 0-d tensors the optimizer keeps now. ``include_kfac=False`` leaves the
 K-FAC state out, the reference's behaviour: the factors then start again
 from the identity and the first steps only accumulate statistics.
 
@@ -36,6 +40,7 @@ import signal
 
 import torch
 
+from kfac_pytorch_tpu_torch.health import HealthState
 from kfac_pytorch_tpu_torch.preconditioner import KFACState
 from kfac_pytorch_tpu_torch.store import PosixStore
 from kfac_pytorch_tpu_torch.store import manifest as _manifest
@@ -77,7 +82,9 @@ def save_checkpoint(base_dir, epoch, state, include_kfac=True, block=True):
                'model': state.model.state_dict(),
                'opt_state': state.opt_state,
                'kfac_state': (_kfac_payload(state.kfac_state) if keep_kfac
-                              else None)}
+                              else None),
+               'health': (None if state.health is None
+                          else dataclasses.asdict(state.health))}
     buf = io.BytesIO()
     torch.save(payload, buf)
     blob = buf.getvalue()
@@ -116,6 +123,9 @@ def _check_like(want, got, path):
                              'target state')
         for k in want:
             _check_like(want[k], got[k], f'{path}.{k}')
+    elif (torch.is_tensor(want) and want.ndim == 0
+          and not want.is_floating_point() and type(got) is int):
+        return      # a counter older checkpoints saved as a Python int
     elif torch.is_tensor(want):
         if (not torch.is_tensor(got) or got.shape != want.shape
                 or got.dtype != want.dtype):
@@ -135,7 +145,7 @@ def _copy_into(want, got):
         return {k: _copy_into(want[k], got[k]) for k in want}
     if torch.is_tensor(want):
         with torch.no_grad():
-            return want.copy_(got)
+            return want.fill_(got) if type(got) is int else want.copy_(got)
     return got
 
 
@@ -162,11 +172,17 @@ def _restore_into(target, payload):
             decomp=_to(saved['decomp'], dev),
             comm_err=(None if saved['comm_err'] is None
                       else _to(saved['comm_err'], dev)))
+    hstate = target.health
+    if hstate is not None:
+        dev = hstate.rung.device
+        saved_h = payload.get('health')
+        hstate = (HealthState.init(dev) if saved_h is None else
+                  HealthState(**{k: v.to(dev) for k, v in saved_h.items()}))
     target.model.load_state_dict(payload['model'])
     opt_state = _copy_into(target.opt_state, payload['opt_state'])
     return dataclasses.replace(
         target, step=int(payload['step']), opt_state=opt_state,
-        kfac_state=kfac_state,
+        kfac_state=kfac_state, health=hstate,
         decomposed=bool(payload['decomposed']) and saved is not None)
 
 

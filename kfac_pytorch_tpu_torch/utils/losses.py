@@ -1,5 +1,5 @@
-"""Loss helpers (port of ``label_smoothing_cross_entropy`` in
-``kfac_pytorch_tpu/utils/losses.py``)."""
+"""Loss helpers (port of ``kfac_pytorch_tpu/utils/losses.py``: the label-
+smoothing loss and the F1mc Fisher's pseudo-label sampler)."""
 
 import torch
 import torch.nn.functional as F
@@ -16,3 +16,17 @@ def label_smoothing_cross_entropy(outputs, labels, smoothing=0.1,
     onehot = F.one_hot(labels, num_classes).to(torch.float32)
     target = onehot * (1.0 - smoothing) + smoothing / num_classes
     return -(target * logp).sum(dim=-1).mean()
+
+
+def sample_pseudo_labels(generator, outputs):
+    """Labels drawn from the model's predictive distribution,
+    ``softmax(outputs)`` over the last axis (the F1mc Fisher's backward
+    targets; JAX's ``jax.random.categorical``): the Gumbel-max draw
+    ``argmax(outputs + Gumbel noise)``, the noise from ``generator`` (a
+    ``torch.Generator`` on the outputs' device), in fp32. No host round
+    trip; the bits differ from JAX's, whose generator torch does not
+    have."""
+    u = torch.rand(outputs.shape, generator=generator, dtype=torch.float32,
+                   device=outputs.device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.argmax(outputs.float() - torch.log(-torch.log(u)), dim=-1)

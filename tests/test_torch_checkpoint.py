@@ -83,6 +83,55 @@ def test_save_restore_roundtrip(tmp_path, trained_state):
     _assert_same_state(restored, trained_state)
 
 
+def _health(values):
+    from kfac_pytorch_tpu_torch.health import HealthState
+    return HealthState(*[torch.tensor(v, dtype=torch.int32)
+                         for v in values])
+
+
+def test_health_counters_roundtrip(tmp_path, trained_state):
+    """The guard's counters are saved and restored exactly."""
+    import dataclasses
+    state = dataclasses.replace(trained_state,
+                                health=_health([1, 0, 2, 7, 3]))
+    checkpoint.save_checkpoint(tmp_path, 2, state)
+    restored = checkpoint.restore_checkpoint(tmp_path, 2, _fresh_state()[0])
+    assert [(int(t), t.dtype) for t in restored.health.tensors()] == \
+        [(v, torch.int32) for v in (1, 0, 2, 7, 3)]
+    _assert_same_state(restored, state)
+
+
+def test_blob_from_before_the_guard_restores(tmp_path):
+    """A blob as the port wrote it before the health guard (no ``health``,
+    ``MultiSteps``' counters as Python ints) restores with zeroed health
+    counters and its counters in the optimizer's tensors."""
+    import dataclasses
+    import io
+    model = cifar_resnet._make(1)
+    pre = tkfac.KFAC(variant='eigen_dp', lr=0.1, damping=0.003)
+    tx = training.MultiSteps(training.sgd(0.1, momentum=0.9), 2)
+    sample = np.zeros((4, 16, 16, 3), np.float32)
+    state = training.init_train_state(model, tx, pre, sample, device='cpu')
+    checkpoint.save_checkpoint(tmp_path, 0, state)
+    blob = torch.load(tmp_path / 'checkpoint-0.pt', weights_only=True)
+    del blob['health']
+    blob['opt_state']['mini_step'] = 1
+    blob['opt_state']['gradient_step'] = 3
+    buf = io.BytesIO()
+    torch.save(blob, buf)
+    store = checkpoint._store(tmp_path)
+    store.put('checkpoint-0.pt', buf.getvalue())
+    store.put(tmanifest.manifest_key(0), tmanifest.encode_manifest(
+        tmanifest.build_manifest(0, checkpoint.KIND,
+                                 {'checkpoint-0.pt': buf.getvalue()})))
+    target = dataclasses.replace(state, health=_health([1, 1, 1, 1, 1]))
+    restored = checkpoint.restore_checkpoint(tmp_path, 0, target)
+    assert [int(t) for t in restored.health.tensors()] == [0] * 5
+    assert int(restored.opt_state['mini_step']) == 1
+    assert int(restored.opt_state['gradient_step']) == 3
+    assert torch.is_tensor(restored.opt_state['mini_step'])
+
+
 def test_restore_without_kfac_state(tmp_path, trained_state):
     # the reference's behaviour: the K-FAC state is not checkpointed, the
     # factors start again from the identity

@@ -548,3 +548,35 @@ def test_launcher_trains_resnet20_at_world2():
     assert 'replicas: 2 ranks bitwise identical' in out.stdout
     # rank 0 prints alone
     assert out.stdout.count('epoch 0:') == 1
+
+
+def _guard_batches(rank_bad):
+    """Five global batches of 8 (four rows a rank at world=2) of TinyCNN's
+    7x7 inputs; batch 2 is NaN in ``rank_bad``'s rows only."""
+    r = np.random.RandomState(4)
+    out = [{'input': r.randn(8, 7, 7, 3).astype(np.float32),
+            'label': r.randint(0, 10, 8).astype(np.int64)}
+           for _ in range(5)]
+    out[2]['input'][rank_bad * 4:(rank_bad + 1) * 4] = np.nan
+    return out
+
+
+def test_guard_skips_on_every_rank_at_world2():
+    """NaN in rank 1's shard only: both ranks skip the batch (the screen's
+    flag is all-reduced), their replicas stay bitwise equal and equal the
+    world=2 control run without that batch, over the fp32 DP wire and the
+    bf16 MPD reduce (K3's plain version on the guarded path)."""
+    cfgs = [{'variant': v, 'comm_precision': p, 'skip': 2,
+             'batches': _guard_batches(1)}
+            for v, p in (('eigen_dp', 'fp32'), ('eigen', 'bf16'))]
+    ranks = launch.spawn(workers.guarded_runs, 2, args=(cfgs,), timeout=300)
+    for c in range(len(cfgs)):
+        r0, r1 = ranks[0][c], ranks[1][c]
+        for r in (r0, r1):
+            assert [m['ok'] for m in r['faulted']['mets']] == [1, 1, 0, 1, 1]
+            assert r['faulted']['mets'][-1]['skipped'] == 1
+            assert r['faulted']['mets'][-1]['rung'] == 0
+            assert r['faulted']['mets'] == r0['faulted']['mets']
+            for part in ('replica', 'kfac'):
+                assert r['faulted'][part] == r['control'][part], part
+        assert r0['faulted']['replica'] == r1['faulted']['replica']

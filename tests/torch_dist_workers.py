@@ -47,6 +47,8 @@ class TinyCNN(torch.nn.Module):
     inputs (odd, so its stride-2 SAME padding is symmetric): c1 (3x3, 8),
     BatchNorm, relu, c2 (3x3 stride 2, 8), relu, NHWC flatten, fc (10)."""
 
+    input_layout = 'NHWC'   # training.model_input's NHWC batch
+
     def __init__(self):
         super().__init__()
         self.c1 = knn.Conv2d(3, 8, 3, padding=1)
@@ -224,4 +226,64 @@ def collective_cases(rank, world, group, seed):
     except ValueError:
         out['guard'] = 'raised'
     capture.check_local_mean_loss((w * 2).sum(), None, group)
+    return out
+
+
+def _digest(tensors, seed=''):
+    import hashlib
+    h = hashlib.sha1(seed.encode())
+    for t in tensors:
+        h.update(t.detach().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _state_digests(state):
+    """SHA-1s of a train state, bit for bit: ``'replica'`` of what every
+    rank holds alike (parameters, buffers, momentum) and ``'kfac'`` of
+    this rank's own K-FAC state (factor rows, decomposition, residual)."""
+    from kfac_pytorch_tpu_torch import training
+    ks = state.kfac_state
+    return {'replica': _digest(capture.tensor_leaves(state.opt_state),
+                               training.replica_digest(state.model)),
+            'kfac': _digest(capture.tensor_leaves(
+                [ks.factors, ks.decomp, ks.comm_err]))}
+
+
+def guarded_runs(rank, world, group, cfgs):
+    """Per config: TinyCNN trained through ``training.build_train_step``
+    (the health guard on) on this rank's shard of every batch, the
+    faulted run (``cfg['batches']``) and its control (the same batches
+    without ``cfg['skip']``). Returns each run's per-step ``health/*``
+    and the digests of its final state (:func:`_state_digests`)."""
+    from kfac_pytorch_tpu_torch import training
+    torch.set_num_threads(1)
+    out = []
+    for cfg in cfgs:
+        runs = {}
+        control = [b for i, b in enumerate(cfg['batches'])
+                   if i != cfg['skip']]
+        for name, batches in (('faulted', cfg['batches']),
+                              ('control', control)):
+            torch.manual_seed(0)
+            model = TinyCNN().to(memory_format=torch.channels_last)
+            pre = KFAC(variant=cfg['variant'], num_devices=world,
+                       group=group, bucket_fn=bucket_tiny,
+                       comm_precision=cfg['comm_precision'],
+                       kfac_update_freq=1, damping=0.003, lr=0.1)
+            tx = training.sgd(0.1, momentum=0.9, weight_decay=5e-4)
+            per = batches[0]['input'].shape[0] // world
+            shard = [{k: torch.from_numpy(v[rank * per:(rank + 1) * per])
+                      for k, v in b.items()} for b in batches]
+            state = training.init_train_state(model, tx, pre,
+                                              shard[0]['input'], 'cpu')
+            step = training.build_train_step(
+                model, tx, pre,
+                lambda o, b: F.cross_entropy(o, b['label']))
+            mets = []
+            for b in shard:
+                state, m = step(state, b)
+                mets.append({k[len('health/'):]: int(v)
+                             for k, v in m.items() if k.startswith('health/')})
+            runs[name] = {'mets': mets, **_state_digests(state)}
+        out.append(runs)
     return out
