@@ -59,7 +59,21 @@ launches:
   crop-flip bitwise against numpy, the loader at prefetch depth 2 batch
   for batch against depth 0, and the ResNet-32 step median and device
   idle share at both depths. The world=2 phase checks that the guard
-  adds one scalar all-reduce a step.
+  adds one scalar all-reduce a step;
+- slice 10, after the ResNet-50 phase: E-KFAC and ``KFAC.replan``. The
+  ImageNet trainer with ``--kfac-name ekfac_dp`` (ResNet-50, bs32, 224 x
+  224, bf16, the capture kernels) for 6 steps with eigen_dp's K1/K2
+  counts and every moments group non-zero after step 0; the moments at
+  every ResNet-50 layer against the same operands in fp64 (gated at
+  ``SCALES_TOL``); the moment update's device ms; step medians against
+  eigen_dp in alternating rounds and the peak memory a step adds; the
+  ResNet-32 ekfac_dp lockstep, kernels against ``capture_impl=None``; a
+  ResNet-32 run replanned eigen_dp -> ekfac_dp -> inverse_dp (factors
+  carried bitwise, the cross-method switch passing gradients through
+  until its next inverse update); an ekfac_dp checkpoint resumed bitwise,
+  the moments included. The world=2 phase adds MPD ``ekfac`` over the
+  bf16 wire (K1/K2/K3 counts, replicas and moments bitwise across the
+  ranks) and ``ekfac_dp`` over fp32 with no moment collective.
 
 After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
 fp32 and bf16 inputs, K4, K5a and K5b at every head dim), the tensor-core
@@ -687,62 +701,7 @@ def check_agreement():
     the same statistics). Three steps turn any rounding-level difference,
     whatever its source, into a gap of a few 1e-3 of the update norm; the
     fused path's gap is of that size, not a kernel fault."""
-    from kfac_pytorch_tpu_torch import capture
-    from kfac_pytorch_tpu_torch.preconditioner import KFACHyperParams
-    ref, fused = make_trainer(None), make_trainer('auto')
-    it = ref.train_loader.epoch()
-    bad = []
-    st_ref, st_fused = ref.state.kfac_state, fused.state.kfac_state
-    params_ref = dict(ref.state.model.named_parameters())
-    params_fused = dict(fused.state.model.named_parameters())
-    for i in range(AGREE_STEPS):
-        batch = ref.to_device(next(it))
-        model = ref.state.model
-        model.zero_grad(set_to_none=True)
-        with capture.Capture(model, ref.precond.plan.metas) as cap:
-            out = model(batch['input'].permute(0, 3, 1, 2))
-            torch.nn.functional.cross_entropy(out, batch['label']).backward()
-        grads = {k: p.grad for k, p in params_ref.items()}
-        hyper = KFACHyperParams(lr=ref.lr_fn(i), damping=ref.precond.damping)
-        kw = dict(hyper=hyper, update_factors=True,
-                  update_inverse=ref.precond.should_update_inverse(i))
-        pg_ref, st_ref = ref.precond.step(st_ref, grads, cap.acts, cap.gs,
-                                          **kw)
-        pg_fused, st_fused = fused.precond.step(st_fused, grads, cap.acts,
-                                                cap.gs, **kw)
-        ref.tx.apply(params_ref, pg_ref, ref.state.opt_state, i)
-        fused.tx.apply(params_fused, pg_fused, fused.state.opt_state, i)
-        worst = (0.0, '')
-        for k in pg_ref:
-            err, ok = close_tensor(pg_fused[k], pg_ref[k], GRAD_RTOL,
-                                   GRAD_ATOL)
-            worst = max(worst, (err / max(float(pg_ref[k].detach().abs()
-                                                .max()), 1e-30), k))
-            if not ok:
-                bad.append(f'step {i} preconditioned grad {k}: max |err| '
-                           f'{err:.3e}')
-        fac = 0.0
-        for k, v in st_ref.factors.items():
-            s = cs_scale(v)
-            err, ok = close(st_fused.factors[k], v, FACTOR_RTOL, FACTOR_ATOL,
-                            s)
-            fac = max(fac, float(((st_fused.factors[k].double()
-                                   - v.double()).abs() / s).max()))
-            if not ok:
-                bad.append(f'step {i} factor bucket {k}: max |err| {err:.3e}')
-        print(f'agreement (lockstep) step {i}: factors max err '
-              f'{fac:.3e} x sqrt(F_ii F_jj), preconditioned grads max rel '
-              f'err {worst[0]:.3e} ({worst[1]})', flush=True)
-    par = (0.0, '')
-    for k, v in params_ref.items():
-        err, ok = close_tensor(params_fused[k], v, GRAD_RTOL, GRAD_ATOL)
-        par = max(par, (err / max(float(v.detach().abs().max()), 1e-30),
-                        k))
-        if not ok:
-            bad.append(f'parameter {k}: max |err| {err:.3e}')
-    print(f'agreement (lockstep): params after {AGREE_STEPS} steps max rel '
-          f'err {par[0]:.3e} ({par[1]})', flush=True)
-
+    bad = lockstep()
     # the free trajectories, as the trainer runs and again with cuDNN held
     # to deterministic algorithms (which takes its noise out of the rerun)
     for label, ctl in (('', ()), (', deterministic cuDNN',
@@ -769,6 +728,101 @@ def check_agreement():
                        f"controls' {control:.3e}")
     if bad:
         fail('; '.join(bad))
+
+
+def lockstep(extra=(), label='', control=False):
+    """The lockstep half of :func:`check_agreement` for the ResNet-32
+    trainer with the flags ``extra``; returns the failures. With E-KFAC
+    the moments' largest gap (relative to each group's largest entry) is
+    printed beside the gradients'.
+
+    With ``control`` a third preconditioner takes the unfused path with
+    its factor GEMMs summed in fp64, and the preconditioned gradients are
+    held by the ResNet-50 lockstep's rule: a step fails when its worst
+    tensor parts from the unfused path by more than GRAD_RTOL of its
+    largest entry and by more than TRAJ_FACTOR x the control's gap. The
+    E-KFAC moments divide each eigen-coordinate separately, so a
+    rounding-level change of the factors moves the preconditioned
+    gradient by the basis' sensitivity, ~1e-3 (PERF.md §6, E-KFAC); the
+    control shows how far the factors' summation order alone moves it."""
+    from kfac_pytorch_tpu_torch import capture
+    from kfac_pytorch_tpu_torch.preconditioner import KFACHyperParams
+    ref, fused = make_trainer(None, extra), make_trainer('auto', extra)
+    it = ref.train_loader.epoch()
+    bad = []
+    tag = f'{label}: ' if label else ''
+    st_ref, st_fused = ref.state.kfac_state, fused.state.kfac_state
+    st_ctl = ref.precond.init(ref.device) if control else None
+    params_ref = dict(ref.state.model.named_parameters())
+    params_fused = dict(fused.state.model.named_parameters())
+    for i in range(AGREE_STEPS):
+        batch = ref.to_device(next(it))
+        model = ref.state.model
+        model.zero_grad(set_to_none=True)
+        with capture.Capture(model, ref.precond.plan.metas) as cap:
+            out = model(batch['input'].permute(0, 3, 1, 2))
+            torch.nn.functional.cross_entropy(out, batch['label']).backward()
+        grads = {k: p.grad for k, p in params_ref.items()}
+        hyper = KFACHyperParams(lr=ref.lr_fn(i), damping=ref.precond.damping)
+        kw = dict(hyper=hyper, update_factors=True,
+                  update_inverse=ref.precond.should_update_inverse(i))
+        pg_ref, st_ref = ref.precond.step(st_ref, grads, cap.acts, cap.gs,
+                                          **kw)
+        pg_fused, st_fused = fused.precond.step(st_fused, grads, cap.acts,
+                                                cap.gs, **kw)
+        ctl = ''
+        if control:
+            with fp64_stat_gemm():
+                pg_ctl, st_ctl = ref.precond.step(st_ctl, grads, cap.acts,
+                                                  cap.gs, **kw)
+            (gap, gk), (cgap, ck_) = (grad_gap(pg_fused, pg_ref),
+                                      grad_gap(pg_ctl, pg_ref))
+            ctl = f'; control (fp64 factor GEMMs) {cgap:.3e} ({ck_})'
+            if gap > GRAD_RTOL and gap > TRAJ_FACTOR * cgap:
+                bad.append(f'{tag}step {i} preconditioned grad {gk} '
+                           f'{gap:.3e} of its largest entry, over '
+                           f'{GRAD_RTOL} and {TRAJ_FACTOR} x the control '
+                           f'{cgap:.3e}')
+        ref.tx.apply(params_ref, pg_ref, ref.state.opt_state, i)
+        fused.tx.apply(params_fused, pg_fused, fused.state.opt_state, i)
+        worst = (0.0, '')
+        for k in pg_ref:
+            err, ok = close_tensor(pg_fused[k], pg_ref[k], GRAD_RTOL,
+                                   GRAD_ATOL)
+            worst = max(worst, (err / max(float(pg_ref[k].detach().abs()
+                                                .max()), 1e-30), k))
+            if not ok and not control:
+                bad.append(f'{tag}step {i} preconditioned grad {k}: max '
+                           f'|err| {err:.3e}')
+        fac = 0.0
+        for k, v in st_ref.factors.items():
+            s = cs_scale(v)
+            err, ok = close(st_fused.factors[k], v, FACTOR_RTOL, FACTOR_ATOL,
+                            s)
+            fac = max(fac, float(((st_fused.factors[k].double()
+                                   - v.double()).abs() / s).max()))
+            if not ok:
+                bad.append(f'{tag}step {i} factor bucket {k}: max |err| '
+                           f'{err:.3e}')
+        moments = ''
+        if 'scales' in st_ref.decomp:
+            sg = grad_gap(st_fused.decomp['scales'], st_ref.decomp['scales'])
+            moments = f', moments max rel err {sg[0]:.3e} ({sg[1]})'
+        print(f'agreement (lockstep{", " + label if label else ""}) step '
+              f'{i}: factors max err {fac:.3e} x sqrt(F_ii F_jj), '
+              f'preconditioned grads max rel err {worst[0]:.3e} '
+              f'({worst[1]}){moments}{ctl}', flush=True)
+    par = (0.0, '')
+    for k, v in params_ref.items():
+        err, ok = close_tensor(params_fused[k], v, GRAD_RTOL, GRAD_ATOL)
+        par = max(par, (err / max(float(v.detach().abs().max()), 1e-30),
+                        k))
+        if not ok:
+            bad.append(f'{tag}parameter {k}: max |err| {err:.3e}')
+    print(f'agreement (lockstep{", " + label if label else ""}): params '
+          f'after {AGREE_STEPS} steps max rel err {par[0]:.3e} ({par[1]})',
+          flush=True)
+    return bad
 
 
 def report_gaps(label, runs, p_ref, p0):
@@ -1222,6 +1276,11 @@ def check_lm_agreement():
 WORLD2_EIGEN = ['--kfac-name', 'eigen', '--kfac-comm-precision', 'bf16',
                 '--kfac-capture-impl', 'auto']
 WORLD2_DP_STEPS = 6
+#: slice 10 at world=2: MPD 'ekfac' over the bf16 wire, then 'ekfac_dp'
+#: over fp32 (its last step's collectives read by scope)
+WORLD2_EKFAC = ['--kfac-name', 'ekfac', '--kfac-comm-precision', 'bf16',
+                '--kfac-capture-impl', 'auto']
+WORLD2_EKFAC_STEPS, WORLD2_EKFAC_DP_STEPS = 6, 3
 #: K3 inputs off the main path: element counts (odd, one, a vector group
 #: plus a tail) and whether the tensors start 4 bytes past an aligned
 #: address (the kernel's scalar path)
@@ -1456,6 +1515,58 @@ def world2_rank(rank, world, group):
         dp_agree.append(tr.replicas_agree())
     out.update(dp_losses=dp_losses, dp_agree=dp_agree,
                dp_comm_err=tr.state.kfac_state.comm_err is None)
+    del tr
+    out['ekfac'] = world2_ekfac(trainer, batches_of=lambda t: t.train_loader
+                                .epoch())
+    return out
+
+
+def world2_ekfac(trainer, batches_of):
+    """Slice 10 at world=2 (one rank): MPD 'ekfac' over the bf16 wire with
+    the capture kernels for WORLD2_EKFAC_STEPS steps (K1/K2/K3 counts,
+    replica digests and the moments' digest each step), then 'ekfac_dp'
+    over fp32 for WORLD2_EKFAC_DP_STEPS steps with one step's collectives
+    by scope. Returns numbers only."""
+    import hashlib
+    from kfac_pytorch_tpu_torch.parallel import collectives as coll
+
+    def digest(scales):
+        h = hashlib.sha1()
+        for k in sorted(scales):
+            h.update(scales[k].detach().cpu().contiguous().view(torch.uint8)
+                     .numpy().tobytes())
+        return h.hexdigest()
+
+    out = {}
+    tr = trainer(WORLD2_EKFAC)
+    it = batches_of(tr)
+    reset_counts()
+    losses, agree, moments, nonzero = [], [], [], []
+    for _ in range(WORLD2_EKFAC_STEPS):
+        losses.append(float(tr.train_step(next(it))['loss']))
+        agree.append(tr.replicas_agree())
+        sc = tr.state.kfac_state.decomp['scales']
+        moments.append(digest(sc))
+        nonzero.append(all(bool(torch.any(v != 0)) for v in sc.values()))
+    out.update(launches=read_counts(), losses=losses, replicas_agree=agree,
+               scales_digest=moments, scales_nonzero=nonzero,
+               groups=len(tr.precond.plan.pred_groups))
+    del tr
+    tr = trainer(['--kfac-name', 'ekfac_dp'])
+    it = batches_of(tr)
+    dp_losses, dp_agree = [], []
+    for _ in range(WORLD2_EKFAC_DP_STEPS - 1):
+        dp_losses.append(float(tr.train_step(next(it))['loss']))
+        dp_agree.append(tr.replicas_agree())
+    with coll.ledger() as led:
+        dp_losses.append(float(tr.train_step(next(it))['loss']))
+    dp_agree.append(tr.replicas_agree())
+    out.update(dp_losses=dp_losses, dp_agree=dp_agree,
+               dp_collectives=[[scope, op, str(dtype), n]
+                               for scope, op, dtype, n in led],
+               dp_scales_nonzero=all(
+                   bool(torch.any(v != 0))
+                   for v in tr.state.kfac_state.decomp['scales'].values()))
     return out
 
 
@@ -1582,8 +1693,46 @@ def run_world2():
           f'losses {[round(x, 4) for x in o["dp_losses"]]}, replicas '
           f'bitwise equal, no residual; phase {time.perf_counter() - t0:.1f}'
           ' s', flush=True)
+    check_world2_ekfac(outs, nb, conv, dense)
     total = {k: sum(out['launches'][k] for out in outs) for k in want}
     return total, o
+
+
+def check_world2_ekfac(outs, nb, conv, dense):
+    """Slice 10's world=2 checks on both ranks' :func:`world2_ekfac`."""
+    n = WORLD2_EKFAC_STEPS
+    want = {'K1 conv_a': conv * n, 'K2 stat_rows': (conv + 2 * dense) * n,
+            'K3 ef_quantize': nb * n, 'K4 flash_fwd': 0,
+            'K5a flash_bwd_dq': 0, 'K5b flash_bwd_dkv': 0}
+    e = [o['ekfac'] for o in outs]
+    for r, o in enumerate(e):
+        if o['launches'] != want:
+            fail(f'world2 ekfac rank {r}: kernel launches {o["launches"]}, '
+                 f'expected {want}')
+        if not (all(np.isfinite(o['losses']))
+                and all(np.isfinite(o['dp_losses']))):
+            fail(f'world2 ekfac rank {r}: non-finite loss')
+        if not (all(o['replicas_agree']) and all(o['dp_agree'])):
+            fail(f'world2 ekfac rank {r}: the ranks\' parameters differ')
+        if not (all(o['scales_nonzero']) and o['dp_scales_nonzero']):
+            fail(f'world2 ekfac rank {r}: a moments group stayed zero')
+        moved = [c for c in o['dp_collectives'] if 'scales' in c[0]]
+        if moved:
+            fail(f'world2 ekfac_dp rank {r}: the moments were communicated: '
+                 f'{moved}')
+    if e[0]['scales_digest'] != e[1]['scales_digest']:
+        fail('world2 ekfac: the ranks\' moments differ')
+    if e[0]['losses'] != e[1]['losses']:
+        fail('world2 ekfac: the ranks report different losses')
+    print(f'world2 slice 10: resnet32 ekfac bf16 wire capture_impl=auto, '
+          f'{n} steps, losses {[round(x, 4) for x in e[0]["losses"]]}, '
+          f'launches per rank {e[0]["launches"]}, replicas and the moments '
+          f'({e[0]["groups"]} groups) bitwise equal across the ranks every '
+          f'step; ekfac_dp fp32 {WORLD2_EKFAC_DP_STEPS} steps, losses '
+          f'{[round(x, 4) for x in e[0]["dp_losses"]]}, replicas bitwise '
+          f'equal, collectives of its last step by scope '
+          f'{sorted(set(c[0] for c in e[0]["dp_collectives"]))} (no moment '
+          f'bytes)', flush=True)
 
 
 def run_nccl():
@@ -1661,8 +1810,9 @@ def make_imagenet_trainer(capture_impl='pallas', extra=()):
 
 
 def r50_launches_wanted(tr, steps):
-    """K1/K2 launches of ``steps`` ResNet-50 factor steps: one K1 a conv,
-    one K2 a conv's G and a dense layer's A and G."""
+    """K1/K2 launches of ``steps`` factor steps of ``tr``'s model at
+    world=1 (ResNet-50, or ResNet-32): one K1 a conv, one K2 a conv's G
+    and a dense layer's A and G."""
     layers = tr.precond.plan.metas
     n_conv = sum(m.kind == 'conv' for m in layers)
     n_dense = len(layers) - n_conv
@@ -2573,6 +2723,322 @@ def run_slice9(launches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 10: E-KFAC (ekfac, ekfac_dp) and KFAC.replan at world=1
+# ---------------------------------------------------------------------------
+
+#: ResNet-50 ekfac_dp: trainer steps, then alternating timing rounds of
+#: R50_EKFAC_BLOCK steps each against eigen_dp
+R50_EKFAC_STEPS, R50_EKFAC_ROUNDS, R50_EKFAC_BLOCK = 6, 3, 2
+#: the moments at every ResNet-50 layer against the same operands in fp64:
+#: the largest gap relative to the layer's largest moment
+SCALES_TOL = 1e-4
+#: the replan run on ResNet-32: (variant, steps) in order
+REPLAN_RUNS = [('eigen_dp', 4), ('ekfac_dp', 4), ('inverse_dp', 4)]
+#: the E-KFAC checkpoint check on ResNet-32: save after, run on
+EKFAC_SAVE_AFTER, EKFAC_RESUME_MORE = 3, 2
+EKFAC_CKPT = os.path.join(OUT_DIR, 'ckpt_ekfac')
+
+
+def scales_nonzero(kfac_state):
+    return all(bool(torch.any(v != 0))
+               for v in kfac_state.decomp['scales'].values())
+
+
+def zero_scale_groups(kfac_state):
+    return sorted(k for k, v in kfac_state.decomp['scales'].items()
+                  if not bool(torch.any(v != 0)))
+
+
+def r50_captures(tr):
+    """One batch's bf16 captures and gradients of ``tr``'s model."""
+    from kfac_pytorch_tpu_torch import capture, training
+    model = tr.state.model
+    batch = tr.to_device(next(iter(tr.train_loader.epoch())))
+    model.train()
+    model.zero_grad(set_to_none=True)
+    with capture.Capture(model, tr.precond.plan.metas) as cap:
+        out = model(training.model_input(model, batch['input'], tr.dtype))
+        tr.loss_fn(out, batch).backward()
+    model.zero_grad(set_to_none=True)
+    return cap.acts, cap.gs
+
+
+def check_scales_fp64(tr, acts, gs):
+    """The port's E-KFAC moments at every ResNet-50 layer (its rows from
+    one batch's bf16 captures, the trained basis) against the same
+    operands in fp64; fails over SCALES_TOL. Returns the gaps by layer."""
+    from kfac_pytorch_tpu_torch import capture, ops
+    plan, decomp = tr.precond.plan, tr.state.kfac_state.decomp
+    gaps = {}
+    for i, meta in enumerate(plan.metas):
+        a, g = capture.layer_act(acts, meta), capture.layer_g(gs, meta)
+        if meta.kind == 'dense':
+            arows, grows, n = ops.layer_rows_dense(a, g, meta.use_bias)
+        else:
+            arows, grows, n = ops.layer_rows_conv(
+                a, g, meta.kernel_size, meta.strides, meta.padding,
+                meta.use_bias)
+        ba, ra, bg, rg, _ = plan.layer_rows[i]
+        qa = decomp['evecs'][str(ba)][ra][:arows.shape[1]]
+        qg = decomp['evecs'][str(bg)][rg][:grows.shape[1]]
+        got = ops.ekfac_scales(arows, grows, qa, qg, n).double()
+        pa = arows.double() @ qa.double()
+        pg = grows.double() @ qg.double()
+        want = (pg * pg).T @ ((pa * pa) / n)
+        gaps[meta.name] = float((got - want).abs().max()
+                                / want.abs().max())
+        del arows, grows, pa, pg, got, want
+    worst = max(gaps, key=gaps.get)
+    print(f'resnet50 ekfac moments vs fp64 (same bf16 captures, trained '
+          f'basis): {len(gaps)} layers, largest gap {gaps[worst]:.3e} of the '
+          f'layer\'s largest moment ({worst}), median '
+          f'{float(np.median(list(gaps.values()))):.3e}', flush=True)
+    if gaps[worst] > SCALES_TOL:
+        fail(f'resnet50 ekfac moments: {worst} parts from fp64 by '
+             f'{gaps[worst]:.3e}, over {SCALES_TOL}')
+    return gaps
+
+
+def moment_ms(tr, acts, gs):
+    """Ms between two CUDA events around each E-KFAC part of an
+    ``ekfac_dp`` step on one batch's captures: the moment update (every
+    layer's rows, projections and moment GEMM, and the EMA) and the
+    transport after a full decomposition (the stored basis read with
+    ``local_evecs``, then ``rotate_ekfac_scales_local``). The update's
+    ~1,000 launches fill the launch queue, so no GPU spin can hide the
+    host: each time holds the host's enqueue where the device does not
+    overlap it."""
+    from kfac_pytorch_tpu_torch import engine
+    pre, st = tr.precond, tr.state.kfac_state
+    plan, decomp = pre.plan, st.decomp
+
+    def update():
+        engine.update_ekfac_scales_local(
+            plan, decomp, acts, gs, pre.batch_averaged, decomp['scales'],
+            pre.factor_decay, None)
+
+    def rotate():
+        engine.rotate_ekfac_scales_local(
+            plan, decomp['scales'],
+            engine.local_evecs(plan, decomp, None, 'pred'),
+            decomp['evecs'], None)
+    return {'update_ms': time_ms(update, reps=3, hide_host=False),
+            'rotate_ms': time_ms(rotate, reps=3, hide_host=False)}
+
+
+def step_peak_mib(tr, batch):
+    """Peak device memory one step adds over what is allocated before."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr.train_step(batch)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def run_resnet50_ekfac():
+    """ResNet-50 ``ekfac_dp`` at the ImageNet trainer's full size (bs32,
+    224 x 224, bf16, the capture kernels): R50_EKFAC_STEPS steps with K1/K2
+    counts (eigen_dp's a step), finite losses, every moments group non-zero
+    after step 0 (at step 0 a group whose layers all feed a residual-final
+    BatchNorm, its scale initialized to zero, has g = 0 and zero
+    moments; its first update makes the scale non-zero); the moments at every layer against fp64; the moment
+    update's device ms; and the step median and a step's peak memory
+    against eigen_dp in alternating rounds, and one device-only profiled
+    step of each (device busy ms)."""
+    t0 = time.perf_counter()
+    tr = make_imagenet_trainer('pallas', ['--kfac-name', 'ekfac_dp'])
+    want, n_conv, n_dense = r50_launches_wanted(tr, R50_EKFAC_STEPS)
+    batches = take_batches(tr.train_loader, R50_EKFAC_STEPS)
+    reset_counts()
+    losses, times, zero = [], [], {}
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        losses.append(float(tr.train_step(b)['loss']))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - s0) * 1e3)
+        groups = zero_scale_groups(tr.state.kfac_state)
+        if groups:
+            zero[i] = groups
+    launches = read_counts()
+    if launches != want:
+        fail(f'resnet50 ekfac_dp kernel launches {launches}, expected '
+             f'{want} (eigen_dp\'s)')
+    if not all(np.isfinite(losses)) or set(zero) - {0}:
+        fail(f'resnet50 ekfac_dp: losses {losses}, zero moments groups '
+             f'by step {zero}')
+    groups = len(tr.precond.plan.pred_groups)
+    scale_bytes = sum(v.numel() * v.element_size() for v in
+                      tr.state.kfac_state.decomp['scales'].values())
+    a = tr.args
+    print(f'{a.model} ekfac_dp (world=1): bs{a.batch_size} {a.img_size}x'
+          f'{a.img_size} bf16 kfac_update_freq={a.kfac_update_freq} '
+          f'capture_impl={a.kfac_capture_impl}, {R50_EKFAC_STEPS} steps, '
+          f'losses {[round(x, 4) for x in losses]}, step ms median '
+          f'{float(np.median(times)):.1f} (first {times[0]:.1f}), launches '
+          f'{launches} (K1 {n_conv}, K2 {n_conv + 2 * n_dense} a step, as '
+          f'eigen_dp), {groups} moment groups ({scale_bytes / 2**20:.1f} '
+          f'MiB), zero at step 0 {zero.get(0, [])} (residual-final '
+          f'BatchNorm scales start at zero), non-zero from step 1', flush=True)
+    acts, gs = r50_captures(tr)
+    gaps = check_scales_fp64(tr, acts, gs)
+    ms = moment_ms(tr, acts, gs)
+    print(f'resnet50 ekfac moments: update {ms["update_ms"]:.3f} ms a '
+          f'factor step, transport {ms["rotate_ms"]:.3f} ms a full '
+          f'decomposition (CUDA events, host enqueue not hidden)',
+          flush=True)
+    del acts, gs
+    torch.cuda.empty_cache()
+    eig = make_imagenet_trainer('pallas')
+    runs = {'eigen_dp': eig, 'ekfac_dp': tr}
+    med = {k: [] for k in runs}
+    peak = {}
+    timed = take_batches(tr.train_loader, R50_EKFAC_BLOCK + 1)
+    for name, t in runs.items():
+        t.train_step(timed[0])          # both past their first (cold) step
+    for _ in range(R50_EKFAC_ROUNDS):
+        for name, t in runs.items():
+            med[name].append(float(np.median(
+                step_times(t, timed[1:], R50_EKFAC_BLOCK))))
+    for name, t in runs.items():
+        peak[name] = step_peak_mib(t, timed[1])
+    ratio = float(np.median(med['ekfac_dp']) / np.median(med['eigen_dp']))
+    print(f'resnet50 ekfac_dp vs eigen_dp (alternating, {R50_EKFAC_ROUNDS} '
+          f'rounds x {R50_EKFAC_BLOCK} steps): step ms medians {med}, ratio '
+          f'{ratio:.4f}; peak MiB a step adds {json.dumps(peak)}', flush=True)
+    per, _, _ = r50_launches_wanted(tr, 1)
+    prof = {name: profile_steps(t, iter(timed + timed), f'resnet50 {name}',
+                                per, steps=1, host=False)
+            for name, t in runs.items()}
+    print(f'resnet50 ekfac_dp vs eigen_dp, one profiled step each: device '
+          f'busy ms {prof["ekfac_dp"]["device_ms_per_step"]:.1f} vs '
+          f'{prof["eigen_dp"]["device_ms_per_step"]:.1f}, wall ms '
+          f'{prof["ekfac_dp"]["wall_ms_per_step"]:.1f} vs '
+          f'{prof["eigen_dp"]["wall_ms_per_step"]:.1f}; phase '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    del eig, tr, runs
+    torch.cuda.empty_cache()
+    return {'losses': losses, 'step_ms': times, 'launches': launches,
+            'scales_fp64_gap': gaps, 'moment_ms': ms,
+            'scales_bytes': scale_bytes, 'round_medians_ms': med,
+            'ratio': ratio, 'step_peak_mib': peak,
+            'profile': {k: {f: v[f] for f in ('wall_ms_per_step',
+                                               'device_ms_per_step', 'top')}
+                        for k, v in prof.items()}}
+
+
+def run_replan():
+    """ResNet-32 with the capture kernels through REPLAN_RUNS by
+    ``KFAC.replan`` between the runs: the factors carried bitwise at each
+    switch, the same-method switch still decomposed, the cross-method one
+    passing gradients through (``decomposed`` false) until its next
+    inverse update rebuilds the decomposition, K1/K2 launched every step,
+    every loss finite."""
+    import dataclasses
+    tr = make_trainer('pallas', ['--kfac-name', REPLAN_RUNS[0][0]])
+    batches = tr.train_loader.epoch()
+    freq = tr.precond.kfac_update_freq
+    reset_counts()
+    losses, log, step = [], [], 0
+    for j, (variant, n) in enumerate(REPLAN_RUNS):
+        if j:
+            k0 = tr.state.kfac_state
+            k1 = tr.precond.replan(k0, variant=variant)
+            same = all(torch.equal(k1.factors[k], v)
+                       for k, v in k0.factors.items())
+            if not same or tr.precond.variant != variant:
+                fail(f'replan to {variant}: factors not carried bitwise')
+            tr.state = dataclasses.replace(tr.state, kfac_state=k1)
+            switched = step
+        for _ in range(n):
+            losses.append(float(tr.train_step(next(batches))['loss']))
+            log.append((variant, step, bool(tr.state.decomposed),
+                        tr.step_fn.last_decomp))
+            step += 1
+        if tr.precond.ekfac and not scales_nonzero(tr.state.kfac_state):
+            fail(f'replan run: {variant}\'s moments stayed zero')
+    launches = read_counts()
+    want, _, _ = r50_launches_wanted(tr, step)
+    if launches != want:
+        fail(f'replan run: kernel launches {launches}, expected {want}')
+    # only the last switch changes the method: from it until its first
+    # inverse update the gradients pass through
+    for variant, i, dec, _ in log:
+        expect = i < switched or any(k % freq == 0
+                                     for k in range(switched, i + 1))
+        if dec != expect:
+            fail(f'replan run step {i} ({variant}): decomposed {dec}, '
+                 f'expected {expect}: {log}')
+    rearm = [i for _, i, dec, _ in log if not dec]
+    if not rearm or not all(np.isfinite(losses)):
+        fail(f'replan run: no pass-through after the cross-method switch '
+             f'or a non-finite loss: {log}, {losses}')
+    print(f'replan (resnet32, capture kernels): '
+          f'{" -> ".join(f"{v} x{n}" for v, n in REPLAN_RUNS)}, factors '
+          f'carried bitwise at each switch, gradients passed through on '
+          f'steps {rearm} after the cross-method switch, (variant, step, '
+          f'decomposed, decomposition) {log}, losses '
+          f'{[round(x, 4) for x in losses]}, launches {launches}',
+          flush=True)
+    return {'log': log, 'losses': losses, 'launches': launches}
+
+
+def check_ekfac_resume():
+    """An ``ekfac_dp`` ResNet-32 run (capture kernels, deterministic cuDNN)
+    saved after EKFAC_SAVE_AFTER steps, restored into a fresh trainer and
+    run EKFAC_RESUME_MORE more steps on the same batches: bitwise the
+    uninterrupted run, the moments included."""
+    import dataclasses
+    from kfac_pytorch_tpu_torch.utils import checkpoint
+    shutil.rmtree(EKFAC_CKPT, ignore_errors=True)
+    extra = ['--kfac-name', 'ekfac_dp']
+    with deterministic_cudnn():
+        whole = make_trainer('pallas', extra)
+        batches = take_batches(whole.train_loader,
+                               EKFAC_SAVE_AFTER + EKFAC_RESUME_MORE)
+        for i, b in enumerate(batches):
+            whole.train_step(b)
+            if i + 1 == EKFAC_SAVE_AFTER:
+                checkpoint.save_checkpoint(EKFAC_CKPT, 0, whole.state)
+        resumed = make_trainer('pallas', extra)
+        resumed.state = checkpoint.restore_checkpoint(EKFAC_CKPT, 0,
+                                                      resumed.state)
+        for b in batches[EKFAC_SAVE_AFTER:]:
+            resumed.train_step(b)
+    shutil.rmtree(EKFAC_CKPT, ignore_errors=True)
+    got, want = _state_tensors(resumed.state), _state_tensors(whole.state)
+    differ = state_gap(got, want) if set(got) == set(want) else {'keys': 1}
+    n_scales = sum(k.startswith('scales.') for k in want)
+    if differ or resumed.state.step != whole.state.step or not n_scales:
+        fail(f'ekfac_dp resume: not bitwise ({len(differ)} tensors differ: '
+             f'{sorted(differ)}) or no moments ({n_scales})')
+    if not scales_nonzero(resumed.state.kfac_state):
+        fail('ekfac_dp resume: a moments group is zero')
+    print(f'ekfac_dp resume (resnet32, deterministic cuDNN): saved after '
+          f'step {EKFAC_SAVE_AFTER}, restored, {EKFAC_RESUME_MORE} more '
+          f'steps bitwise the uninterrupted run ({len(want)} tensors, '
+          f'{n_scales} moment groups)', flush=True)
+    return {'tensors': len(want), 'moment_groups': n_scales}
+
+
+def run_slice10():
+    """The slice-10 phase: ResNet-50 ekfac_dp, the ResNet-32 ekfac_dp
+    lockstep, the replan run and the E-KFAC checkpoint (the world=2
+    E-KFAC runs are in the world=2 phase)."""
+    t0 = time.perf_counter()
+    out = {'resnet50': run_resnet50_ekfac()}
+    bad = lockstep(['--kfac-name', 'ekfac_dp'], 'ekfac_dp', control=True)
+    if bad:
+        fail('ekfac_dp lockstep: ' + '; '.join(bad))
+    out['replan'] = run_replan()
+    out['resume'] = check_ekfac_resume()
+    torch.cuda.empty_cache()
+    print(f'slice 10 phase: {time.perf_counter() - t0:.1f} s', flush=True)
+    return out
+
+
 def build_kernels():
     """Compile every ``csrc/*.cu`` at once (one nvcc each), then load."""
     from concurrent.futures import ThreadPoolExecutor
@@ -2664,6 +3130,10 @@ def main():
         torch.cuda.empty_cache()
         lap(f'ladder run ({name})')
 
+    # slice 10: E-KFAC and replan
+    slice10 = run_slice10()
+    lap('slice 10')
+
     kernels = kernel_summary(rows, {'resnet32': launches,
                                     'transformer_lm': lm_launches,
                                     'resnet32_world2_eigen_bf16':
@@ -2680,6 +3150,7 @@ def main():
                                'resnet32_world2_eigen_bf16': w2['step_ms'],
                                'resnet50': r50_times},
                    'world2': w2, 'nccl': nccl, 'slice9': slice9,
+                   'slice10': slice10,
                    'resnet50': {'decomposition': decomp,
                                 'resume': {k: v for k, v in resume.items()
                                            if k != 'differ'},

@@ -10,6 +10,9 @@
   refresh_decomposition    eigenvalues only, in the retained basis
   compute/merge_cohort_decomposition   one staggered cohort's rows
   gather_decomposition     all-gather of the decomposition (comm_inverse)
+  update_ekfac_scales(_local) / rotate_ekfac_scales(_local)
+                           E-KFAC moments in the eigenbasis and their
+                           transport across a basis change
   compute_pred_replicated  every layer preconditioned on every rank
   compute_pred_local       owner-computes preconditioning + gather
                            (comm_pred)
@@ -504,6 +507,137 @@ def merge_cohort_decomposition(plan, cohorts, decomp_stored, cohort_new,
     return out
 
 
+def _layer_rows_padded(meta, acts, gs, batch_averaged, pg):
+    """This layer's factor-convention rows (``ops.layer_rows_*``), their
+    features zero-padded to the pred group's bucket dims: the one row and
+    padding contract of both E-KFAC moment estimators."""
+    a = capture.layer_act(acts, meta)
+    g = capture.layer_g(gs, meta)
+    if meta.kind == 'dense':
+        arows, grows, n = ops.layer_rows_dense(a, g, meta.use_bias,
+                                               batch_averaged)
+    else:
+        arows, grows, n = ops.layer_rows_conv(
+            a, g, meta.kernel_size, meta.strides, meta.padding,
+            meta.use_bias, batch_averaged)
+    arows = torch.nn.functional.pad(arows, (0, pg.da - arows.shape[1]))
+    grows = torch.nn.functional.pad(grows, (0, pg.dg - grows.shape[1]))
+    return arows, grows, n
+
+
+def _layer_scales(meta, acts, gs, batch_averaged, pg, qa, qg):
+    """One layer's E-KFAC moments ``[dg, da]`` in the basis ``(qa, qg)``;
+    its rows are freed before the next layer's are made."""
+    arows, grows, n = _layer_rows_padded(meta, acts, gs, batch_averaged, pg)
+    return ops.ekfac_scales(arows, grows, qa, qg, n)
+
+
+def update_ekfac_scales(plan, decomp, acts, gs, batch_averaged,
+                        scales_prev, factor_decay, stats_reduce, group,
+                        comm_precision='fp32'):
+    """E-KFAC second-moment update in the replicated eigenbasis (comm_mode
+    'inverse'): per layer, project this rank's captured rows into the
+    layer's Kronecker eigenbasis and take ``s = E[(Qg^T grad_b Qa)^2]``
+    (:func:`ops.ekfac_scales`); ``stats_reduce='pmean'`` averages the
+    moments over the group through ``coll.pmean_wire`` (a lossy wire
+    without error feedback: squared projections have no sign structure to
+    protect); then the EMA with ``factor_decay``. Returns ``{'g<i>': [M,
+    dg, da]}`` in ``plan.pred_groups`` member order. A zero basis projects
+    everything to zero, so the moments stay zero and the pred path keeps
+    the Kronecker denominator."""
+    new = {}
+    for gi, pg in enumerate(plan.pred_groups):
+        member = []
+        for pos, i in enumerate(pg.layer_idx):
+            qa = decomp['evecs'][_key(pg.da)][int(pg.row_a[pos])]
+            qg = decomp['evecs'][_key(pg.dg)][int(pg.row_g[pos])]
+            member.append(_layer_scales(plan.metas[int(i)], acts, gs,
+                                        batch_averaged, pg, qa, qg))
+        s_new = torch.stack(member)
+        if stats_reduce == 'pmean':
+            with coll.named_scope('kfac.CommunicateFactor.scales'):
+                s_new = coll.pmean_wire(s_new, group, comm_precision)
+        new[f'g{gi}'] = ops.update_running_avg(s_new, scales_prev[f'g{gi}'],
+                                               factor_decay)
+    return new
+
+
+def update_ekfac_scales_local(plan, decomp_local, acts, gs, batch_averaged,
+                              scales_prev, factor_decay, group):
+    """Owner-local E-KFAC moments in the comm_mode 'pred' layout
+    ('ekfac_dp'): each rank computes, from its own captures, the moments
+    of the layers it owns only, each projected with the basis rows of its
+    local slot; a pad slot's moments are zero. No communication. Returns
+    ``{'g<i>': [K, dg, da]}`` in local slot order (the order of
+    :func:`compute_pred_local`). The JAX version computes every layer and
+    masks the unowned ones away (static shapes); the numbers are the
+    same."""
+    idx = coll.axis_index(group)
+    new = {}
+    for gi, pg in enumerate(plan.pred_groups):
+        prev = scales_prev[f'g{gi}']
+        slot_s = torch.zeros_like(prev)
+        for k in range(pg.local_member.shape[1]):
+            if not pg.local_valid[idx, k]:
+                continue
+            pos = int(pg.local_member[idx, k])
+            qa = decomp_local['evecs'][_key(pg.da)][
+                int(pg.local_row_a[idx, k])]
+            qg = decomp_local['evecs'][_key(pg.dg)][
+                int(pg.local_row_g[idx, k])]
+            slot_s[k] = _layer_scales(plan.metas[int(pg.layer_idx[pos])],
+                                      acts, gs, batch_averaged, pg, qa, qg)
+        new[f'g{gi}'] = ops.update_running_avg(slot_s, prev, factor_decay)
+    return new
+
+
+def _transport(s, qa_o, qg_o, qa_n, qg_n):
+    """Squared-overlap transport of diagonal moments ``s`` [m, dg, da]
+    from the old bases to the new: ``(Rg^2)^T s (Ra^2)`` with ``R = Q_old^T
+    Q_new``, in fp32."""
+    with ops.fp32_matmul():
+        ra = (qa_o.mT @ qa_n) ** 2
+        rg = (qg_o.mT @ qg_n) ** 2
+        return rg.mT @ s @ ra
+
+
+def rotate_ekfac_scales(plan, scales, evecs_prev, evecs_new):
+    """Re-express stored E-KFAC moments after a basis change (replicated
+    layout): the EMA'd moments live in the old basis, and ``s' = (Rg^2)^T
+    s (Ra^2)``, ``R = Q_old^T Q_new``, is the exact transport of the
+    diagonal approximation between bases. It keeps the total mass, is
+    exact under sign flips and is the identity when the basis did not
+    move. ``evecs_prev``/``evecs_new`` are decompositions (their
+    ``'evecs'``)."""
+    out = {}
+    for gi, pg in enumerate(plan.pred_groups):
+        dev = scales[f'g{gi}'].device
+        ra, rg = _long(pg.row_a, dev), _long(pg.row_g, dev)
+        ka, kg = _key(pg.da), _key(pg.dg)
+        out[f'g{gi}'] = _transport(
+            scales[f'g{gi}'], evecs_prev['evecs'][ka][ra],
+            evecs_prev['evecs'][kg][rg], evecs_new['evecs'][ka][ra],
+            evecs_new['evecs'][kg][rg])
+    return out
+
+
+def rotate_ekfac_scales_local(plan, scales, evecs_prev_local,
+                              evecs_new_local, group):
+    """The per-slot transport of owner-local moments (comm_mode 'pred'):
+    each local slot rotates by its own old and new basis rows."""
+    out = {}
+    for gi, pg in enumerate(plan.pred_groups):
+        dev = scales[f'g{gi}'].device
+        ra = _long(_local_table(pg.local_row_a, group), dev)
+        rg = _long(_local_table(pg.local_row_g, group), dev)
+        ka, kg = _key(pg.da), _key(pg.dg)
+        out[f'g{gi}'] = _transport(
+            scales[f'g{gi}'], evecs_prev_local[ka][ra],
+            evecs_prev_local[kg][rg], evecs_new_local[ka][ra],
+            evecs_new_local[kg][rg])
+    return out
+
+
 def _rows_finite(x):
     """``[rows, ...] -> [rows]`` bool: the row has no NaN/Inf."""
     return torch.isfinite(x).flatten(1).all(dim=1)
@@ -578,9 +712,16 @@ def gather_decomposition(plan, decomp_local, group, communicate=True,
 # Phase 3: preconditioning
 # ---------------------------------------------------------------------------
 
-def _pred_eigh(qg, dg, qa, da, gstack, damping):
+def _pred_eigh(qg, dg, qa, da, gstack, damping, scales=None):
     v1 = qg.mT @ gstack @ qa
-    v2 = v1 / (dg[:, :, None] * da[:, None, :] + damping)
+    denom = dg[:, :, None] * da[:, None, :]
+    if scales is not None:
+        # E-KFAC: the second moments replace the eigenvalue products; a
+        # member whose moments are all zero (none accumulated yet) keeps
+        # the Kronecker denominator
+        valid = torch.any((scales != 0).flatten(1), dim=1)[:, None, None]
+        denom = torch.where(valid, scales, denom)
+    v2 = v1 / (denom + damping)
     return qg @ v2 @ qa.mT
 
 
@@ -593,12 +734,14 @@ def _group_grad_stack(pg, grad_mats):
                         for i in pg.layer_idx])
 
 
-def compute_pred_replicated(plan, decomp, grad_mats, damping, method):
+def compute_pred_replicated(plan, decomp, grad_mats, damping, method,
+                            scales=None):
     """Preconditioning with the replicated (gathered) decomposition: every
     rank computes every layer's preconditioned gradient, no
-    communication."""
+    communication. ``scales``: the E-KFAC moments per pred group
+    (:func:`update_ekfac_scales`), replacing the eigenvalue products."""
     preds = [None] * plan.num_layers
-    for pg in plan.pred_groups:
+    for gi, pg in enumerate(plan.pred_groups):
         gstack = _group_grad_stack(pg, grad_mats)
         dev = gstack.device
         ra, rg = _long(pg.row_a, dev), _long(pg.row_g, dev)
@@ -606,7 +749,8 @@ def compute_pred_replicated(plan, decomp, grad_mats, damping, method):
         if method == 'eigh':
             pred = _pred_eigh(decomp['evecs'][kg][rg], decomp['evals'][kg][rg],
                               decomp['evecs'][ka][ra], decomp['evals'][ka][ra],
-                              gstack, damping)
+                              gstack, damping,
+                              None if scales is None else scales[f'g{gi}'])
         else:
             pred = _pred_inv(decomp['invs'][kg][rg], decomp['invs'][ka][ra],
                              gstack)
@@ -617,12 +761,14 @@ def compute_pred_replicated(plan, decomp, grad_mats, damping, method):
 
 
 def compute_pred_local(plan, decomp_local, grad_mats, damping, method,
-                       group=None, comm_precision='fp32'):
+                       group=None, comm_precision='fp32', scales=None):
     """Owner-computes preconditioning (comm_pred): each rank
     preconditions the layers it owns, batched per pred group, and the
-    results are all-gathered over the ``comm_precision`` wire."""
+    results are all-gathered over the ``comm_precision`` wire.
+    ``scales``: the owner-local E-KFAC moments in slot order
+    (:func:`update_ekfac_scales_local`)."""
     preds = [None] * plan.num_layers
-    for pg in plan.pred_groups:
+    for gi, pg in enumerate(plan.pred_groups):
         gstack = _group_grad_stack(pg, grad_mats)
         dev = gstack.device
         members = _long(_local_table(pg.local_member, group), dev)
@@ -634,7 +780,8 @@ def compute_pred_local(plan, decomp_local, grad_mats, damping, method,
             pred = _pred_eigh(decomp_local['evecs'][kg][rg],
                               decomp_local['evals'][kg][rg],
                               decomp_local['evecs'][ka][ra],
-                              decomp_local['evals'][ka][ra], g_loc, damping)
+                              decomp_local['evals'][ka][ra], g_loc, damping,
+                              None if scales is None else scales[f'g{gi}'])
         else:
             pred = _pred_inv(decomp_local['invs'][kg][rg],
                              decomp_local['invs'][ka][ra], g_loc)

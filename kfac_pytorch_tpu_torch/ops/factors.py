@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch.capture import canonical_padding
+from kfac_pytorch_tpu_torch.ops.linalg import fp32_matmul
 
 _FACTOR_DTYPE = torch.float32
 
@@ -93,6 +94,55 @@ def compute_g_conv(g, batch_averaged=True):
         rows = rows * n
     rows = rows * spatial
     return _stat_gemm(rows, rows.shape[0])
+
+
+def layer_rows_dense(a, g, use_bias, batch_averaged=True):
+    """Aligned per-example rows of a dense layer, the rows whose
+    covariances are :func:`compute_a_dense` / :func:`compute_g_dense`
+    (same sequence mean, bias column and batch-averaged undo): ``(arows
+    [N, d_in(+1)], grows [N, d_out], N)`` in fp32, row ``b`` of both sides
+    example ``b``'s (the E-KFAC moment input)."""
+    if a.ndim > 2:
+        a = a.mean(dim=tuple(range(1, a.ndim - 1)))
+    if g.ndim > 2:
+        g = g.mean(dim=tuple(range(1, g.ndim - 1)))
+    n = a.shape[0]
+    if use_bias:
+        a = _append_ones_column(a)
+    if batch_averaged:
+        g = g * n
+    return a.to(_FACTOR_DTYPE), g.to(_FACTOR_DTYPE), n
+
+
+def layer_rows_conv(a, g, kernel_size, strides, padding, use_bias,
+                    batch_averaged=True):
+    """Aligned per-patch rows of a conv layer, the row sets and scalings of
+    :func:`compute_a_conv` / :func:`compute_g_conv` (patch rows divided by
+    the spatial size, g rows scaled by N and the spatial size), row ``r``
+    of both sides one (example, position): ``(arows [N*OH*OW,
+    kh*kw*C(+1)], grows [N*OH*OW, C_out], N)`` in fp32."""
+    n = a.shape[0]
+    patches = extract_patches(a, kernel_size, strides, padding)
+    spatial = patches.shape[1] * patches.shape[2]
+    arows = patches.reshape(-1, patches.shape[-1])
+    if use_bias:
+        arows = _append_ones_column(arows)
+    arows = arows / spatial
+    grows = g.reshape(-1, g.shape[-1])
+    if batch_averaged:
+        grows = grows * n
+    grows = grows * spatial
+    return arows.to(_FACTOR_DTYPE), grows.to(_FACTOR_DTYPE), n
+
+
+def ekfac_scales(arows, grows, qa, qg, n):
+    """E-KFAC second moments in the joint Kronecker eigenbasis, ``s_ij =
+    (1/n) sum_r (qg^T grows_r)_i^2 (arows_r^T qa)_j^2``: two projections
+    and one GEMM of the squared projections, all in fp32 (TF32 off)."""
+    with fp32_matmul():
+        pa = arows @ qa
+        pg = grows @ qg
+        return (pg * pg).T @ ((pa * pa) / n)
 
 
 def update_running_avg(new, current, alpha):

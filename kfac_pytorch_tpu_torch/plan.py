@@ -169,6 +169,27 @@ def _layer_owners(metas, num_devices, assignment):
     return [int(o) for o in owners]
 
 
+def same_row_layout(plan_a: FactorPlan, plan_b: FactorPlan) -> bool:
+    """Whether two plans place every factor row identically: the same
+    world size, buckets (dims, rows a rank, validity, true dims) and
+    per-layer row map. Then one plan's state tensors fit the other's and a
+    replan can carry them verbatim. ``comm_mode`` is not part of the row
+    layout."""
+    if plan_a.num_devices != plan_b.num_devices:
+        return False
+    if plan_a.bucket_dims != plan_b.bucket_dims:
+        return False
+    for bdim in plan_a.bucket_dims:
+        a, b = plan_a.buckets[bdim], plan_b.buckets[bdim]
+        if (a.per_dev, a.n_rows) != (b.per_dev, b.n_rows):
+            return False
+        if not np.array_equal(a.valid, b.valid):
+            return False
+        if not np.array_equal(a.true_dims, b.true_dims):
+            return False
+    return plan_a.layer_rows == plan_b.layer_rows
+
+
 ASSIGNMENTS = ('round_robin', 'balanced')
 
 

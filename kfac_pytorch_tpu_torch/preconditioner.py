@@ -10,10 +10,16 @@
   ekfac         pmean (MPD)    eigh        'inverse' + E-KFAC moments
   ekfac_dp      local  (DP)    eigh        'pred'    + E-KFAC moments
 
-All six names are accepted; the first four run, at world=1 and over a
-process group (``group``). ``ekfac``/``ekfac_dp`` raise
-``NotImplementedError`` naming the port slice that brings them.
-``comm_mode`` overrides the variant's mode.
+All six run, at world=1 and over a process group (``group``).
+``comm_mode`` overrides the variant's mode. The E-KFAC variants keep, per
+pred group, the second moments of the per-example gradients in the
+joint eigenbasis (``decomp['scales']``, ``{'g<i>': [members, dg, da]}``:
+every member in comm_mode 'inverse', this rank's slots in 'pred'),
+which replace the eigenvalue products in the preconditioner; 'ekfac_dp'
+computes them from each rank's own batch and never communicates them.
+
+``replan`` rebuilds the plan mid-run (variant, comm_mode, the staggered
+cohorts' per-bucket cadence) and carries the state into it, at world=1.
 
 ``step`` maps ``(state, grads, captured a/g) -> (preconditioned grads,
 new state)`` and leaves its inputs untouched, like the JAX version; the
@@ -28,7 +34,9 @@ and (comm_mode 'pred') its decomposition rows; in comm_mode 'inverse'
 the gathered decomposition is the same on every rank.
 """
 
+import copy
 import dataclasses
+import logging
 import os
 import warnings
 from typing import Dict, Optional
@@ -40,8 +48,10 @@ from kfac_pytorch_tpu_torch import health as health_lib
 from kfac_pytorch_tpu_torch.capture import filter_vocab_head
 from kfac_pytorch_tpu_torch.parallel import collectives as coll
 from kfac_pytorch_tpu_torch.plan import (build_cohorts, build_plan,
-                                         default_bucket_fn)
+                                         default_bucket_fn, same_row_layout)
 from kfac_pytorch_tpu_torch.utils.platform import resolve_device
+
+log = logging.getLogger(__name__)
 
 #: capture-kernel ladder, the JAX package's values: 'xla' is the
 #: ops/factors.py path, 'pallas' the fused capture kernels (the name is
@@ -71,7 +81,8 @@ class KFACState:
     ``factors[str(D)]`` is this rank's ``[per_dev, D, D]`` rows;
     ``decomp`` holds ``evals``/``evecs`` (eigh) or ``invs`` (Cholesky)
     keyed the same way, this rank's rows in comm_mode 'pred' and all
-    ``n_rows`` in 'inverse'. ``comm_err`` is this rank's error-feedback
+    ``n_rows`` in 'inverse', plus ``scales`` for the E-KFAC variants
+    (keyed per pred group). ``comm_err`` is this rank's error-feedback
     residual of the lossy stats reduce, ``[n_rows, D, D]`` per bucket
     (None when no lossy reduce exists: fp32, DP variants)."""
     step: int
@@ -99,9 +110,38 @@ _VARIANTS = {
                      ekfac=True),
 }
 
-_LATER = {
-    'ekfac': 'ROADMAP queue 1, slice D item 18 (E-KFAC)',
-    'ekfac_dp': 'ROADMAP queue 1, slice D item 18 (E-KFAC)',
+_EKFAC_DAMPING_WARNED = False
+
+
+def _warn_ekfac_damping_once(damping):
+    """One warning a process that the E-KFAC variants want their own
+    damping: their second-moment denominators are systematically at least
+    the Kronecker eigenvalue products they replace, so a damping tuned for
+    'eigen'/'eigen_dp' can under-damp them."""
+    global _EKFAC_DAMPING_WARNED
+    if _EKFAC_DAMPING_WARNED:
+        return
+    _EKFAC_DAMPING_WARNED = True
+    warnings.warn(
+        f'ekfac variants replace the Kronecker eigenvalue product with '
+        f'exact (typically larger) second moments in the denominator — '
+        f'a damping calibrated for an eigen variant (got {damping}) may '
+        'be too small here. If this config was tuned on eigen/eigen_dp, '
+        'sweep damping upward (3x/10x) before judging ekfac.',
+        stacklevel=3)
+
+
+#: what replan does not do yet, by the ROADMAP item that brings it
+_REPLAN_LATER = {
+    'group': 'a replan at world>1 (the per-rank decomposition rows must be '
+             'gathered, not carried) is not ported yet: ROADMAP queue 1, '
+             'item 13 (the elastic lane, with slice B\'s leftovers)',
+    'num_devices': 'replan(num_devices=) is not ported yet: ROADMAP queue 1, '
+                   'item 13 (the elastic lane, with slice B\'s leftovers)',
+    'mesh_axes': 'replan(mesh_axes=) is not ported yet: ROADMAP queue 1, '
+                 'slice E (composed meshes)',
+    'arbiter': 'the knob arbiter is not ported yet: ROADMAP queue 1, '
+               'slice F item 22 (autotune)',
 }
 
 
@@ -161,6 +201,11 @@ class KFAC:
         ``warm_start_basis``) or one of ``DECOMP_IMPLS``; an explicit
         iterative value implies warm starts.
 
+      comm_prefetch: comm_mode 'inverse' only: publish a full refresh's
+        gathered decomposition for the next step. The JAX constructor's
+        errors (a 'pred' mode, an E-KFAC variant) are raised as there;
+        otherwise it is not ported yet (NotImplementedError, ROADMAP
+        queue 1, item 15's remainder with item 16).
       health: the numerical-health guard (``health.py``). True (the
         default) turns on the in-engine screens with the default ladder:
         factor and decomposition rows that come back non-finite fall back
@@ -168,8 +213,12 @@ class KFAC:
         non-finite residual row resets to zero (pure pass-through on
         finite values). A ``health.HealthConfig`` tunes the damping ladder
         the trainer drives; False turns every screen off
-        (``self.health`` is then None). The E-KFAC scales screen comes
-        with E-KFAC (ROADMAP queue 1, item 18).
+        (``self.health`` is then None). With E-KFAC a non-finite moment
+        row keeps its (rotated) previous value.
+
+    The E-KFAC variants ('ekfac', 'ekfac_dp') warn once a process that a
+    damping tuned for an eigen variant may be too small for them, and
+    exclude ``stagger`` and ``comm_prefetch``, as in JAX.
     """
 
     def __init__(self, variant='eigen_dp', lr=0.1, damping=0.001,
@@ -182,13 +231,9 @@ class KFAC:
                  comm_precision='fp32', comm_mode=None, capture_impl=None,
                  basis_update_freq=None, warm_start_basis=False,
                  warm_sweeps=None, cold_restart_every=50, stagger=False,
-                 decomp_impl=None, health=True):
+                 decomp_impl=None, health=True, comm_prefetch=False):
         if variant not in _VARIANTS:
             raise KeyError(f'unknown variant {variant!r}')
-        if variant in _LATER:
-            raise NotImplementedError(
-                f'variant {variant!r} is not ported yet: '
-                f'{_LATER[variant]}')
         if capture_impl is not None and capture_impl not in CAPTURE_IMPLS:
             raise ValueError(f'capture_impl must be one of {CAPTURE_IMPLS}, '
                              f'got {capture_impl!r}')
@@ -207,6 +252,9 @@ class KFAC:
         self.stats_reduce = cfg['stats_reduce']
         self.method = cfg['method']
         self.comm_mode = mode
+        self.ekfac = cfg.get('ekfac', False)
+        if self.ekfac:
+            _warn_ekfac_damping_once(damping)
         self.lr = lr
         self.damping = damping
         self.fac_update_freq = fac_update_freq
@@ -229,8 +277,33 @@ class KFAC:
         self._set_decomp_ladder(basis_update_freq, warm_start_basis,
                                 warm_sweeps, cold_restart_every, stagger,
                                 decomp_impl)
+        self._check_prefetch(comm_prefetch)
         self.plan = None
         self._cohorts = None
+        # per-bucket stagger cadence ({bucket dim: stretch},
+        # plan.build_cohorts' bucket_freq), set by replan; empty = uniform
+        self.bucket_stagger_freq = {}
+        self._pending_replan = None
+        self._invalidators = []
+
+    def _check_prefetch(self, comm_prefetch):
+        """The JAX constructor's comm_prefetch errors, then not-ported."""
+        if not comm_prefetch:
+            return
+        if self.comm_mode != 'inverse':
+            raise ValueError(
+                "comm_prefetch applies to comm_mode='inverse' (the "
+                'decomposition gathers); the comm_pred variants gather '
+                "preconditioned gradients, which ARE the step's consumer "
+                'and cannot be deferred')
+        if self.ekfac:
+            raise ValueError(
+                'comm_prefetch is not supported for the ekfac variants: the '
+                'scale moments must be estimated in the same basis the pred '
+                'consumes, which prefetch splits across steps')
+        raise NotImplementedError(
+            'comm_prefetch is not ported yet: ROADMAP queue 1, slice D item '
+            "15's remainder (with item 16)")
 
     def _set_decomp_ladder(self, basis_update_freq, warm_start_basis,
                            warm_sweeps, cold_restart_every, stagger,
@@ -282,6 +355,11 @@ class KFAC:
         self.decomp_impl = decomp_impl
         self.stagger = bool(stagger)
         if self.stagger:
+            if self.ekfac:
+                raise ValueError(
+                    'stagger is not supported for the ekfac variants: the '
+                    'per-example moment rotation assumes a whole-table '
+                    'basis change, not a per-cohort one')
             if basis_update_freq is not None or warm_start_basis:
                 raise ValueError(
                     'stagger is an alternative amortization of the inverse '
@@ -304,7 +382,7 @@ class KFAC:
         if self.exclude_vocabulary_size is not None:
             metas = filter_vocab_head(metas, self.exclude_vocabulary_size)
         distribute = self.distribute_layer_factors
-        if self.variant == 'eigen' and distribute is None:
+        if self.variant in ('eigen', 'ekfac') and distribute is None:
             distribute = (self.comm_mode != 'pred'
                           and self.num_devices > len(metas))
         self.plan = build_plan(metas, num_devices=self.num_devices,
@@ -319,20 +397,228 @@ class KFAC:
 
     def rebase_cohorts(self):
         """(Re)build the staggered cohort layout for the current
-        ``kfac_update_freq`` (after ``setup``, a scheduler rescale, and on
-        every staggered dispatch); a no-op when it already matches.
-        Returns the layout (None without stagger or a plan)."""
+        ``kfac_update_freq`` and ``bucket_stagger_freq`` (after ``setup``,
+        a scheduler rescale, a replan, and on every staggered dispatch); a
+        no-op when it already matches. Returns the layout (None without
+        stagger or a plan)."""
         if not self.stagger or self.plan is None:
             return None
         f = max(1, int(self.kfac_update_freq))
-        if self._cohorts is None or self._cohorts.base_freq != f:
-            self._cohorts = build_cohorts(self.plan, f)
+        overrides = {int(k): max(1, int(v))
+                     for k, v in self.bucket_stagger_freq.items()}
+        if (self._cohorts is None or self._cohorts.base_freq != f
+                or self._cohorts.bucket_freq != overrides):
+            self._cohorts = build_cohorts(self.plan, f,
+                                          bucket_freq=overrides)
         return self._cohorts
 
     @property
     def cohorts(self):
         """The current staggered cohort layout (``plan.CohortPlan``)."""
         return self._cohorts
+
+    # -- live replanning --------------------------------------------------
+
+    def add_invalidator(self, fn):
+        """Register ``fn()``, called once by every replan that changes
+        what a step computes (``training.build_train_step`` registers
+        one that makes its next step re-derive from the state whether a
+        decomposition exists, and decompose cold)."""
+        self._invalidators.append(fn)
+
+    @property
+    def pending_replan(self):
+        """The queued :meth:`request_replan` spec, or None; the trainer
+        applies it at the top of its next step."""
+        return self._pending_replan
+
+    def request_replan(self, _invalidate=True, **spec):
+        """Queue a replan for the next step boundary; later requests merge
+        key by key. ``_invalidate=False`` (the JAX knob arbiter's call,
+        which fires the invalidators itself) is not ported."""
+        if not _invalidate:
+            raise NotImplementedError(_REPLAN_LATER['arbiter'])
+        pend = dict(self._pending_replan or {})
+        pend.update(spec)
+        self._pending_replan = pend
+        return pend
+
+    def apply_pending_replan(self, kfac_state):
+        """Apply and clear the queued replan against ``kfac_state``;
+        returns the carried state (``kfac_state`` itself when nothing is
+        pending)."""
+        spec, self._pending_replan = self._pending_replan, None
+        if not spec:
+            return kfac_state
+        return self.replan(kfac_state, **spec)
+
+    def replan(self, kfac_state=None, *, comm_mode=None, num_devices=None,
+               bucket_overrides=None, variant=None, mesh_axes=None,
+               _invalidate=True):
+        """Rebuild the plan (and the staggered cohort tables) mid-run and
+        carry ``kfac_state`` into the new layout, at world=1; returns the
+        carried state (None for ``kfac_state=None``: plan only).
+
+        ``variant`` switches the family (stats_reduce, method, comm_mode
+        and E-KFAC re-derive from the variant table; an explicit
+        ``comm_mode`` still wins); ``comm_mode`` switches the road alone;
+        ``bucket_overrides`` sets a staggered preconditioner's per-bucket
+        cadence ``{bucket dim: stretch}`` (powers of two <= 64; ``{}``
+        clears). Where the row layout, the method, the residual and (for
+        E-KFAC) the comm mode all stay, the state is carried verbatim:
+        the same object, not a byte moved. Otherwise it is transported by
+        :func:`utils.checkpoint.reshard_kfac_state` with ``carry_decomp``:
+        the factor EMAs and step exactly, a same-method decomposition row
+        for row, and a cross-method switch leaves a zero decomposition
+        that the next inverse update rebuilds from the carried factors
+        (until then the trainer passes gradients through). E-KFAC moments
+        are comm-mode shaped and restart from zero when not carried.
+
+        The new plan and state are built before any attribute changes, so
+        a failed replan leaves the preconditioner as it was. A replan
+        that changes what a step computes calls the invalidators once.
+        ``num_devices`` (another world), a preconditioner with a process
+        group, and ``mesh_axes`` raise NotImplementedError naming their
+        ROADMAP item."""
+        assert self.plan is not None, 'call setup() first'
+        if self.group is not None or self.num_devices != 1:
+            raise NotImplementedError(_REPLAN_LATER['group'])
+        if mesh_axes is not None:
+            raise NotImplementedError(_REPLAN_LATER['mesh_axes'])
+        if not _invalidate:
+            raise NotImplementedError(_REPLAN_LATER['arbiter'])
+        old_plan = self.plan
+
+        # -- the target configuration
+        new_variant = self.variant if variant is None else variant
+        if new_variant not in _VARIANTS:
+            raise KeyError(f'unknown variant {new_variant!r}')
+        cfg = _VARIANTS[new_variant]
+        new_mode = (self.comm_mode if variant is None
+                    else cfg['comm_mode'] or 'pred')
+        if comm_mode is not None:
+            if comm_mode not in ('inverse', 'pred'):
+                raise ValueError("comm_mode must be 'inverse' or 'pred', "
+                                 f'got {comm_mode!r}')
+            new_mode = comm_mode
+        new_method = self.method if variant is None else cfg['method']
+        new_reduce = (self.stats_reduce if variant is None
+                      else cfg['stats_reduce'])
+        new_ekfac = self.ekfac if variant is None else cfg.get('ekfac', False)
+        if num_devices is not None:
+            if int(num_devices) < 1:
+                raise ValueError(f'num_devices must be >= 1, got '
+                                 f'{num_devices}')
+            if int(num_devices) != self.num_devices:
+                raise NotImplementedError(_REPLAN_LATER['num_devices'])
+        new_overrides = self._replan_overrides(bucket_overrides, old_plan)
+
+        # -- the constructor's rules, checked again
+        if new_ekfac and self.stagger:
+            raise ValueError('cannot replan a staggered preconditioner '
+                             'onto an ekfac variant (stagger exclusion)')
+        if self.decomp_impl is not None:
+            if (self.decomp_impl in ('subspace', 'jacobi')
+                    and new_method != 'eigh'):
+                raise ValueError(
+                    f'decomp_impl={self.decomp_impl!r} is an eigh kernel '
+                    f'but the replan target decomposes by {new_method} — '
+                    'switch decomp_impl first')
+            if (self.decomp_impl == 'newton_schulz'
+                    and new_method != 'cholesky'):
+                raise ValueError(
+                    "decomp_impl='newton_schulz' replaces the Cholesky "
+                    f'inverse but the replan target uses {new_method} — '
+                    'switch decomp_impl first')
+        # the plan a fresh setup of the target would build (comm_mode
+        # 'pred' forbids the factor-wise split)
+        distribute = self.distribute_layer_factors
+        if distribute is None and new_variant in ('eigen', 'ekfac'):
+            distribute = (new_mode != 'pred'
+                          and self.num_devices > len(old_plan.metas))
+        distribute = bool(distribute) and new_mode != 'pred'
+
+        # -- build the new plan and the carried state first
+        new_plan = build_plan({m.name: m for m in old_plan.metas},
+                              num_devices=self.num_devices,
+                              comm_mode=new_mode,
+                              assignment=self.assignment,
+                              distribute_layer_factors=distribute,
+                              bucket_fn=self.bucket_fn)
+        clone = copy.copy(self)
+        clone.variant, clone.stats_reduce = new_variant, new_reduce
+        clone.method, clone.comm_mode = new_method, new_mode
+        clone.ekfac, clone.plan = new_ekfac, new_plan
+        clone.bucket_stagger_freq = new_overrides
+        clone._cohorts = None
+        same_layout = same_row_layout(old_plan, new_plan)
+        new_state = kfac_state
+        verbatim = False
+        if kfac_state is not None:
+            verbatim = (
+                same_layout and self.method == new_method
+                # the moments are comm-mode shaped; the residual exists
+                # only on a lossy MPD reduce
+                and (not (self.ekfac or new_ekfac)
+                     or (self.ekfac == new_ekfac
+                         and self.comm_mode == new_mode))
+                and self.tracks_comm_err == clone.tracks_comm_err
+                and ((kfac_state.comm_err is None)
+                     == (not clone.tracks_comm_err)))
+            if not verbatim:
+                from kfac_pytorch_tpu_torch.utils.checkpoint import \
+                    reshard_kfac_state
+                new_state = reshard_kfac_state(self, clone, kfac_state,
+                                               carry_decomp=True)
+
+        # -- commit every attribute together
+        trace_changed = (
+            not same_layout or new_mode != self.comm_mode
+            or new_method != self.method or new_reduce != self.stats_reduce
+            or new_ekfac != self.ekfac
+            or new_overrides != self.bucket_stagger_freq)
+        if new_ekfac and not self.ekfac:
+            _warn_ekfac_damping_once(self.damping)
+        self.variant, self.stats_reduce = new_variant, new_reduce
+        self.method, self.comm_mode = new_method, new_mode
+        self.ekfac, self.plan = new_ekfac, new_plan
+        self.bucket_stagger_freq = new_overrides
+        self._cohorts = None
+        if self.stagger:
+            self.rebase_cohorts()
+        log.info('kfac: replan applied variant=%s comm_mode=%s%s (layout '
+                 '%s, state %s)', new_variant, new_mode,
+                 f' bucket_overrides={new_overrides}' if new_overrides
+                 else '', 'unchanged' if same_layout else 'rebuilt',
+                 'carried verbatim' if verbatim else
+                 ('transported' if kfac_state is not None else 'none'))
+        if trace_changed:
+            for fn in self._invalidators:
+                fn()
+        return new_state
+
+    def _replan_overrides(self, bucket_overrides, plan):
+        """The validated per-bucket cadence of a replan (the current one
+        when not given)."""
+        if bucket_overrides is None:
+            return dict(self.bucket_stagger_freq)
+        if not self.stagger:
+            raise ValueError(
+                'bucket_overrides tune the STAGGERED cohort cadence '
+                '(KFAC(stagger=True)); this preconditioner refreshes whole '
+                'tables')
+        out = {int(k): int(v) for k, v in dict(bucket_overrides).items()}
+        if any(v < 1 for v in out.values()):
+            raise ValueError(f'bucket_overrides stretches must be >= 1, got '
+                             f'{out}')
+        if any(v & (v - 1) or v > 64 for v in out.values()):
+            raise ValueError('bucket_overrides stretches must be powers of '
+                             f'two <= 64, got {out}')
+        unknown = sorted(set(out) - set(plan.bucket_dims))
+        if unknown:
+            raise ValueError(f'bucket_overrides names unknown bucket dims '
+                             f'{unknown} (plan has {plan.bucket_dims})')
+        return out
 
     @property
     def resolved_decomp_impl(self):
@@ -390,12 +676,28 @@ class KFAC:
                       'evecs': {str(d): torch.zeros((rows(d), d, d),
                                                     device=device)
                                 for d in plan.bucket_dims}}
+            if self.ekfac:
+                decomp['scales'] = self._zero_scales(device)
         else:
             decomp = {'invs': {str(d): torch.zeros((rows(d), d, d),
                                                    device=device)
                                for d in plan.bucket_dims}}
         return KFACState(step=0, factors=factors, decomp=decomp,
                          comm_err=self.zero_comm_err(device))
+
+    def _zero_scales(self, device):
+        """This rank's zero E-KFAC moments (JAX's ``local=True`` shape),
+        ``{'g<i>': [rows, dg, da]}``: in comm_mode 'pred' the rank's ``K``
+        slots of each pred group, in 'inverse' every member."""
+        out = {}
+        for gi, pg in enumerate(self.plan.pred_groups):
+            if self.comm_mode == 'pred':
+                rows = pg.local_member.shape[1]
+            else:
+                rows = len(pg.layer_idx)
+            out[f'g{gi}'] = torch.zeros((rows, pg.dg, pg.da),
+                                        device=device)
+        return out
 
     def should_update_factors(self, step: int) -> bool:
         return self.hook_enabled and step % self.fac_update_freq == 0
@@ -486,7 +788,15 @@ class KFAC:
         if stagger_update:
             update_inverse = False
         impl = self.resolved_decomp_impl
+        scales_prev = None
+        if self.ekfac:
+            # a state from before E-KFAC (no 'scales') starts from zero
+            # moments: the pred path then keeps the Kronecker denominator
+            scales_prev = decomp.get('scales')
+            if scales_prev is None:
+                scales_prev = self._zero_scales(dev)
         if update_inverse and self.method == 'eigh' and not update_basis:
+            # the basis is kept, so the stored moments stay as they are
             refreshed = engine.refresh_decomposition(
                 plan, factors, decomp, self.eps, group, self.comm_mode,
                 comm_precision=self.comm_precision)
@@ -514,11 +824,37 @@ class KFAC:
                                                self.comm_mode, self.method),
                     self.method)
             if self.comm_mode == 'inverse':
-                decomp = engine.gather_decomposition(
+                new_decomp = engine.gather_decomposition(
                     plan, decomp_local, group,
                     comm_precision=self.comm_precision)
+                if self.ekfac:
+                    # the moments live in the old basis: carry them over
+                    scales_prev = engine.rotate_ekfac_scales(
+                        plan, scales_prev, decomp, new_decomp)
+                decomp = new_decomp
             else:
+                if self.ekfac:
+                    scales_prev = engine.rotate_ekfac_scales_local(
+                        plan, scales_prev,
+                        engine.local_evecs(plan, decomp, group, 'pred'),
+                        decomp_local['evecs'], group)
                 decomp = decomp_local
+        if self.ekfac:
+            decomp = {**decomp, 'scales': scales_prev}
+            if update_factors and acts is not None:
+                if self.comm_mode == 'pred':
+                    scales = engine.update_ekfac_scales_local(
+                        plan, decomp, acts, gs, self.batch_averaged,
+                        scales_prev, self.factor_decay, group)
+                else:
+                    scales = engine.update_ekfac_scales(
+                        plan, decomp, acts, gs, self.batch_averaged,
+                        scales_prev, self.factor_decay, self.stats_reduce,
+                        group, comm_precision=self.comm_precision)
+                if self.health is not None:
+                    # a non-finite moment row keeps the (rotated) previous
+                    scales = engine.where_finite_rows(scales, scales_prev)
+                decomp['scales'] = scales
         pred_decomp = decomp
         if stagger_update:
             cohorts = self._cohorts
@@ -536,13 +872,15 @@ class KFAC:
                 comm_precision=self.comm_precision)
 
         grad_mats = [engine.layer_grad_matrix(m, grads) for m in plan.metas]
+        scales = pred_decomp.get('scales') if self.ekfac else None
         if self.comm_mode == 'inverse':
             preds = engine.compute_pred_replicated(
-                plan, pred_decomp, grad_mats, damping, self.method)
+                plan, pred_decomp, grad_mats, damping, self.method,
+                scales=scales)
         else:
             preds = engine.compute_pred_local(
                 plan, pred_decomp, grad_mats, damping, self.method, group,
-                comm_precision=self.comm_precision)
+                comm_precision=self.comm_precision, scales=scales)
         new_grads = engine.preconditioned_grads(plan, grads, grad_mats,
                                                 preds, lr, self.kl_clip)
         return new_grads, KFACState(step=state.step + 1, factors=factors,

@@ -4,6 +4,7 @@ flags the port supports, plus ``--device`` (default ``cuda``),
 ``--dist-backend`` and ``--steps-per-epoch``.
 
   python -m kfac_pytorch_tpu_torch.train_cifar --kfac-capture-impl auto --epochs 1
+  python -m kfac_pytorch_tpu_torch.train_cifar --kfac-name ekfac_dp
   python -m kfac_pytorch_tpu_torch.launch --nproc 2 -- train_cifar \\
       --kfac-name eigen --kfac-comm-precision bf16 --kfac-capture-impl auto
 

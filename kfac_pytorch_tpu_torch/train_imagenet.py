@@ -9,6 +9,8 @@ accumulated batches, 5 warmup epochs, wd 5e-5, label smoothing 0.1,
 ``cuda``) and ``--steps-per-epoch``.
 
   python -m kfac_pytorch_tpu_torch.train_imagenet --kfac-capture-impl pallas
+  python -m kfac_pytorch_tpu_torch.train_imagenet --kfac-name ekfac_dp \\
+      --kfac-capture-impl pallas
   python -m kfac_pytorch_tpu_torch.train_imagenet --device cpu \\
       --model resnet18 --img-size 32 --batch-size 4 --steps-per-epoch 2 \\
       --epochs 1

@@ -409,7 +409,16 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
     state: a resumed run's first decomposition is full and cold, and the
     streak restarts from zero. The choice is made on the host before the
     batch is screened, as in JAX, so a skipped batch still counts as the
-    step that decomposed."""
+    step that decomposed.
+
+    A replan queued on the preconditioner (``KFAC.request_replan``) is
+    applied at the top of the next step. After any replan that changes the
+    step (the invalidator this registers, JAX's), the next step forgets
+    ``'last_full'`` and ``'warm_streak'`` and re-derives
+    ``state.decomposed`` from the K-FAC state (:func:`has_decomposition`),
+    so its next full decomposition is cold and, after a cross-method
+    switch left a zero decomposition, the gradients pass through until
+    the next inverse update rebuilds it."""
     if fisher_type not in ('Femp', 'F1mc'):
         raise ValueError(f'fisher_type must be Femp or F1mc, '
                          f'got {fisher_type!r}')
@@ -420,12 +429,26 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
         fisher_sample_fn = sample_pseudo_labels
     group = None if precond is None else precond.group
     seen = {}
+    if precond is not None:
+        # after a replan that changes the step, the next step re-derives
+        # from the state whether a decomposition exists (a cross-method
+        # switch leaves a zero one) and decomposes cold
+        precond.add_invalidator(lambda: seen.update(rederive=True))
 
     def step_fn(state, batch, lr=None, damping=None):
         step = state.step
         uf = ui = st = factors_only = False
         ub, warm = True, False
         if precond is not None:
+            if precond.pending_replan:
+                state = dataclasses.replace(
+                    state, kfac_state=precond.apply_pending_replan(
+                        state.kfac_state))
+            if seen.pop('rederive', False):
+                for k in ('last_full', 'warm_streak'):
+                    seen.pop(k, None)
+                state = dataclasses.replace(
+                    state, decomposed=has_decomposition(state.kfac_state))
             seen['yes'] = bool(state.decomposed)
             uf, ui, ub, warm, st = _dispatch(precond, seen, step)
             if st:
@@ -549,16 +572,31 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
 def _select_kfac_state(ok, new, old):
     """The K-FAC state ``new`` where ``ok`` holds, else ``old``'s tensors
     with ``new``'s step (a skipped batch advances the step counter, as
-    the JAX skip branch does)."""
+    the JAX skip branch does). A part ``new`` has and ``old`` lacks (the
+    E-KFAC moments of a state from before E-KFAC) falls back to zeros,
+    the value the step gives such a state."""
     def pick(a, b):
         if a is None or a is b:
             return a
         if isinstance(a, dict):
-            return {k: pick(a[k], b[k]) for k in a}
+            return {k: pick(a[k], None if b is None else b.get(k))
+                    for k in a}
+        if b is None:
+            b = torch.zeros_like(a)
         return torch.where(ok, a, b)
     return KFACState(step=new.step, factors=pick(new.factors, old.factors),
                      decomp=pick(new.decomp, old.decomp),
                      comm_err=pick(new.comm_err, old.comm_err))
+
+
+def has_decomposition(kfac_state):
+    """Whether ``kfac_state`` holds a decomposition (any non-zero entry),
+    read back to the host: what ``TrainState.decomposed`` is re-derived
+    from after a replan."""
+    if kfac_state is None:
+        return False
+    return any(bool(torch.any(v != 0)) for tree in kfac_state.decomp.values()
+               for v in tree.values())
 
 
 def _match_comm_err(precond, kfac_state):

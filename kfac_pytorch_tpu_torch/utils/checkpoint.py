@@ -23,11 +23,12 @@ in the 0-d tensors the optimizer keeps now. ``include_kfac=False`` leaves the
 K-FAC state out, the reference's behaviour: the factors then start again
 from the identity and the first steps only accumulate statistics.
 
-Not ported yet (ROADMAP queue 1, item 13): asynchronous saves
-(``block=False``), ``reshard_kfac_state`` (a resume at another world
-size), the world stamp and lineage fence, the HTTP store and
-``RetryPolicy``. Every save blocks, so :func:`wait_for_checkpoints` has
-nothing to wait for.
+:func:`reshard_kfac_state` re-lays a K-FAC state from one plan into
+another on the host (``KFAC.replan`` uses it for every move it cannot
+carry verbatim). Not ported yet (ROADMAP queue 1, item 13): asynchronous
+saves (``block=False``), the trainers' resume at another world size, the
+world stamp and lineage fence, the HTTP store and ``RetryPolicy``. Every
+save blocks, so :func:`wait_for_checkpoints` has nothing to wait for.
 """
 
 import dataclasses
@@ -96,6 +97,87 @@ def save_checkpoint(base_dir, epoch, state, include_kfac=True, block=True):
               _manifest.encode_manifest(manifest))
     log.info('ckpt: committed manifest epoch=%d blobs=%d kind=%s',
              int(epoch), len(manifest['blobs']), KIND)
+
+
+def _global_rows(pre, states, x_of):
+    """One state component in the global device-major row layout, from
+    the per-rank states: rows concatenated in rank order, or rank 0's for
+    a decomposition replicated by comm_mode 'inverse'."""
+    parts = [x_of(st) for st in states]
+    return parts[0] if pre.comm_mode == 'inverse' else torch.cat(parts)
+
+
+def reshard_kfac_state(pre_old, pre_new, kfac_state, carry_decomp=False):
+    """Re-lay a K-FAC state from ``pre_old``'s plan into ``pre_new``'s
+    (both set up on the same layers), on the host. ``kfac_state`` is the
+    whole state: the world=1 state, or the list of every rank's states in
+    rank order. Returns the new world's state the same way (a list of
+    per-rank states when it has more than one rank).
+
+    The factor EMAs move row by row through both plans' per-layer row
+    maps (their true blocks; pads and new dummy rows start from the fresh
+    identity), and the step counter is kept. Decompositions restart at
+    zero, unless ``carry_decomp`` and both decompose by the same method:
+    then every layer's rows move whole (a row's decomposition belongs to
+    its identity-padded factor alone, so a whole-row move is exact; eigh
+    sorts the pad's unit eigenpairs in among the true ones, so a true
+    block could not be cut out). The E-KFAC moments are comm-mode shaped
+    and restart at zero, like the error-feedback residual."""
+    plan_o, plan_n = pre_old.plan, pre_new.plan
+    assert plan_o is not None and plan_n is not None, 'call setup() first'
+    sig_o = [(m.name, m.in_dim, m.out_dim) for m in plan_o.metas]
+    sig_n = [(m.name, m.in_dim, m.out_dim) for m in plan_n.metas]
+    if sig_o != sig_n:
+        raise ValueError('reshard_kfac_state needs the same layers (names '
+                         f'and dims): {sig_o} != {sig_n}')
+    states = (list(kfac_state) if isinstance(kfac_state, (list, tuple))
+              else [kfac_state])
+    if len(states) != plan_o.num_devices:
+        raise ValueError(f'{len(states)} states for a '
+                         f'{plan_o.num_devices}-rank plan')
+    dev = next(iter(states[0].factors.values())).device
+    old_f = {k: torch.cat([st.factors[k] for st in states])
+             for k in states[0].factors}
+    factors = {str(d): torch.eye(d, device=dev).repeat(
+        plan_n.buckets[d].n_rows, 1, 1) for d in plan_n.bucket_dims}
+    carry = carry_decomp and pre_old.method == pre_new.method
+    parts = ('evals', 'evecs') if pre_new.method == 'eigh' else ('invs',)
+    decomp = {p: {str(d): torch.zeros(
+        (plan_n.buckets[d].n_rows,) + ((d,) if p == 'evals' else (d, d)),
+        device=dev) for d in plan_n.bucket_dims} for p in parts}
+    old_d = {}
+    if carry:
+        old_d = {p: {k: _global_rows(pre_old, states,
+                                     lambda st, p=p, k=k: st.decomp[p][k])
+                     for k in states[0].decomp[p]} for p in parts}
+    with torch.no_grad():
+        for i, meta in enumerate(plan_o.metas):
+            ba_o, ra_o, bg_o, rg_o, _ = plan_o.layer_rows[i]
+            ba_n, ra_n, bg_n, rg_n, _ = plan_n.layer_rows[i]
+            da, dg = meta.in_dim, meta.out_dim
+            factors[str(ba_n)][ra_n, :da, :da] = \
+                old_f[str(ba_o)][ra_o, :da, :da]
+            factors[str(bg_n)][rg_n, :dg, :dg] = \
+                old_f[str(bg_o)][rg_o, :dg, :dg]
+            for p in old_d:
+                decomp[p][str(ba_n)][ra_n] = old_d[p][str(ba_o)][ra_o]
+                decomp[p][str(bg_n)][rg_n] = old_d[p][str(bg_o)][rg_o]
+    out = []
+    for r in range(plan_n.num_devices):
+        def mine(x, b, decomposition=False):
+            if decomposition and pre_new.comm_mode == 'inverse':
+                return x.clone()
+            per = plan_n.buckets[b].per_dev
+            return x[r * per:(r + 1) * per].clone()
+        dec = {p: {k: mine(v, int(k), True) for k, v in tree.items()}
+               for p, tree in decomp.items()}
+        if pre_new.method == 'eigh' and pre_new.ekfac:
+            dec['scales'] = pre_new._zero_scales(dev)
+        out.append(KFACState(
+            step=states[0].step,
+            factors={k: mine(v, int(k)) for k, v in factors.items()},
+            decomp=dec, comm_err=pre_new.zero_comm_err(dev)))
+    return out[0] if len(out) == 1 else out
 
 
 def find_resume_epoch(base_dir, max_epoch):

@@ -446,8 +446,11 @@ def test_ladder_properties_match_jax():
 def test_stagger_at_world_above_one_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match='item 15'):
         tkfac.KFAC(variant='eigen_dp', stagger=True, num_devices=2)
-    with pytest.raises(NotImplementedError, match='item 18'):
-        tkfac.KFAC(variant='ekfac_dp')
+    # E-KFAC (item 18) is ported; its replan to another world is not
+    pre = tkfac.KFAC(variant='ekfac_dp', bucket_fn=_bucket)
+    pre.setup(_metas(tcapture))
+    with pytest.raises(NotImplementedError, match='item 13'):
+        pre.replan(num_devices=2)
 
 
 def test_layer_meta_fields_match_jax():

@@ -57,6 +57,7 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
 LOSSY_STEPS = 3
+EKFAC_STEPS = 2
 
 
 class JMLP(linen.Module):
@@ -105,6 +106,8 @@ def _configs(world):
         cfgs += [_cfg('mlp', 'eigen', prec, impl, LOSSY_STEPS)
                  for impl in ((None, 'auto') if world == 2 else ('auto',))]
     if world == 2:
+        cfgs += [_cfg('mlp', v, steps=EKFAC_STEPS)
+                 for v in ('ekfac', 'ekfac_dp')]
         cfgs += [_cfg('mlp', 'eigen_dp'), _cfg('mlp', 'inverse_dp'),
                  _cfg('tiny', 'eigen', 'bf16'), _cfg('tiny', 'eigen', 'int8'),
                  _cfg('tiny', 'eigen_dp', 'bf16'), _cfg('tiny', 'inverse')]
@@ -378,6 +381,41 @@ def test_dp_owner_local_stats_match_jax_mesh(variant):
         assert out['steps'][0]['comm_err'] is None
 
 
+@pytest.mark.filterwarnings('ignore:ekfac variants')
+@pytest.mark.parametrize('variant', ['ekfac', 'ekfac_dp'])
+def test_ekfac_matches_jax_mesh(variant):
+    """E-KFAC at world 2 over fp32, two steps (the second rotates the
+    moments into a new basis): MPD 'ekfac' averages the moments over the
+    ranks (one all-reduce, every rank the same moments); 'ekfac_dp' keeps
+    each layer's moments on its owner, from the owner's own batch, and
+    moves no moment bytes."""
+    world = 2
+    (cfg, ranks), = _runs_of(_port_runs(world), model='mlp', variant=variant)
+    runs = _jax_mesh_run(cfg, world)
+    for r, out in enumerate(ranks):
+        for i, (want, state, plan) in enumerate(runs):
+            _assert_grads(out['steps'][i]['grads'], want,
+                          f'rank {r} step {i}')
+            for k, got in out['steps'][i]['scales'].items():
+                ref = state.decomp['scales'][k]
+                if variant == 'ekfac_dp':
+                    rows = got.shape[0]
+                    ref = ref[r * rows:(r + 1) * rows]
+                np.testing.assert_allclose(got, ref, rtol=1e-4,
+                                           atol=1e-5 * np.abs(ref).max())
+                assert np.any(got != 0)
+        scopes = [scope for scope, _, _, _ in out['ledger']]
+        moved = [sc for sc in scopes if 'scales' in sc]
+        if variant == 'ekfac':
+            assert moved == ['kfac.CommunicateFactor.scales']
+        else:
+            assert not moved, moved
+    if variant == 'ekfac':
+        for a, b in zip(ranks[0]['steps'], ranks[1]['steps']):
+            for k in a['scales']:
+                assert np.array_equal(a['scales'][k], b['scales'][k])
+
+
 def _norm(a, b):
     return float(np.sqrt(sum(((a[k] - b[k]) ** 2).sum() for k in a)))
 
@@ -484,8 +522,12 @@ def test_kfac_checks_the_group_size():
         pre.setup(tcapture.collect_layer_meta(workers.MLP(),
                                               torch.zeros(2, 5)))
         pre.step(pre.init('cpu'), {}, {}, {})
-    with pytest.raises(NotImplementedError, match='slice D'):
-        KFAC(variant='ekfac')
+    # the E-KFAC variants construct at any world; a replan at world>1 is
+    # the elastic lane's
+    pre = KFAC(variant='ekfac', num_devices=2)
+    pre.setup(tcapture.collect_layer_meta(workers.MLP(), torch.zeros(2, 5)))
+    with pytest.raises(NotImplementedError, match='item 13'):
+        pre.replan(comm_mode='pred')
 
 
 def test_shard_batch_and_init_retry():

@@ -11,6 +11,8 @@
    ``--num-devices`` > 1) raise without a GPU unless ``--device cpu``.
 5. The ImageNet trainer raises NotImplementedError, naming its ROADMAP
    item, for every flag of the JAX trainer whose feature is not ported.
+6. ``--kfac-name ekfac_dp`` reaches ``KFAC`` in both trainers, and
+   ``--kfac-stagger`` with E-KFAC raises.
 """
 
 import os
@@ -220,3 +222,23 @@ def test_imagenet_decomp_flags_reach_kfac(argv, attrs):
         pre = tkfac.KFAC(**train_imagenet.decomp_kwargs(args))
         for k, v in attrs.items():
             assert getattr(pre, k) == v, (mod.__name__, k)
+
+
+_TINY = {'train_cifar': ['--model', 'resnet20', '--batch-size', '8'],
+         'train_imagenet': ['--model', 'resnet18', '--img-size', '32',
+                            '--batch-size', '4', '--synthetic-size', '8']}
+
+
+@pytest.mark.parametrize('trainer', list(_TINY))
+@pytest.mark.filterwarnings('ignore:ekfac variants')
+def test_ekfac_reaches_kfac_in_both_trainers(trainer):
+    # --kfac-name ekfac_dp builds an E-KFAC preconditioner with moments in
+    # its state; --kfac-stagger with E-KFAC raises JAX's ValueError
+    import importlib
+    mod = importlib.import_module(f'kfac_pytorch_tpu_torch.{trainer}')
+    argv = ['--device', 'cpu', '--kfac-name', 'ekfac_dp', *_TINY[trainer]]
+    tr = mod.Trainer(mod.parse_args(argv))
+    assert tr.precond.variant == 'ekfac_dp' and tr.precond.ekfac
+    assert set(tr.state.kfac_state.decomp) == {'evals', 'evecs', 'scales'}
+    with pytest.raises(ValueError, match='stagger is not supported'):
+        mod.Trainer(mod.parse_args(argv + ['--kfac-stagger']))

@@ -78,8 +78,8 @@ def run_steps(rank, world, group, cfg):
     factor and inverse update: grads averaged over the group, then
     ``KFAC.step``. With ``cfg['sgd']`` the parameters take ``p -= lr *
     preconditioned grad`` after each step. Returns per step the
-    preconditioned grads, this rank's factor rows and residual (numpy) and
-    the loss; the first step's collectives as a ledger. ``cfg['phases']``
+    preconditioned grads, this rank's factor rows, residual and E-KFAC
+    moments (numpy) and the loss; the first step's collectives as a ledger. ``cfg['phases']``
     (one ``(update_basis, warm_basis)`` a step) drives the decomposition
     ladder (with ``cfg['decomp_impl']``/``cfg['basis_update_freq']``);
     then each step also returns the stored decomposition it started from
@@ -135,7 +135,10 @@ def run_steps(rank, world, group, cfg):
             'factors': {k: v.numpy().copy() for k, v in state.factors.items()},
             'comm_err': (None if state.comm_err is None else
                          {k: v.numpy().copy()
-                          for k, v in state.comm_err.items()})})
+                          for k, v in state.comm_err.items()}),
+            'scales': ({k: v.numpy().copy()
+                        for k, v in state.decomp['scales'].items()}
+                       if 'scales' in state.decomp else None)})
         if phases is not None:
             out['steps'][-1]['decomp_in'] = decomp_in
     return out
