@@ -73,7 +73,24 @@ launches:
   until its next inverse update); an ekfac_dp checkpoint resumed bitwise,
   the moments included. The world=2 phase adds MPD ``ekfac`` over the
   bf16 wire (K1/K2/K3 counts, replicas and moments bitwise across the
-  ranks) and ``ekfac_dp`` over fp32 with no moment collective.
+  ranks) and ``ekfac_dp`` over fp32 with no moment collective;
+- slice 11, in the world=2 phase: the staggered refresh at world=2
+  (``--kfac-update-freq 4 --kfac-stagger``) for ``eigen_dp`` over fp32
+  and MPD ``eigen`` over the bf16 wire, 8 steps each through the trainer:
+  K1/K2 (and K3 on the bf16 run) launch counts, finite losses, the ranks'
+  parameters bitwise equal every step and every stored decomposition row
+  outside the step's cohort bitwise kept; ``decomp_shard`` in lockstep
+  with owner-local stagger (one model's gradients and captures into both,
+  ``eigen_dp`` and ``eigen`` over fp32, 5 steps): the decompositions
+  compared every step (bitwise, or within ``SHARD_RTOL``/``SHARD_ATOL``)
+  with the largest gap printed, one sharded step's ``kfac.DecompComm``
+  bytes equal to ``comm_volume(decomp_shard=...)``, each rank's shard and
+  cohort row counts, the staggered K-FAC step's host ms and the
+  decompositions' CUDA-event ms a step for both layouts, all with two
+  processes sharing the card; ``comm_prefetch`` on MPD ``eigen``
+  (``--kfac-update-freq 3``, 7 steps): each prefetched update's
+  preconditioned gradients are the stored table's, it publishes the table
+  a plain update computes, and the next step reads that table.
 
 After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
 fp32 and bf16 inputs, K4, K5a and K5b at every head dim), the tensor-core
@@ -1281,6 +1298,27 @@ WORLD2_DP_STEPS = 6
 WORLD2_EKFAC = ['--kfac-name', 'ekfac', '--kfac-comm-precision', 'bf16',
                 '--kfac-capture-impl', 'auto']
 WORLD2_EKFAC_STEPS, WORLD2_EKFAC_DP_STEPS = 6, 3
+#: slice 11 at world=2: the staggered refresh (4 cohorts) of eigen_dp over
+#: fp32 and of MPD eigen over the bf16 wire (K3), WORLD2_STAGGER_STEPS steps
+WORLD2_STAGGER = {
+    'eigen_dp': ['--kfac-update-freq', '4', '--kfac-stagger',
+                 '--kfac-capture-impl', 'auto'],
+    'eigen bf16': ['--kfac-name', 'eigen', '--kfac-comm-precision', 'bf16',
+                   '--kfac-update-freq', '4', '--kfac-stagger',
+                   '--kfac-capture-impl', 'auto']}
+WORLD2_STAGGER_STEPS = 8
+#: decomp_shard in lockstep with owner-local stagger: a full
+#: decomposition, then one cohort a step
+WORLD2_SHARD_STEPS = 5
+#: sharded vs owner-local rows where they are not bitwise equal (cuSOLVER
+#: may take another routine for a batch of S_b matrices than of R_b):
+#: tests/test_stagger.py's tolerance, |got - want| <= ATOL + RTOL |want|
+SHARD_RTOL, SHARD_ATOL = 1e-5, 1e-6
+#: comm_prefetch on MPD eigen: decompositions at steps 0, 3 and 6, the
+#: last two prefetched
+WORLD2_PREFETCH = ['--kfac-name', 'eigen', '--kfac-comm-prefetch',
+                   '--kfac-update-freq', '3', '--kfac-capture-impl', 'auto']
+WORLD2_PREFETCH_STEPS = 7
 #: K3 inputs off the main path: element counts (odd, one, a vector group
 #: plus a tail) and whether the tensors start 4 bytes past an aligned
 #: address (the kernel's scalar path)
@@ -1518,6 +1556,9 @@ def world2_rank(rank, world, group):
     del tr
     out['ekfac'] = world2_ekfac(trainer, batches_of=lambda t: t.train_loader
                                 .epoch())
+    out['stagger'] = world2_stagger(trainer)
+    out['shard'] = world2_shard_lockstep(trainer, group)
+    out['prefetch'] = world2_prefetch(trainer)
     return out
 
 
@@ -1568,6 +1609,212 @@ def world2_ekfac(trainer, batches_of):
                    bool(torch.any(v != 0))
                    for v in tr.state.kfac_state.decomp['scales'].values()))
     return out
+
+
+def held_rows(pre, bdim):
+    """The global rows of bucket ``bdim`` that this rank's stored
+    decomposition holds (all in comm_mode 'inverse', its own in 'pred')."""
+    b = pre.plan.buckets[bdim]
+    if pre.comm_mode == 'inverse':
+        return list(range(b.n_rows))
+    r = torch.distributed.get_rank(pre.group)
+    return list(range(r * b.per_dev, (r + 1) * b.per_dev))
+
+
+def untouched_kept(pre, before, after, cohort):
+    """Whether every stored decomposition row outside ``cohort`` kept its
+    bits from ``before`` to ``after``."""
+    for bdim in pre.plan.bucket_dims:
+        b = pre.plan.buckets[bdim]
+        rows = pre.cohorts.rows[bdim][cohort]
+        valid = pre.cohorts.valid[bdim][cohort]
+        touched = {d * b.per_dev + int(j) for d in range(rows.shape[0])
+                   for j, v in zip(rows[d], valid[d]) if v}
+        keep = [i for i, g in enumerate(held_rows(pre, bdim))
+                if g not in touched]
+        for part in ('evals', 'evecs'):
+            if not torch.equal(before[part][str(bdim)][keep],
+                               after[part][str(bdim)][keep]):
+                return False
+    return True
+
+
+def world2_stagger(trainer):
+    """Slice 11 at world=2 (one rank): each WORLD2_STAGGER run through the
+    trainer for WORLD2_STAGGER_STEPS steps: launches, losses, the replicas
+    and the decomposition each step ran, and on every staggered step
+    whether the rows outside its cohort kept their bits."""
+    out = {}
+    for name, extra in WORLD2_STAGGER.items():
+        tr = trainer(extra)
+        it = tr.train_loader.epoch()
+        reset_counts()
+        run = {'losses': [], 'replicas_agree': [], 'decomps': [],
+               'untouched_kept': []}
+        for _ in range(WORLD2_STAGGER_STEPS):
+            ks = tr.state.kfac_state
+            cohort = ks.step % tr.precond.cohorts.num_cohorts
+            run['losses'].append(float(tr.train_step(next(it))['loss']))
+            run['replicas_agree'].append(tr.replicas_agree())
+            run['decomps'].append(tr.step_fn.last_decomp)
+            if tr.step_fn.last_decomp == 'cohort':
+                run['untouched_kept'].append(untouched_kept(
+                    tr.precond, ks.decomp, tr.state.kfac_state.decomp,
+                    cohort))
+        run['launches'] = read_counts()
+        out[name] = run
+        del tr
+    return out
+
+
+def decomp_close(got, want):
+    """``(bitwise, within, worst)`` of two stored decompositions: bit for
+    bit equal; every element within SHARD_ATOL + SHARD_RTOL |want|; the
+    largest |got - want| relative to its tensor's largest entry."""
+    bitwise, within, worst = True, True, 0.0
+    for part in ('evals', 'evecs'):
+        for k, w in want[part].items():
+            g = got[part][k]
+            bitwise = bitwise and torch.equal(g, w)
+            within = within and torch.allclose(g, w, rtol=SHARD_RTOL,
+                                               atol=SHARD_ATOL)
+            worst = max(worst, grad_gap({k: g}, {k: w})[0])
+    return bitwise, within, worst
+
+
+def world2_shard_lockstep(trainer, group):
+    """Slice 11 at world=2 (one rank): for eigen_dp and eigen over fp32,
+    the same gradients and captures of one model into two preconditioners,
+    owner-local stagger and ``decomp_shard`` (4 cohorts), for
+    WORLD2_SHARD_STEPS steps: the decompositions compared each step, one
+    sharded step's DecompComm bytes beside ``comm_volume``, host ms of
+    each staggered K-FAC step (synchronized; gloo gathers included) and
+    the CUDA-event ms of the decompositions a rank runs a step
+    (``sym_eig`` over ``R_b`` rows a bucket owner-local, ``S_b`` sharded;
+    L2 flushed, host not hidden), with two processes sharing the card."""
+    from kfac_pytorch_tpu_torch import capture, ops
+    from kfac_pytorch_tpu_torch.parallel import collectives as coll
+    from kfac_pytorch_tpu_torch.preconditioner import KFACHyperParams
+    rank = torch.distributed.get_rank(group)
+    out = {}
+    for variant in ('eigen_dp', 'eigen'):
+        base = ['--kfac-name', variant, '--kfac-update-freq', '4',
+                '--kfac-capture-impl', 'auto']
+        owner = trainer(base + ['--kfac-stagger'])
+        shard = trainer(base + ['--kfac-decomp-shard'])
+        model = owner.state.model
+        params = dict(model.named_parameters())
+        states = [owner.state.kfac_state, shard.state.kfac_state]
+        it = owner.train_loader.epoch()
+        run = {'close': [], 'grad_gap': [], 'step_ms': [[], []]}
+        for i in range(WORLD2_SHARD_STEPS):
+            batch = owner.to_device(next(it))
+            model.zero_grad(set_to_none=True)
+            with capture.Capture(model, owner.precond.plan.metas) as cap:
+                outp = model(batch['input'].permute(0, 3, 1, 2))
+                torch.nn.functional.cross_entropy(
+                    outp, batch['label']).backward()
+            grads = coll.average_grads(
+                {k: p.grad for k, p in params.items()}, group)
+            kw = dict(hyper=KFACHyperParams(lr=owner.lr_fn(i),
+                                            damping=owner.precond.damping))
+            kw.update({'stagger_update': True} if i
+                      else {'update_inverse': True})
+            pgs = []
+            for j, t in enumerate((owner, shard)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with coll.ledger() as led:
+                    pg, states[j] = t.precond.step(states[j], grads,
+                                                   cap.acts, cap.gs, **kw)
+                torch.cuda.synchronize()
+                if i:
+                    run['step_ms'][j].append(
+                        (time.perf_counter() - t0) * 1e3)
+                if i == 1 and j == 1:
+                    run['decomp_comm'] = sum(n for scope, _, _, n in led
+                                             if scope == 'kfac.DecompComm')
+                pgs.append(pg)
+            owner.tx.apply(params, pgs[0], owner.state.opt_state, i)
+            run['close'].append(decomp_close(states[1].decomp,
+                                             states[0].decomp))
+            run['grad_gap'].append(grad_gap(pgs[1], pgs[0])[0])
+        sp, op_ = shard.precond, owner.precond
+        run['decomp_comm_want'] = sp.plan.comm_volume(
+            stats_reduce=sp.stats_reduce, method=sp.method,
+            comm_precision=sp.comm_precision,
+            decomp_shard=sp.decomp_shard_plan)['DecompComm']
+        run['shard_count'] = sp.decomp_shard_plan.shard_count[:, rank] \
+            .tolist()
+        run['cohort_count'] = op_.cohorts.cohort_count[rank].tolist()
+        rows = {'owner': {b: op_.cohorts.rows[b].shape[2]
+                          for b in op_.plan.bucket_dims},
+                'shard': {b: sp.decomp_shard_plan.shard_rows(b)
+                          for b in sp.plan.bucket_dims}}
+        run['rows'] = {k: {str(b): n for b, n in v.items()}
+                       for k, v in rows.items()}
+        run['eigh_ms'] = {}
+        for name, per in rows.items():
+            xs = [states[0].factors[str(b)][:n] for b, n in per.items()]
+            # eigh waits on its error flags on the host: no spin hides it
+            run['eigh_ms'][name] = time_ms(
+                lambda: [ops.sym_eig(x) for x in xs], reps=5,
+                hide_host=False)
+        out[variant] = run
+        del owner, shard, model, params, states
+    return out
+
+
+def world2_prefetch(trainer):
+    """Slice 11 at world=2 (one rank): WORLD2_PREFETCH through the trainer
+    for WORLD2_PREFETCH_STEPS steps, ``KFAC.step`` spied on: a prefetched
+    update's preconditioned gradients must be those of the stored table
+    (the same call without its inverse update), differ from those of the
+    fresh one, and publish the table the same update computes without
+    prefetch; the next step must read that table and precondition with
+    it. Returns each step's ``last_prefetch`` and the checks."""
+    import dataclasses
+    tr = trainer(WORLD2_PREFETCH)
+    pre = tr.precond
+    real = pre.step
+    checks, pending = [], {}
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in b)
+
+    def spy(state, grads, acts=None, gs=None, **kw):
+        pg, new = real(state, grads, acts, gs, **kw)
+        if 'fresh' in pending:
+            fresh = pending.pop('fresh')
+            ref, _ = real(dataclasses.replace(state, decomp=fresh), grads,
+                          acts, gs, **kw)
+            checks.append(('next', all(same(state.decomp[p], fresh[p])
+                                       for p in fresh) and same(pg, ref)))
+        if kw.get('prefetch'):
+            stale, _ = real(state, grads, acts, gs,
+                            **{**kw, 'prefetch': False,
+                               'update_inverse': False})
+            full, full_state = real(state, grads, acts, gs,
+                                    **{**kw, 'prefetch': False})
+            checks.append(('prefetch', same(pg, stale)
+                           and not same(pg, full)
+                           and all(same(new.decomp[p], full_state.decomp[p])
+                                   for p in full_state.decomp)))
+            pending['fresh'] = full_state.decomp
+        return pg, new
+
+    pre.step = spy
+    it = tr.train_loader.epoch()
+    prefetched, losses, agree = [], [], []
+    try:
+        for _ in range(WORLD2_PREFETCH_STEPS):
+            losses.append(float(tr.train_step(next(it))['loss']))
+            prefetched.append(tr.step_fn.last_prefetch)
+            agree.append(tr.replicas_agree())
+    finally:
+        del pre.step
+    return {'prefetched': prefetched, 'checks': checks, 'losses': losses,
+            'replicas_agree': agree}
 
 
 def nccl_rank(rank, world, group):
@@ -1622,8 +1869,8 @@ def nccl_rank(rank, world, group):
 
 def run_world2():
     """The world=2 phases (:func:`world2_rank`) on two ranks over gloo,
-    checked. Returns the launch counts of the eigen bf16 run (both ranks)
-    and rank 0's step times."""
+    checked. Returns the launch counts (both ranks) of the eigen bf16 run
+    and of the two staggered runs, by path, and rank 0's outputs."""
     from kfac_pytorch_tpu_torch import launch
     t0 = time.perf_counter()
     outs = launch.spawn(world2_rank, 2, backend='gloo', timeout=600)
@@ -1694,8 +1941,12 @@ def run_world2():
           f'bitwise equal, no residual; phase {time.perf_counter() - t0:.1f}'
           ' s', flush=True)
     check_world2_ekfac(outs, nb, conv, dense)
+    check_world2_slice11(outs, nb, conv, dense)
     total = {k: sum(out['launches'][k] for out in outs) for k in want}
-    return total, o
+    stagger = {k: sum(out['stagger'][name]['launches'][k] for out in outs
+                      for name in WORLD2_STAGGER) for k in want}
+    return {'resnet32_world2_eigen_bf16': total,
+            'resnet32_world2_stagger': stagger}, o
 
 
 def check_world2_ekfac(outs, nb, conv, dense):
@@ -1733,6 +1984,92 @@ def check_world2_ekfac(outs, nb, conv, dense):
           f'equal, collectives of its last step by scope '
           f'{sorted(set(c[0] for c in e[0]["dp_collectives"]))} (no moment '
           f'bytes)', flush=True)
+
+
+def check_world2_slice11(outs, nb, conv, dense):
+    """Slice 11's world=2 checks on both ranks' staggered runs, sharded
+    lockstep and prefetched run."""
+    n = WORLD2_STAGGER_STEPS
+    for name in WORLD2_STAGGER:
+        want = {'K1 conv_a': conv * n, 'K2 stat_rows': (conv + 2 * dense) * n,
+                'K3 ef_quantize': nb * n if 'bf16' in name else 0,
+                'K4 flash_fwd': 0, 'K5a flash_bwd_dq': 0,
+                'K5b flash_bwd_dkv': 0}
+        runs = [o['stagger'][name] for o in outs]
+        for r, o in enumerate(runs):
+            if o['launches'] != want:
+                fail(f'world2 stagger {name} rank {r}: kernel launches '
+                     f'{o["launches"]}, expected {want}')
+            if not all(np.isfinite(o['losses'])):
+                fail(f'world2 stagger {name} rank {r}: non-finite loss')
+            if not all(o['replicas_agree']):
+                fail(f'world2 stagger {name} rank {r}: the ranks\' '
+                     'parameters differ')
+            if o['decomps'] != ['full'] + ['cohort'] * (n - 1):
+                fail(f'world2 stagger {name} rank {r}: decompositions '
+                     f'{o["decomps"]}')
+            if not all(o['untouched_kept']):
+                fail(f'world2 stagger {name} rank {r}: a row outside the '
+                     f'cohort changed: {o["untouched_kept"]}')
+        if runs[0]['losses'] != runs[1]['losses']:
+            fail(f'world2 stagger {name}: the ranks report different '
+                 'losses')
+        print(f'world2 slice 11 stagger (4 cohorts) resnet32 {name} '
+              f'capture_impl=auto, {n} steps, losses '
+              f'{[round(x, 4) for x in runs[0]["losses"]]}, launches per '
+              f'rank {runs[0]["launches"]}, replicas bitwise equal, rows '
+              'outside each cohort bitwise kept', flush=True)
+    for variant in outs[0]['shard']:
+        runs = [o['shard'][variant] for o in outs]
+        for r, o in enumerate(runs):
+            for i, (bitwise, within, worst) in enumerate(o['close']):
+                if not (bitwise or within):
+                    fail(f'world2 decomp_shard {variant} rank {r} step {i}: '
+                         f'the sharded decomposition parts from the '
+                         f'owner-local one by {worst:.3e} of a tensor\'s '
+                         f'largest entry (rtol {SHARD_RTOL}, atol '
+                         f'{SHARD_ATOL})')
+            if o['decomp_comm'] != o['decomp_comm_want']:
+                fail(f'world2 decomp_shard {variant} rank {r}: DecompComm '
+                     f'{o["decomp_comm"]} bytes, comm_volume '
+                     f'{o["decomp_comm_want"]}')
+            bitwise = all(c[0] for c in o['close'])
+            print(f'world2 slice 11 decomp_shard {variant} rank {r} (two '
+                  f'processes on one card, gloo): lockstep with owner-local '
+                  f'stagger {WORLD2_SHARD_STEPS} steps, decompositions '
+                  f'{"bitwise equal" if bitwise else "within tolerance"}, '
+                  f'largest gap {max(c[2] for c in o["close"]):.3e}, '
+                  f'preconditioned grads largest gap '
+                  f'{max(o["grad_gap"]):.3e}; rows a step by cohort: '
+                  f'sharded {o["shard_count"]}, owner-local '
+                  f'{o["cohort_count"]}; padded rows a bucket '
+                  f'{json.dumps(o["rows"])}; staggered K-FAC step host ms '
+                  f'median owner-local '
+                  f'{float(np.median(o["step_ms"][0])):.2f}, sharded '
+                  f'{float(np.median(o["step_ms"][1])):.2f}; decomposition '
+                  f'event ms a step owner-local '
+                  f'{o["eigh_ms"]["owner"]:.3f}, sharded '
+                  f'{o["eigh_ms"]["shard"]:.3f}; DecompComm '
+                  f'{o["decomp_comm"]} bytes = comm_volume', flush=True)
+    p = [o['prefetch'] for o in outs]
+    want = [False, False, False, True, False, False, True]
+    for r, o in enumerate(p):
+        if o['prefetched'] != want[:WORLD2_PREFETCH_STEPS]:
+            fail(f'world2 comm_prefetch rank {r}: prefetched '
+                 f'{o["prefetched"]}')
+        kinds = [k for k, _ in o['checks']]
+        if kinds != ['prefetch', 'next', 'prefetch'] or \
+                not all(ok for _, ok in o['checks']):
+            fail(f'world2 comm_prefetch rank {r}: checks {o["checks"]}')
+        if not (all(np.isfinite(o['losses'])) and all(o['replicas_agree'])):
+            fail(f'world2 comm_prefetch rank {r}: non-finite loss or the '
+                 'ranks differ')
+    print(f'world2 slice 11 comm_prefetch resnet32 eigen fp32 '
+          f'kfac_update_freq 3, {WORLD2_PREFETCH_STEPS} steps, losses '
+          f'{[round(x, 4) for x in p[0]["losses"]]}, prefetched '
+          f'{p[0]["prefetched"]}: each prefetched step preconditioned '
+          'with the stored table and published the fresh one, which the '
+          'next step read (bitwise)', flush=True)
 
 
 def run_nccl():
@@ -3136,8 +3473,7 @@ def main():
 
     kernels = kernel_summary(rows, {'resnet32': launches,
                                     'transformer_lm': lm_launches,
-                                    'resnet32_world2_eigen_bf16':
-                                        w2_launches})
+                                    **w2_launches})
     kernels += kernel_summary(r50_rows, {'resnet50': r50_launches},
                               names=('K1 conv_a', 'K2 stat_rows'),
                               suffix=' (resnet50 bf16)')

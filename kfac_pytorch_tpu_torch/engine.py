@@ -9,6 +9,8 @@
                            of this rank's factor rows, cold or warm
   refresh_decomposition    eigenvalues only, in the retained basis
   compute/merge_cohort_decomposition   one staggered cohort's rows
+  compute/merge_shard_decomposition    the same cohort decomposed
+                           balanced across every rank (decomp_shard)
   gather_decomposition     all-gather of the decomposition (comm_inverse)
   update_ekfac_scales(_local) / rotate_ekfac_scales(_local)
                            E-KFAC moments in the eigenbasis and their
@@ -338,14 +340,16 @@ def local_evecs(plan, decomp, group, comm_mode):
     never-decomposed (all-zero) row as the identity: a warm request on a
     fresh state then degrades to a cold decomposition instead of rotating
     into a zero basis."""
-    out = {}
-    for key, q in _local_rows(plan, decomp['evecs'], group,
-                              comm_mode).items():
-        valid = torch.any((q != 0).flatten(1), dim=1)[:, None, None]
-        out[key] = torch.where(valid, q, torch.eye(q.shape[-1],
-                                                   dtype=q.dtype,
-                                                   device=q.device))
-    return out
+    return {key: _zero_rows_as_identity(q) for key, q in
+            _local_rows(plan, decomp['evecs'], group, comm_mode).items()}
+
+
+def _zero_rows_as_identity(q):
+    """``[rows, D, D]`` with every all-zero (never decomposed) row
+    replaced by the identity."""
+    valid = torch.any((q != 0).flatten(1), dim=1)[:, None, None]
+    return torch.where(valid, q, torch.eye(q.shape[-1], dtype=q.dtype,
+                                           device=q.device))
 
 
 def local_invs(plan, decomp, group, comm_mode):
@@ -387,6 +391,37 @@ def _cohort_rows(tbl, cohort_idx, group, device):
     return _long(tbl[cohort_idx, coll.axis_index(group)], device)
 
 
+def _cohort_sel(plan, cohorts, cohort_idx, group, device):
+    """Per bucket, this rank's local rows of cohort ``cohort_idx``."""
+    return {bdim: _cohort_rows(cohorts.rows[bdim], cohort_idx, group, device)
+            for bdim in plan.bucket_dims}
+
+
+def _damped_cohort_factors(plan, cohorts, factors_local, sel, cohort_idx,
+                           damping, method, group):
+    """This rank's cohort factor rows (``sel``), damped as the cohort
+    decomposition damps them: the Cholesky path pi-damps with the traces
+    of all local rows, as the full path would; eigh rows go out raw (the
+    eigh path damps in the pred denominators). The sharded exchange sends
+    these matrices, so a remote decomposition sees the owner's bits."""
+    flat_avg = None
+    if method != 'eigh':
+        flat_avg = _local_trace_avgs(plan, factors_local, group)
+    out = {}
+    for bdim in plan.bucket_dims:
+        key = _key(bdim)
+        f = factors_local[key][sel[bdim]]
+        if flat_avg is not None:
+            dev = f.device
+            own = _cohort_rows(cohorts.own_flat[bdim], cohort_idx, group, dev)
+            mate = _cohort_rows(cohorts.mate_flat[bdim], cohort_idx, group,
+                                dev)
+            f = ops.add_scaled_identity(
+                f, torch.sqrt(damping * flat_avg[own] / flat_avg[mate]))
+        out[key] = f
+    return out
+
+
 def compute_cohort_decomposition(plan, cohorts, factors_local, cohort_idx,
                                  damping, method, eps, group=None,
                                  impl=None, decomp_prev=None,
@@ -396,13 +431,14 @@ def compute_cohort_decomposition(plan, cohorts, factors_local, cohort_idx,
     ``per_dev``. Returns cohort-shaped components for
     :func:`merge_cohort_decomposition`; padding rows decompose a real
     row whose result the merge discards. The Cholesky path damps with
-    the traces of all local rows, as the full path would. With an
-    iterative ``impl`` and the stored ``decomp_prev`` (in ``comm_mode``'s
-    layout) the rows warm-start from their own stored basis or
-    inverse."""
+    the traces of all local rows, as the full path would
+    (:func:`_damped_cohort_factors`). With an iterative ``impl`` and the
+    stored ``decomp_prev`` (in ``comm_mode``'s layout) the rows
+    warm-start from their own stored basis or inverse."""
     dev = next(iter(factors_local.values())).device
-    sel = {bdim: _cohort_rows(cohorts.rows[bdim], cohort_idx, group, dev)
-           for bdim in plan.bucket_dims}
+    sel = _cohort_sel(plan, cohorts, cohort_idx, group, dev)
+    rows = _damped_cohort_factors(plan, cohorts, factors_local, sel,
+                                  cohort_idx, damping, method, group)
     if method == 'eigh':
         basis_local = None
         if (impl in ('subspace', 'jacobi', 'auto')
@@ -413,8 +449,7 @@ def compute_cohort_decomposition(plan, cohorts, factors_local, cohort_idx,
             key = _key(bdim)
             basis = (None if basis_local is None
                      else basis_local[key][sel[bdim]])
-            d, q = ops.sym_eig(factors_local[key][sel[bdim]], impl=impl,
-                               basis=basis,
+            d, q = ops.sym_eig(rows[key], impl=impl, basis=basis,
                                sweeps=warm_sweeps if basis is not None
                                else None)
             evals[key] = ops.clamp_eigvals(d, eps)
@@ -424,22 +459,123 @@ def compute_cohort_decomposition(plan, cohorts, factors_local, cohort_idx,
     invs_prev = None
     if impl == 'newton_schulz' and decomp_prev is not None:
         invs_prev = local_invs(plan, decomp_prev, group, comm_mode)
-    flat_avg = _local_trace_avgs(plan, factors_local, group)
     invs = {}
     for bdim in plan.bucket_dims:
         key = _key(bdim)
-        own = _cohort_rows(cohorts.own_flat[bdim], cohort_idx, group, dev)
-        mate = _cohort_rows(cohorts.mate_flat[bdim], cohort_idx, group, dev)
-        damp_vec = torch.sqrt(damping * flat_avg[own] / flat_avg[mate])
-        damped = ops.add_scaled_identity(factors_local[key][sel[bdim]],
-                                         damp_vec)
         if invs_prev is None:
-            invs[key] = ops.psd_inverse(damped)
+            invs[key] = ops.psd_inverse(rows[key])
         else:
-            invs[key] = ops.warm_inverse(damped, invs_prev[key][sel[bdim]],
+            invs[key] = ops.warm_inverse(rows[key], invs_prev[key][sel[bdim]],
                                          iters=_ns_iters(warm_sweeps),
                                          accept_resid=NS_ACCEPT_RESID)
     return {'invs': invs}
+
+
+def compute_shard_decomposition(plan, cohorts, shard, factors_local,
+                                cohort_idx, damping, method, eps,
+                                group=None, impl=None, decomp_prev=None,
+                                comm_mode=None, warm_sweeps=None,
+                                comm_precision='fp32'):
+    """The sharded cohort decomposition (``plan.build_decomp_shard``):
+    every owner damps its cohort rows (:func:`_damped_cohort_factors`),
+    the cohort is all-gathered (``kfac.DecompComm``, ``P * R_b`` matrices
+    a bucket) and this rank decomposes the ``S_b`` gathered slots its
+    shard table names. Returns this rank's results, ``[S_b, ...]`` per
+    bucket, for :func:`merge_shard_decomposition`.
+
+    Warm seeds for an iterative ``impl`` come from the stored
+    decomposition through ``src_global`` only in comm_mode 'inverse',
+    where every rank holds every row; under 'pred' the stored rows are
+    the owners', so the shard path always runs the cold kernel."""
+    dev = next(iter(factors_local.values())).device
+    sel = _cohort_sel(plan, cohorts, cohort_idx, group, dev)
+    damped = _damped_cohort_factors(plan, cohorts, factors_local, sel,
+                                    cohort_idx, damping, method, group)
+    warm = (decomp_prev is not None and comm_mode == 'inverse'
+            and impl in (('subspace', 'jacobi', 'auto') if method == 'eigh'
+                         else ('newton_schulz',)))
+    out_d, out_q, out_i = {}, {}, {}
+    for bdim in plan.bucket_dims:
+        key = _key(bdim)
+        gathered = coll.decomp_exchange_gather(damped[key], group,
+                                               comm_precision)
+        mine = gathered[_cohort_rows(shard.src[bdim], cohort_idx, group,
+                                     dev)]
+        if warm:
+            rows = _cohort_rows(shard.src_global[bdim], cohort_idx, group,
+                                dev)
+        if method == 'eigh':
+            basis = (_zero_rows_as_identity(decomp_prev['evecs'][key][rows])
+                     if warm else None)
+            d, q = ops.sym_eig(mine, impl=impl, basis=basis,
+                               sweeps=warm_sweeps if warm else None)
+            out_d[key] = ops.clamp_eigvals(d, eps)
+            out_q[key] = q
+        elif warm:
+            out_i[key] = ops.warm_inverse(mine, decomp_prev['invs'][key][rows],
+                                          iters=_ns_iters(warm_sweeps),
+                                          accept_resid=NS_ACCEPT_RESID)
+        else:
+            out_i[key] = ops.psd_inverse(mine)
+    if method == 'eigh':
+        return {'evals': out_d, 'evecs': out_q}
+    return {'invs': out_i}
+
+
+def merge_shard_decomposition(plan, shard, decomp_stored, shard_new,
+                              cohort_idx, group, comm_mode, method,
+                              guard=True, comm_precision='fp32'):
+    """Return the sharded cohort's results to their stored rows: the
+    results are all-gathered (the second ``kfac.DecompComm`` leg) and
+    every stored row gathers its fresh value through ``res_slot``; rows
+    outside the cohort keep their stored bits. A merge by gather: no two
+    writes meet. Under comm_mode 'pred' the tables are reshaped to ``[F,
+    P, per_dev]`` and this rank takes its own block. With ``guard`` a row
+    whose fresh value is not finite keeps its stored value (evals and
+    evecs commit together, or not at all)."""
+    P = plan.num_devices
+    part = 'evals' if method == 'eigh' else 'invs'
+    dev = next(iter(decomp_stored[part].values())).device
+
+    def tables(bdim):
+        slots = shard.res_slot[bdim][cohort_idx]
+        valid = shard.res_valid[bdim][cohort_idx]
+        if comm_mode != 'inverse':
+            idx = coll.axis_index(group)
+            slots, valid = slots.reshape(P, -1)[idx], valid.reshape(P, -1)[idx]
+        return _long(slots, dev), torch.as_tensor(valid, device=dev)
+
+    def pick(ok, fresh, stored):
+        return torch.where(ok.reshape(ok.shape + (1,) * (stored.ndim - 1)),
+                           fresh, stored)
+
+    def gather(x):
+        return coll.decomp_exchange_gather(x, group, comm_precision)
+
+    out = dict(decomp_stored)
+    if method == 'eigh':
+        new_d, new_q = {}, {}
+        for bdim in plan.bucket_dims:
+            key = _key(bdim)
+            slots, ok = tables(bdim)
+            fresh_d = gather(shard_new['evals'][key])[slots]
+            fresh_q = gather(shard_new['evecs'][key])[slots]
+            if guard:
+                ok = ok & _rows_finite(fresh_d) & _rows_finite(fresh_q)
+            new_d[key] = pick(ok, fresh_d, decomp_stored['evals'][key])
+            new_q[key] = pick(ok, fresh_q, decomp_stored['evecs'][key])
+        out['evals'], out['evecs'] = new_d, new_q
+        return out
+    new_i = {}
+    for bdim in plan.bucket_dims:
+        key = _key(bdim)
+        slots, ok = tables(bdim)
+        fresh = gather(shard_new['invs'][key])[slots]
+        if guard:
+            ok = ok & _rows_finite(fresh)
+        new_i[key] = pick(ok, fresh, decomp_stored['invs'][key])
+    out['invs'] = new_i
+    return out
 
 
 def merge_cohort_decomposition(plan, cohorts, decomp_stored, cohort_new,

@@ -285,3 +285,12 @@ def all_gather_rows_compressed(x, group, comm_precision='fp32'):
     q, scale = quantize_rows(x)
     return dequantize_rows(_all_gather(q, group), _all_gather(scale, group),
                            x.dtype)
+
+
+def decomp_exchange_gather(x, group, comm_precision='fp32'):
+    """The sharded decomposition's exchange: :func:`all_gather_rows_compressed`
+    under the ``kfac.DecompComm`` scope, so :func:`ledger` counts both legs
+    (the damped cohort out, the results back) under that name, as
+    ``FactorPlan.comm_volume(decomp_shard=...)`` prices them."""
+    with named_scope('kfac.DecompComm'):
+        return all_gather_rows_compressed(x, group, comm_precision)

@@ -100,7 +100,7 @@ class FactorPlan:
         return len(self.metas)
 
     def comm_volume(self, *, stats_reduce, method, comm_precision='fp32',
-                    comm_mode=None):
+                    comm_mode=None, decomp_shard=None):
         """Payload bytes of the K-FAC collectives of ONE factor + inverse
         step on ONE rank under this layout, per phase:
 
@@ -112,7 +112,13 @@ class FactorPlan:
           eigh) in the gather wire dtype, int8 adding a 4-byte scale per
           row;
         - PredComm: the preconditioned-gradient gather (comm_mode 'pred'):
-          ``P * K`` padded ``[dg, da]`` matrices per pred group.
+          ``P * K`` padded ``[dg, da]`` matrices per pred group;
+        - DecompComm: the sharded decomposition's exchange (``decomp_shard``,
+          a :class:`DecompShardPlan`) of one step: the damped cohort out
+          (``P * R_b`` matrices a bucket) and the results back (``P * S_b``
+          matrices, and the eigenvalue vectors for eigh). 0 without a
+          shard plan; with one, InverseComm is 0: the exchange replaces
+          the staggered merge's gather.
 
         ``comm_mode`` overrides the plan's own (both roads priced from one
         layout). The gradient all-reduce is not a K-FAC collective and is
@@ -123,7 +129,7 @@ class FactorPlan:
         reduce_wire = int(4 * coll.WIRE_COMPRESSION[
             coll.reduce_wire_dtype(comm_precision)])
         scale_b = 4 if comm_precision == 'int8' else 0
-        factor = inverse = pred = 0
+        factor = inverse = pred = decomp = 0
         if stats_reduce == 'pmean':
             factor = sum(b.per_dev * b.dim * b.dim * reduce_wire
                          for b in self.buckets.values())
@@ -149,8 +155,17 @@ class FactorPlan:
                                    for d in range(self.num_devices)))
                 pred += self.num_devices * k * (pg.dg * pg.da * wire
                                                 + scale_b)
+        if decomp_shard is not None:
+            inverse = 0
+            P = self.num_devices
+            for bdim in self.bucket_dims:
+                r_b = decomp_shard.gather_rows(bdim)
+                s_b = decomp_shard.shard_rows(bdim)
+                decomp += P * (r_b + s_b) * (bdim * bdim * wire + scale_b)
+                if method == 'eigh':
+                    decomp += P * s_b * (bdim * wire + scale_b)
         return {'FactorComm': factor, 'InverseComm': inverse,
-                'PredComm': pred}
+                'PredComm': pred, 'DecompComm': decomp}
 
 
 def _slot_cost(dim):
@@ -494,3 +509,105 @@ def build_cohorts(plan: FactorPlan, num_cohorts: int,
                       own_flat=own_flat, mate_flat=mate_flat,
                       cohort_cost=cohort_cost, cohort_count=cohort_count,
                       base_freq=F, bucket_freq=bucket_freq)
+
+
+@dataclasses.dataclass
+class DecompShardPlan:
+    """Sharded decomposition layout: each cohort's rows decomposed
+    balanced across all ``P`` ranks instead of by their owner. For cohort
+    ``f`` the owners' damped cohort rows are all-gathered (rank d's slot
+    j at flat index ``d*R_b + j``), rank p decomposes the ``S_b``
+    gathered slots ``src[f, p]`` names, the results are all-gathered back
+    (rank p's slot j at ``p*S_b + j``) and each stored row gathers its
+    fresh value through ``res_slot``: a merge by gather, so no two writes
+    meet. A rank's padded work a step drops from ``sum_b R_b D^3``
+    (owner-local) to ``sum_b S_b D^3``, for the two DecompComm gathers
+    (:meth:`FactorPlan.comm_volume`)."""
+    num_cohorts: int
+    # per bucket dim, [F, P, S_b]: index into the gathered cohort
+    # [P*R_b] that rank p decomposes on cohort f, and whether it is real
+    src: Dict[int, np.ndarray]
+    src_valid: Dict[int, np.ndarray]
+    # [F, P, S_b]: the stored global row each src slot refreshes (padding
+    # at row 0): the warm seeds under comm_mode 'inverse'
+    src_global: Dict[int, np.ndarray]
+    # [F, n_rows]: where each stored global row's fresh value sits in the
+    # result gather [P*S_b], and whether the row is in the cohort
+    res_slot: Dict[int, np.ndarray]
+    res_valid: Dict[int, np.ndarray]
+    shard_cost: np.ndarray              # [F, P] sum of bucket_dim^3
+    shard_count: np.ndarray             # [F, P] valid rows assigned
+    # per bucket dim: R_b, the rows a rank sends in the cohort gather
+    cohort_rows: Dict[int, int] = dataclasses.field(default_factory=dict)
+
+    def gather_rows(self, bdim):
+        """R_b: rows a rank sends in the damped-cohort gather."""
+        return self.cohort_rows[bdim]
+
+    def shard_rows(self, bdim):
+        """S_b: rows a rank decomposes (and sends back)."""
+        return self.src[bdim].shape[2]
+
+    def max_rows_per_step(self):
+        """Most real rows one rank decomposes in one step."""
+        return int(self.shard_count.max()) if self.shard_count.size else 0
+
+    def padded_rows_per_step(self):
+        """Rows a rank decomposes every step, padding included
+        (``sum_b S_b``)."""
+        return int(sum(t.shape[2] for t in self.src.values()))
+
+
+def build_decomp_shard(plan: FactorPlan,
+                       cohorts: CohortPlan) -> DecompShardPlan:
+    """Spread every cohort's valid rows over all ranks: per (cohort,
+    bucket) round robin in owner-major order from start rank ``(f +
+    b_idx) % P``, so ``S_b = ceil(cohort rows of b / P)`` and the
+    remainders rotate instead of piling onto rank 0. Padding slots point
+    at gathered slot 0 (a real matrix); no ``res_slot`` points at their
+    results."""
+    F, P = cohorts.num_cohorts, plan.num_devices
+    shard_cost = np.zeros((F, P), dtype=np.float64)
+    shard_count = np.zeros((F, P), dtype=np.int64)
+    # bucket -> [cohort][rank] -> [(gathered slot, stored global row)]
+    assigned = {b: [[[] for _ in range(P)] for _ in range(F)]
+                for b in plan.bucket_dims}
+    for f in range(F):
+        for b_idx, bdim in enumerate(plan.bucket_dims):
+            b = plan.buckets[bdim]
+            rows, valid = cohorts.rows[bdim][f], cohorts.valid[bdim][f]
+            R = rows.shape[1]
+            items = [(d * R + j, d * b.per_dev + int(rows[d, j]))
+                     for d in range(P) for j in range(R) if valid[d, j]]
+            start = (f + b_idx) % P
+            for i, item in enumerate(items):
+                p = (start + i) % P
+                assigned[bdim][f][p].append(item)
+                shard_cost[f, p] += _slot_cost(bdim)
+                shard_count[f, p] += 1
+
+    src, src_valid, src_global, res_slot, res_valid = {}, {}, {}, {}, {}
+    for bdim in plan.bucket_dims:
+        n_rows = plan.buckets[bdim].n_rows
+        S = max(1, max(len(assigned[bdim][f][p])
+                       for f in range(F) for p in range(P)))
+        s_tbl = np.zeros((F, P, S), dtype=np.int32)
+        v_tbl = np.zeros((F, P, S), dtype=bool)
+        g_tbl = np.zeros((F, P, S), dtype=np.int32)
+        slot_tbl = np.zeros((F, n_rows), dtype=np.int32)
+        rvalid_tbl = np.zeros((F, n_rows), dtype=bool)
+        for f in range(F):
+            for p in range(P):
+                for j, (src_flat, grow) in enumerate(assigned[bdim][f][p]):
+                    s_tbl[f, p, j] = src_flat
+                    v_tbl[f, p, j] = True
+                    g_tbl[f, p, j] = grow
+                    slot_tbl[f, grow] = p * S + j
+                    rvalid_tbl[f, grow] = True
+        src[bdim], src_valid[bdim], src_global[bdim] = s_tbl, v_tbl, g_tbl
+        res_slot[bdim], res_valid[bdim] = slot_tbl, rvalid_tbl
+    return DecompShardPlan(
+        num_cohorts=F, src=src, src_valid=src_valid, src_global=src_global,
+        res_slot=res_slot, res_valid=res_valid, shard_cost=shard_cost,
+        shard_count=shard_count,
+        cohort_rows={b: cohorts.rows[b].shape[2] for b in plan.bucket_dims})

@@ -28,7 +28,8 @@ trainer picks ``update_factors``/``update_inverse``/``update_basis``/
 The decomposition ladder: a full decomposition, cold or warm-started
 from the stored one (``decomp_impl``, ``warm_start_basis``), an
 eigenvalue-only refresh in the retained basis (``basis_update_freq``),
-or one staggered cohort a step (``stagger``, world=1). At world>1 the
+or one staggered cohort a step (``stagger``), decomposed by its owners or
+balanced across every rank (``decomp_shard``). At world>1 the
 state is each rank's own: its factor rows, its error-feedback residual,
 and (comm_mode 'pred') its decomposition rows; in comm_mode 'inverse'
 the gathered decomposition is the same on every rank.
@@ -47,8 +48,9 @@ from kfac_pytorch_tpu_torch import engine
 from kfac_pytorch_tpu_torch import health as health_lib
 from kfac_pytorch_tpu_torch.capture import filter_vocab_head
 from kfac_pytorch_tpu_torch.parallel import collectives as coll
-from kfac_pytorch_tpu_torch.plan import (build_cohorts, build_plan,
-                                         default_bucket_fn, same_row_layout)
+from kfac_pytorch_tpu_torch.plan import (build_cohorts, build_decomp_shard,
+                                         build_plan, default_bucket_fn,
+                                         same_row_layout)
 from kfac_pytorch_tpu_torch.utils.platform import resolve_device
 
 log = logging.getLogger(__name__)
@@ -192,20 +194,29 @@ class KFAC:
       cold_restart_every: a cold full decomposition after this many
         consecutive warm ones (the chained basis gathers orthogonality
         error); a positive int.
-      stagger: staggered refresh (world=1): after the first full
-        decomposition, each step decomposes one of ``kfac_update_freq``
-        cost-balanced cohorts (``plan.build_cohorts``) and merges it for
-        the next step, preconditioning with the stored table. Excludes
+      stagger: staggered refresh: after the first full decomposition,
+        each step decomposes one of ``kfac_update_freq`` cost-balanced
+        cohorts (``plan.build_cohorts``) and merges it for the next step,
+        preconditioning with the stored table (in comm_mode 'inverse' the
+        cohort's rows are gathered, ``sum_b R_b`` a step). Excludes
         ``basis_update_freq`` and ``warm_start_basis``.
+      decomp_shard: the staggered cohort's rows are decomposed balanced
+        across every rank (``plan.build_decomp_shard``) instead of by
+        their owners: ``sum_b S_b`` rows a rank instead of ``sum_b R_b``,
+        for two ``kfac.DecompComm`` gathers a step (the damped cohort out,
+        the results back; ``FactorPlan.comm_volume(decomp_shard=...)``).
+        Implies ``stagger`` and its exclusions.
       decomp_impl: None (``KFAC_EIGH_IMPL`` decides, warm only with
         ``warm_start_basis``) or one of ``DECOMP_IMPLS``; an explicit
         iterative value implies warm starts.
 
-      comm_prefetch: comm_mode 'inverse' only: publish a full refresh's
-        gathered decomposition for the next step. The JAX constructor's
-        errors (a 'pred' mode, an E-KFAC variant) are raised as there;
-        otherwise it is not ported yet (NotImplementedError, ROADMAP
-        queue 1, item 15's remainder with item 16).
+      comm_prefetch: comm_mode 'inverse' only: on a full inverse update
+        with ``step(prefetch=True)`` the step preconditions with the
+        stored table and publishes the freshly gathered one for the next
+        step (one step of staleness, as a staggered step has). The trainer
+        never prefetches the first decomposition of a process (a cold
+        state would precondition with zeros). Not with the E-KFAC
+        variants.
       health: the numerical-health guard (``health.py``). True (the
         default) turns on the in-engine screens with the default ladder:
         factor and decomposition rows that come back non-finite fall back
@@ -231,7 +242,8 @@ class KFAC:
                  comm_precision='fp32', comm_mode=None, capture_impl=None,
                  basis_update_freq=None, warm_start_basis=False,
                  warm_sweeps=None, cold_restart_every=50, stagger=False,
-                 decomp_impl=None, health=True, comm_prefetch=False):
+                 decomp_impl=None, health=True, comm_prefetch=False,
+                 decomp_shard=False):
         if variant not in _VARIANTS:
             raise KeyError(f'unknown variant {variant!r}')
         if capture_impl is not None and capture_impl not in CAPTURE_IMPLS:
@@ -276,10 +288,11 @@ class KFAC:
         self.health = health_lib.resolve(health)
         self._set_decomp_ladder(basis_update_freq, warm_start_basis,
                                 warm_sweeps, cold_restart_every, stagger,
-                                decomp_impl)
+                                decomp_impl, decomp_shard)
         self._check_prefetch(comm_prefetch)
         self.plan = None
         self._cohorts = None
+        self._shard_plan = None
         # per-bucket stagger cadence ({bucket dim: stretch},
         # plan.build_cohorts' bucket_freq), set by replan; empty = uniform
         self.bucket_stagger_freq = {}
@@ -287,7 +300,8 @@ class KFAC:
         self._invalidators = []
 
     def _check_prefetch(self, comm_prefetch):
-        """The JAX constructor's comm_prefetch errors, then not-ported."""
+        """Keep ``comm_prefetch``, with the JAX constructor's errors."""
+        self.comm_prefetch = bool(comm_prefetch)
         if not comm_prefetch:
             return
         if self.comm_mode != 'inverse':
@@ -301,13 +315,10 @@ class KFAC:
                 'comm_prefetch is not supported for the ekfac variants: the '
                 'scale moments must be estimated in the same basis the pred '
                 'consumes, which prefetch splits across steps')
-        raise NotImplementedError(
-            'comm_prefetch is not ported yet: ROADMAP queue 1, slice D item '
-            "15's remainder (with item 16)")
 
     def _set_decomp_ladder(self, basis_update_freq, warm_start_basis,
                            warm_sweeps, cold_restart_every, stagger,
-                           decomp_impl):
+                           decomp_impl, decomp_shard):
         """Validate and keep the decomposition-ladder options, with the
         JAX constructor's errors and warnings."""
         if basis_update_freq is not None and self.method != 'eigh':
@@ -353,7 +364,10 @@ class KFAC:
                     f'inverse; variant {self.variant!r} eigendecomposes — '
                     "use 'subspace' (or 'auto') there")
         self.decomp_impl = decomp_impl
-        self.stagger = bool(stagger)
+        # the shard repartitions the staggered cohort: it implies stagger
+        # and inherits its exclusions
+        self.decomp_shard = bool(decomp_shard)
+        self.stagger = bool(stagger) or self.decomp_shard
         if self.stagger:
             if self.ekfac:
                 raise ValueError(
@@ -366,11 +380,6 @@ class KFAC:
                     'refresh — it does not compose with basis_update_freq '
                     'or warm_start_basis (pick one; see README '
                     '"Staggered refresh")')
-            if self.num_devices > 1:
-                raise NotImplementedError(
-                    'stagger at world>1 is not ported yet: ROADMAP queue 1, '
-                    "slice D item 15's remainder (the double-buffered "
-                    'cohort gather and comm_prefetch, with item 16)')
 
     def setup(self, metas):
         """Build the static factor plan from ``{name: LayerMeta}`` (or a
@@ -390,7 +399,7 @@ class KFAC:
                                assignment=self.assignment,
                                distribute_layer_factors=bool(distribute),
                                bucket_fn=self.bucket_fn)
-        self._cohorts = None
+        self._cohorts = self._shard_plan = None
         if self.stagger:
             self.rebase_cohorts()
         return self.plan
@@ -398,9 +407,10 @@ class KFAC:
     def rebase_cohorts(self):
         """(Re)build the staggered cohort layout for the current
         ``kfac_update_freq`` and ``bucket_stagger_freq`` (after ``setup``,
-        a scheduler rescale, a replan, and on every staggered dispatch); a
-        no-op when it already matches. Returns the layout (None without
-        stagger or a plan)."""
+        a scheduler rescale, a replan, and on every staggered dispatch),
+        and with ``decomp_shard`` its shard layout; a no-op when both
+        already match. Returns the cohort layout (None without stagger or
+        a plan)."""
         if not self.stagger or self.plan is None:
             return None
         f = max(1, int(self.kfac_update_freq))
@@ -410,12 +420,21 @@ class KFAC:
                 or self._cohorts.bucket_freq != overrides):
             self._cohorts = build_cohorts(self.plan, f,
                                           bucket_freq=overrides)
+            self._shard_plan = None
+        if self.decomp_shard and self._shard_plan is None:
+            self._shard_plan = build_decomp_shard(self.plan, self._cohorts)
         return self._cohorts
 
     @property
     def cohorts(self):
         """The current staggered cohort layout (``plan.CohortPlan``)."""
         return self._cohorts
+
+    @property
+    def decomp_shard_plan(self):
+        """The sharded decomposition layout (``plan.DecompShardPlan``), or
+        None when ``decomp_shard`` is off."""
+        return self._shard_plan
 
     # -- live replanning --------------------------------------------------
 
@@ -514,6 +533,11 @@ class KFAC:
         new_overrides = self._replan_overrides(bucket_overrides, old_plan)
 
         # -- the constructor's rules, checked again
+        if new_mode == 'pred' and self.comm_prefetch:
+            raise ValueError(
+                "cannot replan to comm_mode='pred' with comm_prefetch: "
+                'the pred gather IS the step consumer and cannot be '
+                'deferred (drop comm_prefetch first)')
         if new_ekfac and self.stagger:
             raise ValueError('cannot replan a staggered preconditioner '
                              'onto an ekfac variant (stagger exclusion)')
@@ -550,7 +574,7 @@ class KFAC:
         clone.method, clone.comm_mode = new_method, new_mode
         clone.ekfac, clone.plan = new_ekfac, new_plan
         clone.bucket_stagger_freq = new_overrides
-        clone._cohorts = None
+        clone._cohorts = clone._shard_plan = None
         same_layout = same_row_layout(old_plan, new_plan)
         new_state = kfac_state
         verbatim = False
@@ -583,7 +607,7 @@ class KFAC:
         self.method, self.comm_mode = new_method, new_mode
         self.ekfac, self.plan = new_ekfac, new_plan
         self.bucket_stagger_freq = new_overrides
-        self._cohorts = None
+        self._cohorts = self._shard_plan = None
         if self.stagger:
             self.rebase_cohorts()
         log.info('kfac: replan applied variant=%s comm_mode=%s%s (layout '
@@ -719,7 +743,8 @@ class KFAC:
              hyper: Optional[KFACHyperParams] = None, *,
              update_factors: bool = True, update_inverse: bool = True,
              update_basis: bool = True, warm_basis: bool = False,
-             factors_only: bool = False, stagger_update: bool = False):
+             factors_only: bool = False, stagger_update: bool = False,
+             prefetch: bool = False):
         """One K-FAC step: ``(state, grads, captured a/g) ->
         (preconditioned grads, new state)``. ``grads`` is
         ``{parameter name: tensor}``, already averaged over the group;
@@ -731,9 +756,13 @@ class KFAC:
         ``update_basis=False`` (eigh) an eigenvalue-only refresh;
         ``warm_basis`` (set once a decomposition exists) seeds a full one
         from the stored decomposition when ``warm_start_basis`` or an
-        iterative ``decomp_impl`` asks for it. ``stagger_update`` replaces
-        the inverse update: cohort ``state.step % num_cohorts`` is
-        decomposed and merged for the next step, and this step
+        iterative ``decomp_impl`` asks for it. ``prefetch`` (needs
+        ``comm_prefetch``) makes an inverse update publish its gathered
+        decomposition for the next step while this step preconditions
+        with ``state.decomp``, the stored table. ``stagger_update``
+        replaces the inverse update: cohort ``state.step % num_cohorts``
+        is decomposed (by its owners, or with ``decomp_shard`` across
+        every rank) and merged for the next step, and this step
         preconditions with the stored table."""
         assert self.plan is not None, 'call setup() first'
         plan = self.plan
@@ -856,20 +885,40 @@ class KFAC:
                     scales = engine.where_finite_rows(scales, scales_prev)
                 decomp['scales'] = scales
         pred_decomp = decomp
+        if prefetch and update_inverse:
+            assert self.comm_prefetch, \
+                'prefetch requires KFAC(comm_prefetch=True)'
+            pred_decomp = state.decomp
         if stagger_update:
             cohorts = self._cohorts
             assert cohorts is not None, \
                 'stagger_update requires KFAC(stagger=True) + setup()'
             cohort_idx = state.step % cohorts.num_cohorts
-            cohort_new = engine.compute_cohort_decomposition(
-                plan, cohorts, factors, cohort_idx, damping, self.method,
-                self.eps, group, impl=impl,
-                decomp_prev=decomp if self.warm_impl else None,
-                comm_mode=self.comm_mode, warm_sweeps=self.warm_sweeps)
-            decomp = engine.merge_cohort_decomposition(
-                plan, cohorts, decomp, cohort_new, cohort_idx, group,
-                self.comm_mode, self.method, guard=self.health is not None,
-                comm_precision=self.comm_precision)
+            guard = self.health is not None
+            if self.decomp_shard:
+                shard = self._shard_plan
+                assert shard is not None, \
+                    'decomp_shard requires setup() (rebase_cohorts)'
+                shard_new = engine.compute_shard_decomposition(
+                    plan, cohorts, shard, factors, cohort_idx, damping,
+                    self.method, self.eps, group, impl=impl,
+                    decomp_prev=decomp, comm_mode=self.comm_mode,
+                    warm_sweeps=self.warm_sweeps,
+                    comm_precision=self.comm_precision)
+                decomp = engine.merge_shard_decomposition(
+                    plan, shard, decomp, shard_new, cohort_idx, group,
+                    self.comm_mode, self.method, guard=guard,
+                    comm_precision=self.comm_precision)
+            else:
+                cohort_new = engine.compute_cohort_decomposition(
+                    plan, cohorts, factors, cohort_idx, damping,
+                    self.method, self.eps, group, impl=impl,
+                    decomp_prev=decomp if self.warm_impl else None,
+                    comm_mode=self.comm_mode, warm_sweeps=self.warm_sweeps)
+                decomp = engine.merge_cohort_decomposition(
+                    plan, cohorts, decomp, cohort_new, cohort_idx, group,
+                    self.comm_mode, self.method, guard=guard,
+                    comm_precision=self.comm_precision)
 
         grad_mats = [engine.layer_grad_matrix(m, grads) for m in plan.metas]
         scales = pred_decomp.get('scales') if self.ekfac else None

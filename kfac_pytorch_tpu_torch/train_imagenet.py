@@ -39,9 +39,6 @@ from kfac_pytorch_tpu_torch.utils.losses import label_smoothing_cross_entropy
 #: flags of the JAX trainer the port does not honour yet: (flag, the value
 #: that leaves the feature off, the ROADMAP item that brings it)
 UNPORTED = [
-    ('kfac_comm_prefetch', False, 'queue 1, slice D item 15\'s remainder '
-                                  '(with item 16)'),
-    ('kfac_decomp_shard', False, 'queue 1, slice D item 16'),
     ('kfac_autotune', False, 'queue 1, slice F item 22 (autotune)'),
     ('trace', None, 'queue 1, slice F item 22 (obs)'),
     ('prom_file', None, 'queue 1, slice F item 22 (obs)'),
@@ -113,8 +110,6 @@ def parse_args(argv=None):
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
     add_decomp_flags(p)
     # the JAX trainer's flags whose features are not ported (UNPORTED)
-    p.add_argument('--kfac-comm-prefetch', action='store_true')
-    p.add_argument('--kfac-decomp-shard', action='store_true')
     p.add_argument('--kfac-autotune', action='store_true')
     p.add_argument('--exclude-parts', default='')
     p.add_argument('--tb-dir', default=None)
@@ -127,7 +122,8 @@ def parse_args(argv=None):
 
 
 def add_decomp_flags(p):
-    """The decomposition-ladder flags of the JAX trainers."""
+    """The decomposition-ladder flags of the JAX trainers, shared by the
+    port's three trainers."""
     p.add_argument('--kfac-basis-update-freq', type=int, default=0,
                    help='full eigendecomposition cadence; intermediate '
                         'inverse updates refresh eigenvalues in the '
@@ -139,10 +135,20 @@ def add_decomp_flags(p):
                         'variants Newton-Schulz-iterate the previous '
                         'inverse')
     p.add_argument('--kfac-stagger', action='store_true',
-                   help='staggered inverse refresh (world=1): decompose '
-                        'one cost-balanced cohort of factors per step '
-                        'instead of all factors every --kfac-update-freq '
-                        'steps')
+                   help='staggered inverse refresh: decompose one cost-'
+                        'balanced cohort of factors per step instead of '
+                        'all factors every --kfac-update-freq steps, '
+                        'preconditioning with the stored table')
+    p.add_argument('--kfac-decomp-shard', action='store_true',
+                   help='decompose each staggered cohort balanced across '
+                        'all ranks instead of by its owners (two '
+                        'DecompComm gathers a step; implies '
+                        '--kfac-stagger)')
+    p.add_argument('--kfac-comm-prefetch', action='store_true',
+                   help="comm_mode 'inverse' variants only: publish each "
+                        "inverse update's gathered decomposition for the "
+                        'next step and precondition this one with the '
+                        'stored table (one step of staleness)')
     p.add_argument('--kfac-decomp-impl', default=None,
                    choices=['xla', 'auto', 'jacobi', 'subspace',
                             'newton_schulz'],
@@ -158,7 +164,9 @@ def decomp_kwargs(args):
     return dict(basis_update_freq=args.kfac_basis_update_freq or None,
                 warm_start_basis=args.kfac_warm_start,
                 stagger=args.kfac_stagger,
-                decomp_impl=args.kfac_decomp_impl)
+                decomp_impl=args.kfac_decomp_impl,
+                decomp_shard=args.kfac_decomp_shard,
+                comm_prefetch=args.kfac_comm_prefetch)
 
 
 def check_ported(args):

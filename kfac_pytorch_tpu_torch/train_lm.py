@@ -7,7 +7,10 @@ defaults for the flags the port supports, plus ``--device`` (default
 
 Trains the 4-layer, 256-wide ``TransformerLM`` on 2048-token windows of
 the synthetic Markov corpus (or ``--data``, a text file) with
-``eigen_dp`` K-FAC, the vocabulary head excluded. ``--attn-impl``
+``eigen_dp`` K-FAC, the vocabulary head excluded; the decomposition
+ladder's flags are the other trainers' (``--kfac-basis-update-freq``,
+``--kfac-warm-start``, ``--kfac-decomp-impl``, ``--kfac-stagger``,
+``--kfac-decomp-shard``, ``--kfac-comm-prefetch``). ``--attn-impl``
 'pallas'/'auto' runs attention through the hand-written CUDA kernels
 (K4 forward, K5a/K5b backward), 'xla' through plain PyTorch ops.
 """
@@ -24,6 +27,8 @@ import kfac_pytorch_tpu_torch as kfac
 from kfac_pytorch_tpu_torch import data as kdata
 from kfac_pytorch_tpu_torch import models, training, utils
 from kfac_pytorch_tpu_torch.parallel.ring_attention import BLOCK_IMPLS
+from kfac_pytorch_tpu_torch.train_imagenet import (add_decomp_flags,
+                                                   decomp_kwargs)
 
 #: batches of the validation pass (as the JAX trainer's)
 VAL_BATCHES = 10
@@ -59,6 +64,7 @@ def parse_args(argv=None):
                         "'pallas'/'auto' = the CUDA flash-attention kernels")
     p.add_argument('--kfac-name', default='eigen_dp',
                    choices=list(kfac.KFAC_VARIANTS))
+    add_decomp_flags(p)
     p.add_argument('--damping', type=float, default=0.003)
     p.add_argument('--stat-decay', type=float, default=0.95)
     p.add_argument('--kl-clip', type=float, default=0.001)
@@ -108,7 +114,7 @@ class Trainer:
                 kfac_update_freq=args.kfac_update_freq,
                 kl_clip=args.kl_clip, factor_decay=args.stat_decay,
                 capture_impl=args.kfac_capture_impl,
-                exclude_vocabulary_size=self.vocab)
+                exclude_vocabulary_size=self.vocab, **decomp_kwargs(args))
         sample = np.zeros((args.batch_size, args.seq_len), np.int64)
         self.state = training.init_train_state(model, self.tx, self.precond,
                                                sample, self.device)

@@ -312,26 +312,28 @@ def _warm_basis_gate(precond, seen, step, ui, ub):
 
 def _dispatch(precond, seen, step):
     """The JAX trainer's host-side choice for one step: ``(uf, ui, ub,
-    warm, st)`` (factor update, inverse update, full decomposition rather
-    than refresh, warm start, staggered cohort), updating ``seen``. After
-    the first decomposition a staggered preconditioner decomposes a cohort
-    every step; the first inverse update of a process is always full and
-    cold."""
+    warm, st, pf)`` (factor update, inverse update, full decomposition
+    rather than refresh, warm start, staggered cohort, prefetched inverse
+    update), updating ``seen``. After the first decomposition a staggered
+    preconditioner decomposes a cohort every step, at any world; the
+    first inverse update of a process is always full and cold, and never
+    prefetched (a cold state would precondition with zeros)."""
     enabled = precond.hook_enabled
     uf = precond.should_update_factors(step)
     st = precond.stagger and enabled and seen['yes']
     if st:
-        return uf, False, True, False, True
+        return uf, False, True, False, True, False
     ui = enabled and precond.should_update_inverse(step)
     ub = (not seen['yes']
           or precond.should_update_basis(step, seen.get('last_full')))
     warm = _warm_basis_gate(precond, seen, step, ui, ub)
+    pf = precond.comm_prefetch and ui and seen['yes']
     seen['yes'] = seen['yes'] or ui
     if not ui:
         ub, warm = True, False
     if not ub:
         warm = False
-    return uf, ui, ub, warm, False
+    return uf, ui, ub, warm, False, pf
 
 
 def softmax_cross_entropy(outputs, labels):
@@ -371,8 +373,11 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
     and damping). ``step_fn.last_phases`` names the K-FAC phases of the
     last call ('pred', 'stats', 'decomp', 'gather'), as the JAX trainer
     does; ``step_fn.last_decomp`` says which decomposition it ran (None,
-    'full', 'warm', 'refresh' or 'cohort'), and ``step_fn.last_grads``
-    holds the gradients it handed the optimizer.
+    'full', 'warm', 'refresh' or 'cohort'), ``step_fn.last_prefetch``
+    whether it was a prefetched inverse update (``KFAC.comm_prefetch``:
+    preconditioned with the stored table, the fresh one published for the
+    next step), and ``step_fn.last_grads`` holds the gradients it handed
+    the optimizer.
 
     ``health``: the numerical-health guard (``health.py``). 'auto' (the
     default) inherits the preconditioner's ``health`` (off without one);
@@ -437,7 +442,7 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
 
     def step_fn(state, batch, lr=None, damping=None):
         step = state.step
-        uf = ui = st = factors_only = False
+        uf = ui = st = pf = factors_only = False
         ub, warm = True, False
         if precond is not None:
             if precond.pending_replan:
@@ -450,7 +455,7 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
                 state = dataclasses.replace(
                     state, decomposed=has_decomposition(state.kfac_state))
             seen['yes'] = bool(state.decomposed)
-            uf, ui, ub, warm, st = _dispatch(precond, seen, step)
+            uf, ui, ub, warm, st, pf = _dispatch(precond, seen, step)
             if st:
                 precond.rebase_cohorts()
             # before any decomposition exists the grads pass through while
@@ -511,7 +516,7 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
                 kfac_state, grads, acts, gs, hyper=hyper,
                 update_factors=uf, update_inverse=ui, update_basis=ub,
                 warm_basis=warm, factors_only=factors_only,
-                stagger_update=st)
+                stagger_update=st, prefetch=pf)
             new_grads = pgrads
             changed = [k for k in grads if pgrads[k] is not grads[k]]
             if guard and changed:
@@ -553,6 +558,7 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
                           else 'warm' if warm else 'full')
         step_fn.last_phases = phases
         step_fn.last_decomp = decomp
+        step_fn.last_prefetch = pf
         step_fn.last_grads = new_grads
         state = dataclasses.replace(
             state, step=step + 1, kfac_state=kfac_state,
@@ -562,6 +568,7 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
 
     step_fn.last_phases = ()
     step_fn.last_decomp = None
+    step_fn.last_prefetch = False
     step_fn.last_grads = None
     step_fn.warm_tracking = seen
     step_fn.health = health_cfg

@@ -444,8 +444,11 @@ def test_ladder_properties_match_jax():
 
 
 def test_stagger_at_world_above_one_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match='item 15'):
-        tkfac.KFAC(variant='eigen_dp', stagger=True, num_devices=2)
+    # stagger at world>1 is ported (tests/test_torch_decomp_shard.py)
+    pre = tkfac.KFAC(variant='eigen_dp', stagger=True, num_devices=2,
+                     bucket_fn=_bucket)
+    pre.setup(_metas(tcapture))
+    assert pre.stagger and pre.cohorts.rows[8].shape[1] == 2
     # E-KFAC (item 18) is ported; its replan to another world is not
     pre = tkfac.KFAC(variant='ekfac_dp', bucket_fn=_bucket)
     pre.setup(_metas(tcapture))

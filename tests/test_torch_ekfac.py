@@ -526,8 +526,9 @@ def test_exclusions_raise_as_jax(kw):
 
 
 def test_comm_prefetch_without_ekfac_is_not_ported():
-    with pytest.raises(NotImplementedError, match='item 15'):
-        tkfac.KFAC(variant='eigen', comm_prefetch=True)
+    # comm_prefetch is ported: without E-KFAC it builds and keeps the flag
+    pre = tkfac.KFAC(variant='eigen', comm_prefetch=True)
+    assert pre.comm_prefetch and not pre.ekfac
 
 
 def test_damping_warning_once(monkeypatch):

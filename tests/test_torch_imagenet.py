@@ -236,6 +236,39 @@ def test_zoo_state_dict_matches_jax_shapes(zoo_pair):
     tmodel.load_state_dict(sd)   # strict: every name converts
 
 
+#: the JAX registry's nets the port has not ported yet (ROADMAP queue 1,
+#: item 14), by constructor name
+ZOO_NOT_PORTED = {'vgg11', 'vgg13', 'vgg16', 'vgg19', 'wrn_28_10',
+                  'inception_v4', 'densenet121', 'densenet169',
+                  'densenet201'}
+
+
+def _jax_registry():
+    """``{--model name: constructor name}`` of the JAX package's
+    ``models.get_model``, read from its source: no net is built."""
+    import ast
+    import inspect
+    from kfac_pytorch_tpu import models as jmodels
+    tree = ast.parse(inspect.getsource(jmodels.get_model))
+    reg, = [n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
+            and getattr(n.targets[0], 'id', None) == 'registry']
+    return {k.value: v.id for k, v in zip(reg.keys, reg.values)}
+
+
+@pytest.mark.parametrize('name,ctor', sorted(_jax_registry().items()),
+                         ids=lambda v: v if isinstance(v, str) else None)
+def test_jax_model_names_resolve_in_the_port(name, ctor):
+    """Every name of the JAX registry names the same net in the port's
+    (``'resnext50'`` -> ``resnext50_32x4d``), unless the net is one of
+    item 14's; ``train_imagenet --model`` takes the name."""
+    from kfac_pytorch_tpu_torch import models as tmodels, train_imagenet
+    if ctor in ZOO_NOT_PORTED:
+        assert name not in tmodels.REGISTRY
+        return
+    assert tmodels.REGISTRY[name] is getattr(tmodels, ctor)
+    assert train_imagenet.parse_args(['--model', name]).model == name
+
+
 def test_zoo_kfac_plan_matches_jax(zoo_pair):
     _, jmetas, _, tmetas = zoo_pair
     assert list(tmetas) == list(jmetas)

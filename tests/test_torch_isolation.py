@@ -192,7 +192,6 @@ def test_world_gt1_entry_points_raise_without_gpu(no_gpu, monkeypatch):
 
 
 @pytest.mark.parametrize('argv', [
-    ['--kfac-comm-prefetch'], ['--kfac-decomp-shard'],
     ['--kfac-autotune'], ['--trace', 'x'], ['--prom-file', 'x'],
     ['--tb-dir', 'x'], ['--step-deadline', '5'],
     ['--straggler-budget', '1'], ['--io-retries', '3'],
@@ -208,18 +207,22 @@ def test_imagenet_unported_flags_raise(argv):
     (['--kfac-basis-update-freq', '4'], {'basis_update_freq': 4}),
     (['--kfac-warm-start'], {'warm_start_basis': True}),
     (['--kfac-stagger'], {'stagger': True}),
-    (['--kfac-decomp-impl', 'subspace'], {'decomp_impl': 'subspace'})],
+    (['--kfac-decomp-impl', 'subspace'], {'decomp_impl': 'subspace'}),
+    (['--kfac-decomp-shard'], {'decomp_shard': True, 'stagger': True}),
+    (['--kfac-comm-prefetch', '--kfac-name', 'eigen'],
+     {'comm_prefetch': True})],
     ids=lambda a: a[0] if isinstance(a, list) else None)
 @pytest.mark.filterwarnings('ignore:warm_start_basis')
 def test_imagenet_decomp_flags_reach_kfac(argv, attrs):
     # the decomposition-ladder flags (once in the list above) are ported:
-    # both trainers pass them to KFAC as the JAX trainers do
-    from kfac_pytorch_tpu_torch import train_cifar, train_imagenet
-    for mod in (train_imagenet, train_cifar):
+    # the three trainers pass them to KFAC as the JAX trainers do
+    from kfac_pytorch_tpu_torch import train_cifar, train_imagenet, train_lm
+    for mod in (train_imagenet, train_cifar, train_lm):
         args = mod.parse_args(['--device', 'cpu', *argv])
         if mod is train_imagenet:
             train_imagenet.check_ported(args)
-        pre = tkfac.KFAC(**train_imagenet.decomp_kwargs(args))
+        pre = tkfac.get_kfac_module(args.kfac_name)(
+            **train_imagenet.decomp_kwargs(args))
         for k, v in attrs.items():
             assert getattr(pre, k) == v, (mod.__name__, k)
 

@@ -79,11 +79,15 @@ def run_steps(rank, world, group, cfg):
     ``KFAC.step``. With ``cfg['sgd']`` the parameters take ``p -= lr *
     preconditioned grad`` after each step. Returns per step the
     preconditioned grads, this rank's factor rows, residual and E-KFAC
-    moments (numpy) and the loss; the first step's collectives as a ledger. ``cfg['phases']``
-    (one ``(update_basis, warm_basis)`` a step) drives the decomposition
-    ladder (with ``cfg['decomp_impl']``/``cfg['basis_update_freq']``);
-    then each step also returns the stored decomposition it started from
-    (``'decomp_in'``)."""
+    moments (numpy) and the loss; the collectives of step
+    ``cfg['ledger_step']`` (default the first) as a ledger.
+    ``cfg['phases']`` (one ``(update_basis, warm_basis)`` a step) drives
+    the decomposition ladder (with ``cfg['decomp_impl']``/
+    ``cfg['basis_update_freq']``); then each step also returns the stored
+    decomposition it started from (``'decomp_in'``). ``cfg['kfac']`` adds
+    ``KFAC`` keyword arguments and ``cfg['ladder']`` (one dict a step)
+    ``KFAC.step``'s; with either, each step also returns the
+    decomposition it leaves (``'decomp'``)."""
     torch.manual_seed(0)
     kind = cfg['model']
     model = MODELS[kind]()
@@ -99,7 +103,8 @@ def run_steps(rank, world, group, cfg):
                capture_impl=cfg.get('capture_impl'),
                assignment=cfg.get('assignment', 'round_robin'),
                decomp_impl=cfg.get('decomp_impl'),
-               basis_update_freq=cfg.get('basis_update_freq'))
+               basis_update_freq=cfg.get('basis_update_freq'),
+               **cfg.get('kfac', {}))
     pre.setup(capture.collect_layer_meta(model, x))
     state = pre.init('cpu')
     params = dict(model.named_parameters())
@@ -109,8 +114,9 @@ def run_steps(rank, world, group, cfg):
         ladder = {}
         if phases is not None:
             ladder = dict(zip(('update_basis', 'warm_basis'), phases[i]))
-            decomp_in = {part: {k: v.numpy().copy() for k, v in tree.items()}
-                         for part, tree in state.decomp.items()}
+            decomp_in = _np_tree(state.decomp)
+        if cfg.get('ladder') is not None:
+            ladder.update(cfg['ladder'][i])
         model.zero_grad(set_to_none=True)
         with capture.Capture(model, pre.plan.metas) as cap:
             loss = ((model(x) - y) ** 2).mean()
@@ -121,7 +127,7 @@ def run_steps(rank, world, group, cfg):
                 {k: p.grad for k, p in params.items()}, group)
             new_grads, state = pre.step(state, grads, cap.acts, cap.gs,
                                         **ladder)
-        if i == 0:
+        if i == cfg.get('ledger_step', 0):
             out['ledger'] = [(scope, op, str(dtype), n)
                              for scope, op, dtype, n in led]
         if cfg.get('sgd'):
@@ -141,7 +147,14 @@ def run_steps(rank, world, group, cfg):
                        if 'scales' in state.decomp else None)})
         if phases is not None:
             out['steps'][-1]['decomp_in'] = decomp_in
+        if 'kfac' in cfg or 'ladder' in cfg:
+            out['steps'][-1]['decomp'] = _np_tree(state.decomp)
     return out
+
+
+def _np_tree(decomp):
+    return {part: {k: v.numpy().copy() for k, v in tree.items()}
+            for part, tree in decomp.items()}
 
 
 def run_many(rank, world, group, cfgs):
@@ -290,3 +303,24 @@ def guarded_runs(rank, world, group, cfgs):
             runs[name] = {'mets': mets, **_state_digests(state)}
         out.append(runs)
     return out
+
+
+def shard_module_runs(rank, world, group, cfgs, trainer_argv, steps):
+    """:func:`run_many` of ``cfgs``, then ``train_cifar`` with
+    ``trainer_argv`` for ``steps`` steps in the same group: per step the
+    loss, the decomposition the step ran and this rank's replica digest
+    (``training.replica_digest``)."""
+    from kfac_pytorch_tpu_torch import train_cifar, training
+    runs = run_many(rank, world, group, cfgs)
+    args = train_cifar.parse_args(trainer_argv + ['--device', 'cpu',
+                                                  '--num-devices', str(world)])
+    tr = train_cifar.Trainer(args, group=group)
+    trained = []
+    with tr.train_loader.epoch() as batches:
+        for _, batch in zip(range(steps), batches):
+            m = tr.train_step(batch)
+            trained.append((float(m['loss']), tr.step_fn.last_decomp,
+                            training.replica_digest(tr.state.model)))
+    return runs, {'steps': trained,
+                  'stagger': tr.precond.stagger,
+                  'shard': tr.precond.decomp_shard_plan is not None}
