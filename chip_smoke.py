@@ -90,7 +90,23 @@ launches:
   processes sharing the card; ``comm_prefetch`` on MPD ``eigen``
   (``--kfac-update-freq 3``, 7 steps): each prefetched update's
   preconditioned gradients are the stored table's, it publishes the table
-  a plain update computes, and the next step reads that table.
+  a plain update computes, and the next step reads that table;
+- slice 12, last: durability and the elastic lane, through the trainers'
+  ``main``. ResNet-32 (``train_cifar``, batch 128, ``eigen_dp``, the
+  capture kernels, 4-step epochs) for 3 epochs with a checkpoint every
+  epoch, then the same run with a SIGTERM in epoch 2 (it saves and
+  exits) and a ``--resume`` run to the end, which must be bitwise the
+  uninterrupted one under deterministic cuDNN, K1/K2 launched in each; the
+  host ms ``save_checkpoint`` blocks with ``block=True`` and
+  ``block=False``, and the blob's bytes. MPD ``eigen`` moved world 2
+  (bf16 wire, two gloo ranks on the card) -> 1 (fp32) -> 2 through
+  ``--checkpoint-dir`` and ``--resume``: the ``RESHARDED`` and
+  ``WORLD_RESCALE ... lr_factor=1`` lines, every layer's true factor
+  block and decomposition row bitwise its old owner's, the first step
+  after a move preconditioning, K3 launched at world 2, the lossy residual
+  dropped at world 1, replicas bitwise. The ImageNet trainer (ResNet-50
+  bs32 bf16) at world 2 for 2 steps, checkpointed and resumed at world 1
+  with the same row check, and its saves timed.
 
 After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
 fp32 and bf16 inputs, K4, K5a and K5b at every head dim), the tensor-core
@@ -116,6 +132,7 @@ throughout, so every comparison is fp32 against fp32.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -3376,6 +3393,377 @@ def run_slice10():
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 12: durability and the elastic lane
+# ---------------------------------------------------------------------------
+
+S12_DIR = os.path.join(OUT_DIR, 'slice12')
+#: the CIFAR trainer's ResNet-32 main path (batch 128, eigen_dp, the
+#: capture kernels) with an "epoch" cut to S12_SPE steps; the preempted
+#: run gets its SIGTERM just before step S12_SIGTERM_AT (epoch 2)
+S12_SPE, S12_EPOCHS, S12_SIGTERM_AT = 4, 3, 9
+S12_R32 = ['--device', 'cuda', '--kfac-capture-impl', 'auto',
+           '--steps-per-epoch', str(S12_SPE)]
+#: the world moves: MPD eigen, over the bf16 wire at world 2 (K3 and a
+#: residual) and fp32 at world 1 (the lossy checkpoint's residual dropped)
+S12_MOVE = S12_R32 + ['--kfac-name', 'eigen']
+#: the ImageNet trainer's ResNet-50 (bs32 224x224 bf16 eigen_dp) for one
+#: 2-step epoch with one decomposition
+S12_R50 = ['--device', 'cuda', '--synthetic-size', '64', '--steps-per-epoch',
+           '2', '--kfac-update-freq', '2', '--kfac-capture-impl', 'pallas',
+           '--epochs', '1']
+
+
+def _digest(t):
+    import hashlib
+    return hashlib.sha1(t.detach().contiguous().cpu().numpy()
+                        .tobytes()).hexdigest()
+
+
+def owner_rows(pre, kfac_state, rank):
+    """``{'<layer>.<A|G>[.<part>]': sha1}`` of the factor rows rank
+    ``rank`` owns in ``pre``'s plan: each true factor block, and the
+    whole decomposition row of each (``evals``/``evecs``/``invs``)."""
+    plan = pre.plan
+    out = {}
+    for i, meta in enumerate(plan.metas):
+        for side, d in ((0, meta.in_dim), (1, meta.out_dim)):
+            b, row = plan.layer_rows[i][2 * side:2 * side + 2]
+            per = plan.buckets[b].per_dev
+            if row // per != rank:
+                continue
+            key = f'{meta.name}.{"AG"[side]}'
+            out[key] = _digest(kfac_state.factors[str(b)][row % per, :d, :d])
+            drow = row if pre.comm_mode == 'inverse' else row % per
+            for part, tree in kfac_state.decomp.items():
+                if part != 'scales':
+                    out[f'{key}.{part}'] = _digest(tree[str(b)][drow])
+    return out
+
+
+@contextlib.contextmanager
+def spy_resume(module, rec):
+    """Record, in ``rec``, what ``module.Trainer``'s resume leaves (the
+    owned rows, ``decomposed``, the step, its host seconds) and the K-FAC
+    phases of the first step after it."""
+    resume, step = module.Trainer.resume, module.Trainer.train_step
+
+    def spied_resume(self):
+        t0 = time.perf_counter()
+        out = resume(self)
+        rec['resume_s'] = time.perf_counter() - t0
+        rec['rows'] = owner_rows(self.precond, self.state.kfac_state,
+                                 self.rank)
+        rec['decomposed'] = bool(self.state.decomposed)
+        rec['step'] = self.state.step
+        return out
+
+    def spied_step(self, batch):
+        m = step(self, batch)
+        rec.setdefault('first_phases', list(self.step_fn.last_phases))
+        return m
+
+    module.Trainer.resume, module.Trainer.train_step = spied_resume, \
+        spied_step
+    try:
+        yield rec
+    finally:
+        module.Trainer.resume, module.Trainer.train_step = resume, step
+
+
+def s12_run(module, argv, group=None):
+    """``module.main(argv)`` (in ``group`` at world>1) with its stdout
+    captured and echoed, its launches counted and its resume spied:
+    returns ``(trainer, record)``."""
+    import importlib
+    import io
+    mod = importlib.import_module(f'kfac_pytorch_tpu_torch.{module}')
+    rec, buf = {}, io.StringIO()
+    reset_counts()
+    with spy_resume(mod, rec), contextlib.redirect_stdout(buf):
+        tr = mod.main(argv, group=group)
+    torch.cuda.synchronize()
+    rec['launches'] = read_counts()
+    rec['log'] = buf.getvalue()
+    if tr.rank == 0:
+        print(''.join(f'  [{module} world={tr.world}] {line}\n'
+                      for line in rec['log'].splitlines()), end='',
+              flush=True)
+    return tr, rec
+
+
+def s12_rank(rank, world, group, module, argv):
+    """One rank of a world=2 slice-12 run on cuda:0 over gloo: the
+    trainer's ``main``; returns its log, launch counts, owned rows at the
+    end (and after a resume), and the residual's norm."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    tr, rec = s12_run(module, argv + ['--num-devices', str(world),
+                                      '--dist-backend', 'gloo'], group)
+    k = tr.state.kfac_state
+    rec['rows_end'] = owner_rows(tr.precond, k, rank)
+    rec['residual_norm'] = (None if k.comm_err is None else float(sum(
+        float(v.double().norm()) ** 2 for v in k.comm_err.values())) ** 0.5)
+    rec['step_end'] = tr.state.step
+    del tr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def s12_state(state):
+    """``{name: tensor}`` of everything a resumed train state must carry:
+    :func:`_state_tensors`, the residual and the health counters."""
+    out = _state_tensors(state)
+    if state.kfac_state.comm_err is not None:
+        out.update({f'comm_err.{b}': v
+                    for b, v in state.kfac_state.comm_err.items()})
+    if state.health is not None:
+        out.update({f'health.{f.name}': getattr(state.health, f.name)
+                    for f in dataclasses.fields(state.health)})
+    return out
+
+
+def save_ms(tr, base, epoch, block):
+    """Host ms ``save_checkpoint`` blocks for (and until the save is
+    durable), and the blob's bytes."""
+    from kfac_pytorch_tpu_torch.utils import checkpoint
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(base, epoch, tr.state, block=block)
+    blocked = (time.perf_counter() - t0) * 1e3
+    checkpoint.wait_for_checkpoints()
+    durable = (time.perf_counter() - t0) * 1e3
+    return {'blocked_ms': blocked, 'durable_ms': durable,
+            'blob_bytes': os.path.getsize(os.path.join(
+                base, checkpoint.blob_key(epoch)))}
+
+
+def s12_preempt():
+    """ResNet-32 for S12_EPOCHS epochs straight, then the same run with a
+    SIGTERM before step S12_SIGTERM_AT (it saves and exits), then a
+    ``--resume`` run to the end, all under deterministic cuDNN: the two
+    ends must be bitwise equal (parameters, buffers, momentum, K-FAC state,
+    health counters), K1/K2 launched in every run. Then the blocking and
+    the asynchronous save of the final state, timed."""
+    import signal
+    from kfac_pytorch_tpu_torch import train_cifar
+    argv = S12_R32 + ['--epochs', str(S12_EPOCHS)]
+    dirs = [os.path.join(S12_DIR, n) for n in ('whole', 'cut', 'saves')]
+    step = train_cifar.Trainer.train_step
+
+    def preempting(self, batch):
+        if self.state.step == S12_SIGTERM_AT:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return step(self, batch)
+
+    with deterministic_cudnn():
+        whole, rw = s12_run('train_cifar',
+                            argv + ['--checkpoint-dir', dirs[0]])
+        train_cifar.Trainer.train_step = preempting
+        try:
+            cut, rc = s12_run('train_cifar',
+                              argv + ['--checkpoint-dir', dirs[1]])
+        finally:
+            train_cifar.Trainer.train_step = step
+        resumed, rr = s12_run('train_cifar', argv + ['--checkpoint-dir',
+                                                     dirs[1], '--resume'])
+    n_conv = sum(m.kind == 'conv' for m in whole.precond.plan.metas)
+    n_dense = len(whole.precond.plan.metas) - n_conv
+    total = S12_SPE * S12_EPOCHS
+    cut_at = S12_SIGTERM_AT + 1
+    for rec, steps, what in ((rw, total, 'uninterrupted'),
+                             (rc, cut_at, 'preempted'),
+                             (rr, total - cut_at, 'resumed')):
+        want = {'K1 conv_a': n_conv * steps,
+                'K2 stat_rows': (n_conv + 2 * n_dense) * steps}
+        got = {k: rec['launches'][k] for k in want}
+        if got != want:
+            fail(f'slice 12 {what} run: launches {got}, expected {want}')
+    if 'preempted in epoch 2' not in rc['log'] or cut.state.step != cut_at:
+        fail(f'slice 12: the SIGTERM did not stop the run in epoch 2 at '
+             f'step {cut_at} (step {cut.state.step})')
+    got, want = s12_state(resumed.state), s12_state(whole.state)
+    differ = sorted(k for k in want if k not in got
+                    or not torch.equal(got[k], want[k]))
+    if differ or resumed.state.step != whole.state.step:
+        fail(f'slice 12: the preempted and resumed run is not bitwise the '
+             f'uninterrupted one (step {resumed.state.step} against '
+             f'{whole.state.step}; {len(differ)} of {len(want)} tensors '
+             f'differ: {differ[:8]})')
+    saves = {'block': save_ms(resumed, dirs[2], 0, True),
+             'async': save_ms(resumed, dirs[2], 1, False)}
+    print(f'slice 12 preemption: resnet32 bs128 eigen_dp, {S12_EPOCHS} '
+          f'epochs of {S12_SPE} steps; SIGTERM before step '
+          f'{S12_SIGTERM_AT}, saved at step {cut.state.step}, resumed '
+          f'{total - cut_at} steps in {rr["resume_s"]:.3f} s: '
+          f'{len(want)} tensors bitwise equal to the uninterrupted run '
+          f'(deterministic cuDNN); K1/K2 launches {rw["launches"]}, '
+          f'{rc["launches"]}, {rr["launches"]}; save_checkpoint of '
+          f'{saves["block"]["blob_bytes"]} bytes blocks '
+          f'{saves["block"]["blocked_ms"]:.1f} ms (block=True), '
+          f'{saves["async"]["blocked_ms"]:.1f} ms (block=False, durable '
+          f'after {saves["async"]["durable_ms"]:.1f})', flush=True)
+    launches = {k: rw['launches'][k] + rc['launches'][k] + rr['launches'][k]
+                for k in rw['launches']}
+    return launches, {'saves': saves, 'resume_s': rr['resume_s'],
+                      'tensors': len(want)}
+
+
+def _move_lines(log, old, new, step):
+    lines = [f'RESHARDED from_world={old} to_world={new} step={step}',
+             f'WORLD_RESCALE from_world={old} to_world={new} '
+             'global_batch=']
+    bad = [ln for ln in lines if ln not in log]
+    m = [ln for ln in log.splitlines() if ln.startswith('WORLD_RESCALE')]
+    if bad or not m or not m[0].endswith('lr_factor=1'):
+        fail(f'slice 12 move {old} -> {new}: the log lacks {bad} or '
+             f'lr_factor=1: {log[-600:]}')
+
+
+def _check_move(name, before, rec):
+    """The rows after a move against the owners' rows before it, and the
+    first step after it preconditioning with the carried decomposition."""
+    differ = sorted(k for k in before if rec['rows'].get(k) != before[k])
+    if differ or set(rec['rows']) != set(before):
+        fail(f'slice 12 {name}: {len(differ)} of {len(before)} factor '
+             f'blocks and decomposition rows not bitwise the old owners\' '
+             f'(first {differ[:6]})')
+    if not rec['decomposed'] or (rec.get('first_phases') is not None
+                                 and 'pred' not in rec['first_phases']):
+        fail(f'slice 12 {name}: the decomposition was not carried '
+             f'(decomposed {rec["decomposed"]}, first step phases '
+             f'{rec.get("first_phases")})')
+
+
+def _merged(recs, key):
+    out = {}
+    for r in recs:
+        out.update(r[key])
+    return out
+
+
+def s12_moves():
+    """ResNet-32 MPD eigen: world 2 over bf16 (one epoch, checkpoint),
+    world 1 over fp32 (resume: the residual dropped; one epoch,
+    checkpoint), world 2 over bf16 (resume; one epoch). Every move carries
+    each layer's true factor blocks and decomposition rows bitwise from
+    their old owners, prints RESHARDED and WORLD_RESCALE (lr_factor=1),
+    and preconditions from its first step; the world-2 runs launch K3 and
+    end with bitwise replicas."""
+    from kfac_pytorch_tpu_torch import launch
+    d = os.path.join(S12_DIR, 'moves')
+    bf16 = ['--kfac-comm-precision', 'bf16', '--checkpoint-dir', d]
+    w2 = launch.spawn(s12_rank, 2, backend='gloo', timeout=300, args=(
+        'train_cifar', S12_MOVE + bf16 + ['--epochs', '1']))
+    w1_tr, w1 = s12_run('train_cifar', S12_MOVE + [
+        '--kfac-comm-precision', 'fp32', '--checkpoint-dir', d, '--resume',
+        '--epochs', '2'])
+    w1_end = owner_rows(w1_tr.precond, w1_tr.state.kfac_state, 0)
+    nb = len(w1_tr.precond.plan.bucket_dims)
+    if w1_tr.state.kfac_state.comm_err is not None:
+        fail('slice 12: the lossy checkpoint kept its residual in the fp32 '
+             'world-1 run')
+    del w1_tr
+    w2b = launch.spawn(s12_rank, 2, backend='gloo', timeout=300, args=(
+        'train_cifar', S12_MOVE + bf16 + ['--resume', '--epochs', '3']))
+    w2_blob = os.path.getsize(os.path.join(d, 'checkpoint-0.pt'))
+    _move_lines(w1['log'], 2, 1, S12_SPE)
+    _move_lines(w2b[0]['log'], 1, 2, 2 * S12_SPE)
+    _check_move('world 2 -> 1', _merged(w2, 'rows_end'), w1)
+    for r, rec in enumerate(w2b):
+        _check_move(f'world 1 -> 2 (rank {r})',
+                    {k: v for k, v in w1_end.items() if k in rec['rows']},
+                    rec)
+    if set(_merged(w2b, 'rows')) != set(w1_end):
+        fail('slice 12 world 1 -> 2: the ranks do not own every row')
+    for rec in [w1] + w2 + w2b:
+        n = rec['launches']
+        if not (n['K1 conv_a'] and n['K2 stat_rows']):
+            fail(f'slice 12 moves: K1/K2 did not launch: {rec["launches"]}')
+    for r, rec in enumerate(w2 + w2b):
+        if rec['launches']['K3 ef_quantize'] != nb * S12_SPE:
+            fail(f'slice 12 world-2 rank {r % 2}: K3 launched '
+                 f'{rec["launches"]["K3 ef_quantize"]} times, expected '
+                 f'{nb * S12_SPE}')
+        if not rec['residual_norm']:
+            fail(f'slice 12 world-2 rank {r % 2}: no residual')
+        if 'replicas: 2 ranks bitwise identical' not in rec['log'] \
+                and r % 2 == 0:
+            fail('slice 12: the world-2 replicas differ')
+    print(f'slice 12 moves: resnet32 eigen, world 2 (bf16) -> 1 (fp32) -> 2 '
+          f'(bf16), {S12_SPE} steps each: every true factor block and '
+          f'decomposition row bitwise the old owner\'s, the lossy '
+          f'residual dropped at world 1, preconditioned from the first '
+          f'step; the world-2 checkpoint {w2_blob} bytes; resume '
+          f'{w1["resume_s"]:.3f} s (2 -> 1), '
+          f'{w2b[0]["resume_s"]:.3f} s (1 -> 2, rank 0); launches world 1 '
+          f'{w1["launches"]}, world 2 rank 0 {w2[0]["launches"]}',
+          flush=True)
+    world2 = {k: sum(rec['launches'][k] for rec in w2 + w2b)
+              for k in w1['launches']}
+    return w1['launches'], world2, {
+        'world2_blob_bytes': w2_blob,
+        'resume_s': {'2to1': w1['resume_s'], '1to2': w2b[0]['resume_s']}}
+
+
+def s12_resnet50():
+    """The ImageNet trainer, ResNet-50 bs32 bf16 at world 2 (two gloo ranks
+    on the card) for 2 steps and a checkpoint, resumed at world 1: every
+    true factor block and decomposition row bitwise its old owner's. Then
+    the blocking and the asynchronous save, timed."""
+    from kfac_pytorch_tpu_torch import launch
+    d = os.path.join(S12_DIR, 'resnet50')
+    argv = S12_R50 + ['--checkpoint-format', d]
+    w2 = launch.spawn(s12_rank, 2, backend='gloo', timeout=600,
+                      args=('train_imagenet', argv))
+    tr, w1 = s12_run('train_imagenet', argv)
+    _move_lines(w1['log'], 2, 1, 2)
+    _check_move('resnet50 world 2 -> 1', _merged(w2, 'rows_end'), w1)
+    n_conv = sum(m.kind == 'conv' for m in tr.precond.plan.metas)
+    n_dense = len(tr.precond.plan.metas) - n_conv
+    want = {'K1 conv_a': 2 * n_conv,
+            'K2 stat_rows': 2 * (n_conv + 2 * n_dense)}
+    for r, rec in enumerate(w2):
+        if {k: rec['launches'][k] for k in want} != want:
+            fail(f'slice 12 resnet50 world-2 rank {r}: launches '
+                 f'{rec["launches"]}, expected {want}')
+    blob = os.path.getsize(os.path.join(d, 'checkpoint-0.pt'))
+    shutil.rmtree(d, ignore_errors=True)
+    saves = {'block': save_ms(tr, d, 0, True),
+             'async': save_ms(tr, d, 1, False)}
+    del tr
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f'slice 12 resnet50: world 2 (gloo, one card) 2 steps, a '
+          f'{blob}-byte checkpoint, resumed at world 1 in '
+          f'{w1["resume_s"]:.3f} s with every true factor block and '
+          f'decomposition row bitwise the old owner\'s; save_checkpoint '
+          f'of {saves["block"]["blob_bytes"]} bytes blocks '
+          f'{saves["block"]["blocked_ms"]:.1f} ms (block=True), '
+          f'{saves["async"]["blocked_ms"]:.1f} ms (block=False, durable '
+          f'after {saves["async"]["durable_ms"]:.1f})', flush=True)
+    launches = {k: sum(rec['launches'][k] for rec in w2) for k in want}
+    return launches, {'world2_blob_bytes': blob, 'saves': saves,
+                      'resume_s': w1['resume_s']}
+
+
+def run_slice12():
+    """The slice-12 phase; returns the launches by path and the numbers."""
+    t0 = time.perf_counter()
+    shutil.rmtree(S12_DIR, ignore_errors=True)
+    launches, out = {}, {}
+    launches['resnet32_slice12_preempt'], out['preempt'] = s12_preempt()
+    w1, w2, out['moves'] = s12_moves()
+    launches['resnet32_slice12_world1'] = w1
+    launches['resnet32_slice12_world2'] = w2
+    r50, out['resnet50'] = s12_resnet50()
+    shutil.rmtree(S12_DIR, ignore_errors=True)
+    out['seconds'] = time.perf_counter() - t0
+    print(f'slice 12 phase: {out["seconds"]:.1f} s', flush=True)
+    return launches, r50, out
+
+
 def build_kernels():
     """Compile every ``csrc/*.cu`` at once (one nvcc each), then load."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3471,10 +3859,14 @@ def main():
     slice10 = run_slice10()
     lap('slice 10')
 
+    # slice 12: checkpoints, preemption and the world moves
+    s12_launches, s12_r50, slice12 = run_slice12()
+
     kernels = kernel_summary(rows, {'resnet32': launches,
                                     'transformer_lm': lm_launches,
-                                    **w2_launches})
-    kernels += kernel_summary(r50_rows, {'resnet50': r50_launches},
+                                    **w2_launches, **s12_launches})
+    kernels += kernel_summary(r50_rows, {'resnet50': r50_launches,
+                                         'resnet50_slice12_world2': s12_r50},
                               names=('K1 conv_a', 'K2 stat_rows'),
                               suffix=' (resnet50 bf16)')
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -3486,7 +3878,7 @@ def main():
                                'resnet32_world2_eigen_bf16': w2['step_ms'],
                                'resnet50': r50_times},
                    'world2': w2, 'nccl': nccl, 'slice9': slice9,
-                   'slice10': slice10,
+                   'slice10': slice10, 'slice12': slice12,
                    'resnet50': {'decomposition': decomp,
                                 'resume': {k: v for k, v in resume.items()
                                            if k != 'differ'},

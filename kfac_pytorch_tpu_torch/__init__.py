@@ -13,6 +13,7 @@ from kfac_pytorch_tpu_torch.preconditioner import (  # noqa: F401
     KFAC, KFACHyperParams, KFACState)
 from kfac_pytorch_tpu_torch.scheduler import KFACParamScheduler  # noqa: F401
 from kfac_pytorch_tpu_torch import capture, nn, ops  # noqa: F401
+from kfac_pytorch_tpu_torch import resilience  # noqa: F401
 
 KFAC_VARIANTS = ('inverse', 'eigen', 'inverse_dp', 'eigen_dp', 'ekfac',
                  'ekfac_dp')
@@ -42,4 +43,5 @@ def DP_KFAC(*args, inv_type='eigen', **kwargs):
 __all__ = [
     'KFAC', 'KFACHyperParams', 'KFACState', 'KFACParamScheduler',
     'KFAC_VARIANTS', 'get_kfac_module', 'DP_KFAC', 'capture', 'nn', 'ops',
+    'resilience',
 ]

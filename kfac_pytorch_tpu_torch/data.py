@@ -9,9 +9,9 @@ Batches are host numpy dicts, ``{'input': [B, H, W, 3] float32 NHWC,
 'label': [B] int64}`` for CIFAR and ImageNet, and ``{'input': [B, L]
 int32 tokens, 'label': [B, L] int32 next tokens}`` for the LM, drawn from
 the same seeded streams as the JAX package's, so both packages see the
-same batches. Not ported yet: the loader's ``retry`` (RetryPolicy,
-ROADMAP queue 1, item 13), its multi-host ``shard`` and its fault hook
-(slice G).
+same batches. ``Loader.epoch(retry=)`` survives a transient producer
+failure (``resilience.resumable_iter``). Not ported yet: the loader's
+multi-host ``shard`` and its fault hook (ROADMAP queue 1, slice G).
 """
 
 import collections
@@ -219,14 +219,28 @@ class Loader:
         self.rng = np.random.RandomState(seed)
         self.steps_per_epoch = len(x) // batch_size
 
-    def epoch(self, prefetch_depth=2):
+    def epoch(self, prefetch_depth=2, retry=None):
         """One epoch of batches, assembled ``prefetch_depth`` ahead on a
         background thread (:func:`prefetch`; 0 = synchronous). The child
         seed is drawn here, at the call, so the batch sequence is the same
-        at any depth and however far the producer ran ahead."""
+        at any depth and however far the producer ran ahead.
+
+        ``retry``: a ``resilience.RetryPolicy`` for the next-batch path: a
+        transient producer failure rebuilds the epoch from the same seed
+        and fast-forwards past the batches already delivered
+        (``resilience.resumable_iter``), so the consumer sees the
+        unfaulted sequence; a failure that outlasts the policy raises."""
         seed = self.rng.randint(1 << 31)
-        return prefetch(self._epoch_sync(np.random.RandomState(seed)),
-                        depth=prefetch_depth)
+
+        def make():
+            return prefetch(self._epoch_sync(np.random.RandomState(seed)),
+                            depth=prefetch_depth)
+
+        if retry is None:
+            return make()
+        from kfac_pytorch_tpu_torch.resilience.retry import resumable_iter
+        return PrefetchIterator(resumable_iter(make, policy=retry,
+                                               label='next-batch'))
 
     def _epoch_sync(self, rng):
         idx = np.arange(len(self.x))

@@ -28,7 +28,8 @@ import time
 import traceback
 
 #: trainer name -> module
-TRAINERS = {'train_cifar': 'kfac_pytorch_tpu_torch.train_cifar'}
+TRAINERS = {'train_cifar': 'kfac_pytorch_tpu_torch.train_cifar',
+            'train_imagenet': 'kfac_pytorch_tpu_torch.train_imagenet'}
 
 USAGE = ('usage: python -m kfac_pytorch_tpu_torch.launch --nproc N '
          '[--master-port P] -- TRAINER [trainer flags]; trainers: '

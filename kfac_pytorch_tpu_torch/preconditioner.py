@@ -19,7 +19,9 @@ which replace the eigenvalue products in the preconditioner; 'ekfac_dp'
 computes them from each rank's own batch and never communicates them.
 
 ``replan`` rebuilds the plan mid-run (variant, comm_mode, the staggered
-cohorts' per-bucket cadence) and carries the state into it, at world=1.
+cohorts' per-bucket cadence, the world) and carries the state into it:
+on the host for a whole world's states, or, with a live process group,
+through a host gather of every rank's rows.
 
 ``step`` maps ``(state, grads, captured a/g) -> (preconditioned grads,
 new state)`` and leaves its inputs untouched, like the JAX version; the
@@ -135,16 +137,14 @@ def _warn_ekfac_damping_once(damping):
 
 #: what replan does not do yet, by the ROADMAP item that brings it
 _REPLAN_LATER = {
-    'group': 'a replan at world>1 (the per-rank decomposition rows must be '
-             'gathered, not carried) is not ported yet: ROADMAP queue 1, '
-             'item 13 (the elastic lane, with slice B\'s leftovers)',
-    'num_devices': 'replan(num_devices=) is not ported yet: ROADMAP queue 1, '
-                   'item 13 (the elastic lane, with slice B\'s leftovers)',
     'mesh_axes': 'replan(mesh_axes=) is not ported yet: ROADMAP queue 1, '
                  'slice E (composed meshes)',
     'arbiter': 'the knob arbiter is not ported yet: ROADMAP queue 1, '
                'slice F item 22 (autotune)',
 }
+
+#: ``replan``'s default ``group``: keep the current one
+_UNCHANGED = object()
 
 
 class KFAC:
@@ -473,35 +473,44 @@ class KFAC:
 
     def replan(self, kfac_state=None, *, comm_mode=None, num_devices=None,
                bucket_overrides=None, variant=None, mesh_axes=None,
-               _invalidate=True):
+               group=_UNCHANGED, _invalidate=True):
         """Rebuild the plan (and the staggered cohort tables) mid-run and
-        carry ``kfac_state`` into the new layout, at world=1; returns the
-        carried state (None for ``kfac_state=None``: plan only).
+        carry ``kfac_state`` into the new layout; returns the carried state
+        (None for ``kfac_state=None``: plan only).
 
         ``variant`` switches the family (stats_reduce, method, comm_mode
         and E-KFAC re-derive from the variant table; an explicit
         ``comm_mode`` still wins); ``comm_mode`` switches the road alone;
         ``bucket_overrides`` sets a staggered preconditioner's per-bucket
         cadence ``{bucket dim: stretch}`` (powers of two <= 64; ``{}``
-        clears). Where the row layout, the method, the residual and (for
-        E-KFAC) the comm mode all stay, the state is carried verbatim:
-        the same object, not a byte moved. Otherwise it is transported by
-        :func:`utils.checkpoint.reshard_kfac_state` with ``carry_decomp``:
-        the factor EMAs and step exactly, a same-method decomposition row
-        for row, and a cross-method switch leaves a zero decomposition
-        that the next inverse update rebuilds from the carried factors
-        (until then the trainer passes gradients through). E-KFAC moments
-        are comm-mode shaped and restart from zero when not carried.
+        clears); ``num_devices`` moves to another world (the elastic
+        lane), and ``group`` (JAX's ``axis_name``) names its process group
+        (None: no group; default the current one, which must then have
+        ``num_devices`` ranks). Where the row layout, the method, the
+        residual and (for E-KFAC) the comm mode all stay, the state is
+        carried verbatim: the same object, not a byte moved. Otherwise it
+        is transported by :func:`utils.checkpoint.reshard_kfac_state` with
+        ``carry_decomp``: the factor EMAs and step exactly, a same-method
+        decomposition row for row, and a cross-method switch leaves a zero
+        decomposition that the next inverse update rebuilds from the
+        carried factors (until then the trainer passes gradients through).
+        E-KFAC moments and the error-feedback residual are comm-mode or
+        world shaped and restart from zero when not carried.
+
+        Without a group ``kfac_state`` is the whole world's state: the
+        world=1 state, or the list of every rank's states in rank order,
+        and the new world's comes back the same way. With a live group
+        (``self.group``) it is this rank's state: every rank must call
+        the replan, the ranks' rows are gathered on the host, and this
+        rank's entry of the new world comes back (its rank in the new
+        group; the whole list when the new world has no group).
 
         The new plan and state are built before any attribute changes, so
         a failed replan leaves the preconditioner as it was. A replan
         that changes what a step computes calls the invalidators once.
-        ``num_devices`` (another world), a preconditioner with a process
-        group, and ``mesh_axes`` raise NotImplementedError naming their
-        ROADMAP item."""
+        ``mesh_axes`` and ``_invalidate=False`` raise NotImplementedError
+        naming their ROADMAP item."""
         assert self.plan is not None, 'call setup() first'
-        if self.group is not None or self.num_devices != 1:
-            raise NotImplementedError(_REPLAN_LATER['group'])
         if mesh_axes is not None:
             raise NotImplementedError(_REPLAN_LATER['mesh_axes'])
         if not _invalidate:
@@ -524,12 +533,14 @@ class KFAC:
         new_reduce = (self.stats_reduce if variant is None
                       else cfg['stats_reduce'])
         new_ekfac = self.ekfac if variant is None else cfg.get('ekfac', False)
-        if num_devices is not None:
-            if int(num_devices) < 1:
-                raise ValueError(f'num_devices must be >= 1, got '
-                                 f'{num_devices}')
-            if int(num_devices) != self.num_devices:
-                raise NotImplementedError(_REPLAN_LATER['num_devices'])
+        new_P = self.num_devices if num_devices is None else int(num_devices)
+        if new_P < 1:
+            raise ValueError(f'num_devices must be >= 1, got {new_P}')
+        new_group = self.group if group is _UNCHANGED else group
+        if new_group is not None and coll.axis_size(new_group) != new_P:
+            raise ValueError(f'num_devices={new_P} but the group has '
+                             f'{coll.axis_size(new_group)} ranks (pass '
+                             'group= for the new world)')
         new_overrides = self._replan_overrides(bucket_overrides, old_plan)
 
         # -- the constructor's rules, checked again
@@ -559,12 +570,12 @@ class KFAC:
         distribute = self.distribute_layer_factors
         if distribute is None and new_variant in ('eigen', 'ekfac'):
             distribute = (new_mode != 'pred'
-                          and self.num_devices > len(old_plan.metas))
+                          and new_P > len(old_plan.metas))
         distribute = bool(distribute) and new_mode != 'pred'
 
         # -- build the new plan and the carried state first
         new_plan = build_plan({m.name: m for m in old_plan.metas},
-                              num_devices=self.num_devices,
+                              num_devices=new_P,
                               comm_mode=new_mode,
                               assignment=self.assignment,
                               distribute_layer_factors=distribute,
@@ -573,12 +584,15 @@ class KFAC:
         clone.variant, clone.stats_reduce = new_variant, new_reduce
         clone.method, clone.comm_mode = new_method, new_mode
         clone.ekfac, clone.plan = new_ekfac, new_plan
+        clone.num_devices, clone.group = new_P, new_group
         clone.bucket_stagger_freq = new_overrides
         clone._cohorts = clone._shard_plan = None
         same_layout = same_row_layout(old_plan, new_plan)
         new_state = kfac_state
         verbatim = False
         if kfac_state is not None:
+            first = (kfac_state[0] if isinstance(kfac_state, list)
+                     else kfac_state)
             verbatim = (
                 same_layout and self.method == new_method
                 # the moments are comm-mode shaped; the residual exists
@@ -587,31 +601,29 @@ class KFAC:
                      or (self.ekfac == new_ekfac
                          and self.comm_mode == new_mode))
                 and self.tracks_comm_err == clone.tracks_comm_err
-                and ((kfac_state.comm_err is None)
+                and ((first.comm_err is None)
                      == (not clone.tracks_comm_err)))
             if not verbatim:
-                from kfac_pytorch_tpu_torch.utils.checkpoint import \
-                    reshard_kfac_state
-                new_state = reshard_kfac_state(self, clone, kfac_state,
-                                               carry_decomp=True)
+                new_state = self._transport(clone, kfac_state)
 
         # -- commit every attribute together
         trace_changed = (
             not same_layout or new_mode != self.comm_mode
             or new_method != self.method or new_reduce != self.stats_reduce
-            or new_ekfac != self.ekfac
+            or new_ekfac != self.ekfac or new_group is not self.group
             or new_overrides != self.bucket_stagger_freq)
         if new_ekfac and not self.ekfac:
             _warn_ekfac_damping_once(self.damping)
         self.variant, self.stats_reduce = new_variant, new_reduce
         self.method, self.comm_mode = new_method, new_mode
         self.ekfac, self.plan = new_ekfac, new_plan
+        self.num_devices, self.group = new_P, new_group
         self.bucket_stagger_freq = new_overrides
         self._cohorts = self._shard_plan = None
         if self.stagger:
             self.rebase_cohorts()
-        log.info('kfac: replan applied variant=%s comm_mode=%s%s (layout '
-                 '%s, state %s)', new_variant, new_mode,
+        log.info('kfac: replan applied variant=%s comm_mode=%s world=%d%s '
+                 '(layout %s, state %s)', new_variant, new_mode, new_P,
                  f' bucket_overrides={new_overrides}' if new_overrides
                  else '', 'unchanged' if same_layout else 'rebuilt',
                  'carried verbatim' if verbatim else
@@ -620,6 +632,29 @@ class KFAC:
             for fn in self._invalidators:
                 fn()
         return new_state
+
+    def _transport(self, clone, kfac_state):
+        """``kfac_state`` carried from this preconditioner's layout into
+        ``clone``'s by ``reshard_kfac_state`` (``carry_decomp``): through
+        a host gather of every rank's state when this preconditioner has
+        a live group, and down to this rank's entry when ``clone`` has
+        one."""
+        from kfac_pytorch_tpu_torch.utils.checkpoint import (
+            kfac_state_to, reshard_kfac_state)
+        dev = None
+        if self.group is not None:
+            dev = next(iter(kfac_state.factors.values())).device
+            states = [None] * self.num_devices
+            torch.distributed.all_gather_object(
+                states, kfac_state_to(kfac_state, 'cpu'), group=self.group)
+            kfac_state = states
+        out = reshard_kfac_state(self, clone, kfac_state, carry_decomp=True)
+        if clone.group is not None and isinstance(out, list):
+            out = out[coll.axis_index(clone.group)]
+        if dev is not None:
+            out = ([kfac_state_to(st, dev) for st in out]
+                   if isinstance(out, list) else kfac_state_to(out, dev))
+        return out
 
     def _replan_overrides(self, bucket_overrides, plan):
         """The validated per-bucket cadence of a replan (the current one

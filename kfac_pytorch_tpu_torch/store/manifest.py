@@ -110,3 +110,14 @@ def blob_problem(data, spec):
 def verify_blob(store, key, spec):
     """:func:`blob_problem` of the stored object ``key``."""
     return blob_problem(store.get(key), spec)
+
+
+def verify_epoch(store, manifest):
+    """``[(key, reason)]`` for every blob of ``manifest`` that fails
+    :func:`verify_blob`, in key order: empty when the epoch is intact."""
+    problems = []
+    for key in sorted(manifest['blobs']):
+        reason = verify_blob(store, key, manifest['blobs'][key])
+        if reason is not None:
+            problems.append((key, reason))
+    return problems

@@ -9,8 +9,13 @@ old object or the new one, never a torn one under the final name. Temp
 files are never listed.
 """
 
+import collections
 import contextlib
+import hashlib
 import os
+
+#: a ``head`` result: the object's generation token and its size
+Meta = collections.namedtuple('Meta', ['generation', 'size'])
 
 #: the part of the name of a temp file that a write in flight leaves
 _TMP_MARKER = '.tmp-'
@@ -44,6 +49,24 @@ class PosixStore:
                 return f.read()
         except (FileNotFoundError, IsADirectoryError):
             return None
+
+    def head(self, key):
+        """``(generation, size)`` of the object, or None when it does not
+        exist. The generation is the JAX store's token, a content hash
+        (the first 16 hex digits of the sha256), so a head reads the
+        bytes."""
+        data = self.get(key)
+        if data is None:
+            return None
+        return Meta(hashlib.sha256(data).hexdigest()[:16], len(data))
+
+    def delete(self, key):
+        """Remove the object; whether it existed."""
+        try:
+            os.remove(self._path(key))
+            return True
+        except FileNotFoundError:
+            return False
 
     def list(self, prefix=''):
         """Sorted keys starting with ``prefix``; temp files left by a write

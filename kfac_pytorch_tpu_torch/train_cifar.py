@@ -18,6 +18,23 @@ Fisher from labels sampled from the model (seeded by ``--seed``). At
 ``--num-devices`` > 1 each rank is one process (started by the launcher,
 which sets ``--num-devices``), ``--batch-size`` is the GLOBAL batch and
 rank r trains on its rows ``[r*B/P, (r+1)*B/P)``; rank 0 prints.
+
+Durability, as in the JAX trainer: with ``--checkpoint-dir`` the run
+stamps its world there (``world.json``), saves every epoch without
+blocking the next one (``save_checkpoint(block=False)``), keeps the
+``--keep-checkpoints`` newest, and on SIGTERM saves its state (tagged
+with the last completed epoch) and exits. ``--resume`` resumes from the
+newest restorable checkpoint through ``resilience.elastic_resume``, at
+the checkpoints' world or another (a world change prints ``RESHARDED``
+and ``WORLD_RESCALE`` lines), and continues at the batch after the last
+one the state took (the JAX trainer replays an interrupted epoch from its
+start). ``--io-retries`` retries checkpoint I/O and the next batch;
+``--speed`` prints images/s of warm steps and exits. A world change::
+
+  python -m kfac_pytorch_tpu_torch.launch --nproc 2 -- train_cifar \\
+      --checkpoint-dir D --epochs 2
+  python -m kfac_pytorch_tpu_torch.train_cifar --checkpoint-dir D \\
+      --resume --epochs 4
 """
 
 import argparse
@@ -29,10 +46,12 @@ import torch.nn.functional as F
 import kfac_pytorch_tpu_torch as kfac
 from kfac_pytorch_tpu_torch import data as kdata
 from kfac_pytorch_tpu_torch import models, training, utils
-from kfac_pytorch_tpu_torch.parallel import collectives as coll
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
 from kfac_pytorch_tpu_torch.train_imagenet import (add_decomp_flags,
-                                                   decomp_kwargs)
+                                                   init_world, io_retry,
+                                                   kfac_for, resume_from,
+                                                   speed, stamp_world)
+from kfac_pytorch_tpu_torch.utils import checkpoint
 
 
 def parse_args(argv=None):
@@ -98,6 +117,19 @@ def parse_args(argv=None):
                    help='cut each epoch to this many steps (default: the '
                         'whole training set)')
     p.add_argument('--seed', type=int, default=42)
+    p.add_argument('--speed', action='store_true',
+                   help='SPEED mode: time ~60 iterations and exit')
+    p.add_argument('--checkpoint-dir', default=None)
+    p.add_argument('--keep-checkpoints', type=int, default=0,
+                   help='retain only the N newest checkpoints '
+                        '(0 = keep all, reference behavior)')
+    p.add_argument('--resume', action='store_true',
+                   help='auto-resume from the newest readable checkpoint '
+                        'in --checkpoint-dir (scan-downward), at its world '
+                        'or another')
+    p.add_argument('--io-retries', type=int, default=3,
+                   help='retry budget for checkpoint I/O and next-batch '
+                        'transients (0 = fail fast)')
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
     return p.parse_args(argv)
 
@@ -119,20 +151,10 @@ class Trainer:
 
     def __init__(self, args, group=None, local_rank=None):
         self.args = args
-        utils.resolve_device(args.device)   # no GPU: raise before the group
         world = args.num_devices
-        backend = args.dist_backend or ('gloo' if args.device == 'cpu'
-                                        else 'nccl')
-        if group is None and world > 1:
-            group = kmesh.maybe_initialize_distributed(backend, world)
-        if coll.axis_size(group) != world:
-            raise ValueError(f'--num-devices {world} but the process group '
-                             f'has {coll.axis_size(group)} ranks')
-        self.group, self.world = group, world
-        self.rank = coll.axis_index(group)
-        if world > 1 and local_rank is None:
-            local_rank = kmesh.local_rank()
-        self.device = utils.resolve_device(args.device, local_rank)
+        self.group, self.rank, self.device = init_world(args, group,
+                                                        local_rank)
+        self.world = world
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         num_classes = 10 if args.dataset == 'cifar10' else 100
@@ -156,18 +178,10 @@ class Trainer:
             scale=max(1, world * args.batch_size // 128))
         self.tx = training.sgd(self.lr_fn, momentum=args.momentum,
                                weight_decay=args.wd)
+        self.io_retry = io_retry(args)
         self.precond = self.scheduler = None
         if args.kfac_update_freq > 0:
-            self.precond = kfac.get_kfac_module(args.kfac_name)(
-                lr=args.base_lr, damping=args.damping,
-                fac_update_freq=args.kfac_cov_update_freq,
-                kfac_update_freq=args.kfac_update_freq,
-                capture_impl=args.kfac_capture_impl,
-                comm_precision=args.kfac_comm_precision,
-                comm_mode=args.kfac_comm_mode,
-                kl_clip=args.kl_clip, factor_decay=args.stat_decay,
-                num_devices=world, group=group,
-                assignment=args.assignment, **decomp_kwargs(args))
+            self.precond = kfac_for(args, world, self.group)
             self.scheduler = kfac.KFACParamScheduler(
                 self.precond, damping_alpha=args.damping_alpha,
                 damping_schedule=args.damping_decay,
@@ -179,6 +193,38 @@ class Trainer:
         self.step_fn = training.build_train_step(
             model, self.tx, self.precond, loss_fn,
             fisher_type=args.kfac_type, fisher_seed=args.seed)
+
+    def say(self, *args, **kw):
+        """``print`` on rank 0."""
+        if self.rank == 0:
+            print(*args, flush=True, **kw)
+
+    def resume(self):
+        """Resume from ``--checkpoint-dir`` when ``--resume`` is given
+        (``train_imagenet.resume_from``): returns ``(epoch, batches)``,
+        the epoch to start at and how many of its batches the restored
+        state already took (``(0, 0)`` without a checkpoint). The
+        scheduler steps to that epoch and the loader draws the seeds of
+        the epochs before it, so the resumed run sees the batches an
+        uninterrupted one would."""
+        args = self.args
+        if not (args.resume and args.checkpoint_dir) or resume_from(
+                self, args.checkpoint_dir) is None:
+            return 0, 0
+        start, done = divmod(int(self.state.step),
+                             self.train_loader.steps_per_epoch)
+        if self.scheduler is not None:
+            self.scheduler.step(start)
+        for _ in range(start):
+            self.train_loader.rng.randint(1 << 31)
+        return start, done
+
+    def save(self, epoch, block=True):
+        """Checkpoint ``epoch`` of the state to ``--checkpoint-dir`` (every
+        rank calls it; rank 0 writes)."""
+        checkpoint.save_checkpoint(self.args.checkpoint_dir, epoch,
+                                   self.state, block=block,
+                                   retry=self.io_retry, group=self.group)
 
     def to_device(self, batch):
         """This rank's rows of a global host batch, on the device."""
@@ -217,33 +263,82 @@ class Trainer:
         return loss / n, acc / n
 
 
-def main(argv=None):
+def main(argv=None, group=None):
+    """Run the trainer (in ``group`` if given, as ``launch.spawn`` gives
+    one; else the launcher's group at world>1); returns it, its final
+    state in ``.state``."""
     args = parse_args(argv)
-    tr = Trainer(args)
-    say = print if tr.rank == 0 else (lambda *a, **k: None)
+    tr = Trainer(args, group=group)
+    start_epoch, done = tr.resume()
+    if args.speed:
+        speed(tr)
+        return tr
+    ckdir = args.checkpoint_dir
+    if ckdir:
+        # the world stamp routes a relaunch at another world through the
+        # reshard; the lineage fences a fork's straggler out
+        stamp_world(tr, ckdir)
+    guard = checkpoint.PreemptionGuard(group=tr.group)
     # skipped batches and ladder climbs as WARNINGs at their step, and a
     # per-epoch suffix
     monitor = utils.HealthMonitor(state=tr.state)
-    for epoch in range(args.epochs):
-        t0 = time.time()
-        total = count = 0.0
-        with tr.train_loader.epoch() as batches:
-            for batch in batches:
-                m = tr.train_step(batch)
-                total += float(m['loss']) * len(batch['label'])
-                count += len(batch['label'])
-                monitor.update(m, step=tr.state.step - 1)
-        vl, va = tr.evaluate()
-        say(f'epoch {epoch}: train_loss {total / count:.4f} '
-            f'val_loss {vl:.4f} val_acc {va:.4f} ({time.time() - t0:.1f}s)'
-            f'{utils.health_suffix(monitor.epoch_flush())}', flush=True)
-        if tr.scheduler is not None:
-            tr.scheduler.step(epoch + 1)
-    if tr.world > 1:
-        if not tr.replicas_agree():
-            raise RuntimeError('the ranks\' parameters and buffers differ')
-        say(f'replicas: {tr.world} ranks bitwise identical', flush=True)
-        torch.distributed.destroy_process_group()
+    try:
+        for epoch in range(start_epoch, args.epochs):
+            t0 = time.time()
+            total = count = 0.0
+            with tr.train_loader.epoch(retry=tr.io_retry) as batches:
+                for batch in batches:
+                    if done:    # taken before the resumed checkpoint
+                        done -= 1
+                        continue
+                    if guard.should_stop(tr.state.step):
+                        break
+                    m = tr.train_step(batch)
+                    total += float(m['loss']) * len(batch['label'])
+                    count += len(batch['label'])
+                    monitor.update(m, step=tr.state.step - 1)
+            if guard.should_stop():
+                # tagged with the last completed epoch; the resume goes on
+                # from the step the state holds
+                tag = max(epoch - 1, 0)
+                if ckdir:
+                    tr.save(tag)
+                    tr.say(f'preempted in epoch {epoch} (step '
+                           f'{tr.state.step}): state saved as '
+                           f'checkpoint-{tag}, exiting')
+                else:
+                    tr.say(f'preempted in epoch {epoch} (step '
+                           f'{tr.state.step}): no --checkpoint-dir '
+                           'configured, state lost')
+                return tr
+            vl, va = tr.evaluate()
+            tr.say(f'epoch {epoch}: train_loss {total / max(count, 1):.4f} '
+                   f'val_loss {vl:.4f} val_acc {va:.4f} '
+                   f'({time.time() - t0:.1f}s)'
+                   f'{utils.health_suffix(monitor.epoch_flush())}')
+            if tr.scheduler is not None:
+                tr.scheduler.step(epoch + 1)
+            if ckdir:
+                # the write hides behind the next epoch's compute
+                tr.save(epoch, block=False)
+                checkpoint.prune_checkpoints(ckdir, args.keep_checkpoints)
+            if guard.should_stop():
+                checkpoint.wait_for_checkpoints()
+                tr.say(f'preempted after epoch {epoch}: exiting')
+                return tr
+        checkpoint.wait_for_checkpoints()
+        if ckdir:
+            checkpoint.prune_checkpoints(ckdir, args.keep_checkpoints)
+        if tr.world > 1:
+            if not tr.replicas_agree():
+                raise RuntimeError('the ranks\' parameters and buffers '
+                                   'differ')
+            tr.say(f'replicas: {tr.world} ranks bitwise identical')
+            if group is None:
+                torch.distributed.destroy_process_group()
+    finally:
+        guard.uninstall()
+    return tr
 
 
 if __name__ == '__main__':

@@ -6,7 +6,7 @@ accumulated batches, 5 warmup epochs, wd 5e-5, label smoothing 0.1,
 (``--batches-per-allreduce``), the K-FAC scheduler, auto-resume from
 ``--checkpoint-format`` at start, a checkpoint every epoch, retention
 (``--keep-checkpoints``) and a SIGTERM save; plus ``--device`` (default
-``cuda``) and ``--steps-per-epoch``.
+``cuda``), ``--dist-backend`` and ``--steps-per-epoch``.
 
   python -m kfac_pytorch_tpu_torch.train_imagenet --kfac-capture-impl pallas
   python -m kfac_pytorch_tpu_torch.train_imagenet --kfac-name ekfac_dp \\
@@ -19,12 +19,18 @@ Reads ``images.npy``/``labels.npy`` from ``--train-dir`` when present,
 else the synthetic stand-in (``data.get_imagenet``), two batches ahead on
 a background thread (``data.Loader.epoch``). The numerical-health guard
 is on (``KFAC(health=True)``), its events logged at their step and
-summarized on the epoch line. World=1 only: flags
-of the JAX trainer whose features the port does not have yet raise
-NotImplementedError naming their ROADMAP item.
+summarized on the epoch line. At ``--num-devices`` > 1 each rank is one
+process (``python -m kfac_pytorch_tpu_torch.launch --nproc N --
+train_imagenet``), ``--batch-size`` is the GLOBAL batch and rank r trains
+on its rows, as in the CIFAR trainer; the run stamps its world beside its
+checkpoints and resumes through ``resilience.elastic_resume``, at that
+world or another. ``--io-retries`` retries checkpoint I/O and the next
+batch. Flags of the JAX trainer whose features the port does not have
+yet raise NotImplementedError naming their ROADMAP item.
 """
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -32,7 +38,9 @@ import torch
 
 import kfac_pytorch_tpu_torch as kfac
 from kfac_pytorch_tpu_torch import data as kdata
-from kfac_pytorch_tpu_torch import models, training, utils
+from kfac_pytorch_tpu_torch import models, resilience, training, utils
+from kfac_pytorch_tpu_torch.parallel import collectives as coll
+from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
 from kfac_pytorch_tpu_torch.utils import checkpoint
 from kfac_pytorch_tpu_torch.utils.losses import label_smoothing_cross_entropy
 
@@ -47,7 +55,6 @@ UNPORTED = [
                          'watchdog)'),
     ('straggler_budget', 0, 'queue 1, slice G item 23 (resilience: the '
                             'straggler governor)'),
-    ('io_retries', 0, 'queue 1, item 13 (RetryPolicy)'),
     ('exclude_parts', '', 'queue 1, slice B leftovers (exclude_parts)'),
 ]
 #: steps the --speed timer discards, then times (the JAX speed_report's)
@@ -93,7 +100,16 @@ def parse_args(argv=None):
                    default=None)
     p.add_argument('--assignment', default='balanced',
                    choices=['round_robin', 'balanced'])
-    p.add_argument('--num-devices', type=int, default=1)
+    p.add_argument('--num-devices', type=int, default=1,
+                   help='ranks of the K-FAC world; > 1 must be launched '
+                        '(python -m kfac_pytorch_tpu_torch.launch) and '
+                        'equal WORLD_SIZE')
+    p.add_argument('--dist-backend', default=None, choices=['nccl', 'gloo'],
+                   help='process-group backend (default nccl on the GPU, '
+                        'gloo with --device cpu)')
+    p.add_argument('--io-retries', type=int, default=3,
+                   help='retry budget for checkpoint I/O and next-batch '
+                        'transients (0 = fail fast)')
     p.add_argument('--seed', type=int, default=42)
     p.add_argument('--speed', action='store_true',
                    help='print images/s of warm, synchronized steps and '
@@ -113,7 +129,6 @@ def parse_args(argv=None):
     p.add_argument('--kfac-autotune', action='store_true')
     p.add_argument('--exclude-parts', default='')
     p.add_argument('--tb-dir', default=None)
-    p.add_argument('--io-retries', type=int, default=0)
     p.add_argument('--step-deadline', type=float, default=0)
     p.add_argument('--straggler-budget', type=float, default=0)
     p.add_argument('--trace', default=None)
@@ -177,10 +192,100 @@ def check_ported(args):
             flag = '--' + name.replace('_', '-')
             raise NotImplementedError(f'{flag} is not ported yet: ROADMAP '
                                       f'{item}')
-    if args.num_devices != 1:
-        raise NotImplementedError(
-            '--num-devices > 1 is not ported for the ImageNet trainer yet: '
-            'ROADMAP queue 1, item 13 (reshard_kfac_state, then world>1)')
+
+
+def io_retry(args):
+    """The ``resilience.RetryPolicy`` of ``--io-retries`` (that many
+    retries after the first attempt), or None for 0: the JAX trainers'
+    policy for checkpoint I/O and the next batch."""
+    if args.io_retries <= 0:
+        return None
+    return resilience.RetryPolicy(attempts=args.io_retries + 1)
+
+
+def kfac_for(args, world, group=None):
+    """The trainers' preconditioner from their K-FAC flags, at ``world``
+    ranks (``group`` their process group; None for the groupless host
+    structure of another world, as ``elastic_resume`` asks for)."""
+    return kfac.get_kfac_module(args.kfac_name)(
+        lr=args.base_lr, damping=args.damping,
+        fac_update_freq=args.kfac_cov_update_freq,
+        kfac_update_freq=args.kfac_update_freq,
+        capture_impl=args.kfac_capture_impl,
+        comm_precision=args.kfac_comm_precision,
+        comm_mode=args.kfac_comm_mode,
+        kl_clip=args.kl_clip, factor_decay=args.stat_decay,
+        num_devices=world, group=group,
+        assignment=args.assignment, **decomp_kwargs(args))
+
+
+def resume_from(tr, base_dir):
+    """Resume trainer ``tr`` (``args``, ``precond``, ``state``,
+    ``io_retry``, ``world``, ``say``) from the newest restorable
+    checkpoint in ``base_dir``, at the stamped world or another
+    (``resilience.elastic_resume``; a world change prints the
+    ``WORLD_RESCALE`` and ``RESHARDED`` lines). Returns the checkpoint's
+    epoch, or None without one."""
+    args = tr.args
+
+    def old_precond(world):
+        pre = kfac_for(args, world)
+        pre.setup(tr.precond.plan.metas)
+        return pre
+
+    def on_world_change(old_world, new_world):
+        # the loaders yield the GLOBAL batch at any world: it is the
+        # invariant, and the lr stays (lr_factor 1)
+        tr.say(training.world_change_rescale(
+            old_world, new_world, lr=args.base_lr,
+            global_batch=args.batch_size).log_line())
+
+    restored, epoch, old_world = resilience.elastic_resume(
+        base_dir, args.epochs, tr.precond, tr.state,
+        make_precond=old_precond, retry=tr.io_retry,
+        on_world_change=on_world_change)
+    if epoch is None:
+        return None
+    tr.state = restored
+    if old_world is not None:
+        tr.say(f'RESHARDED from_world={old_world} to_world={tr.world} '
+               f'step={tr.state.step}')
+    tr.say(f'resumed from checkpoint-{epoch} (step {tr.state.step})')
+    return epoch
+
+
+def stamp_world(tr, base_dir):
+    """Stamp ``tr``'s world beside its checkpoints in ``base_dir``
+    (``checkpoint.write_world_stamp``, with the pod generation and the
+    lineage from the environment), once every rank has read the old stamp
+    in its resume: a rank still resuming would otherwise read the new
+    world as the checkpoints'."""
+    if tr.group is not None:
+        torch.distributed.barrier(group=tr.group)
+    checkpoint.write_world_stamp(base_dir, tr.world,
+                                 gen=os.environ.get('KFAC_POD_GEN'),
+                                 lineage=os.environ.get('KFAC_LINEAGE'))
+
+
+def init_world(args, group=None, local_rank=None):
+    """``(group, rank, device)`` of a trainer at ``args.num_devices``
+    ranks: ``group`` if given (as ``launch.spawn`` gives one), else the
+    default group initialized from the launcher's environment; the rank
+    runs on ``cuda:local_rank`` (``LOCAL_RANK`` unless given). Raises
+    before any group is made when the GPU is asked for and absent."""
+    utils.resolve_device(args.device)
+    world = args.num_devices
+    backend = args.dist_backend or ('gloo' if args.device == 'cpu'
+                                    else 'nccl')
+    if group is None and world > 1:
+        group = kmesh.maybe_initialize_distributed(backend, world)
+    if coll.axis_size(group) != world:
+        raise ValueError(f'--num-devices {world} but the process group '
+                         f'has {coll.axis_size(group)} ranks')
+    if world > 1 and local_rank is None:
+        local_rank = kmesh.local_rank()
+    return group, coll.axis_index(group), utils.resolve_device(
+        args.device, local_rank)
 
 
 class Trainer:
@@ -190,10 +295,13 @@ class Trainer:
     scheduler, state and step. Matmuls and convolutions in fp32 run with
     TF32 off, the reference's precision."""
 
-    def __init__(self, args):
+    def __init__(self, args, group=None, local_rank=None):
         check_ported(args)
         self.args = args
-        self.device = utils.resolve_device(args.device)
+        self.group, self.rank, self.device = init_world(args, group,
+                                                        local_rank)
+        self.world = args.num_devices
+        self.io_retry = io_retry(args)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -219,27 +327,24 @@ class Trainer:
                                           args.batches_per_allreduce)
         self.precond = self.scheduler = None
         if args.kfac_update_freq > 0:
-            self.precond = kfac.get_kfac_module(args.kfac_name)(
-                lr=args.base_lr, damping=args.damping,
-                fac_update_freq=args.kfac_cov_update_freq,
-                kfac_update_freq=args.kfac_update_freq,
-                capture_impl=args.kfac_capture_impl,
-                comm_precision=args.kfac_comm_precision,
-                comm_mode=args.kfac_comm_mode,
-                kl_clip=args.kl_clip, factor_decay=args.stat_decay,
-                assignment=args.assignment, **decomp_kwargs(args))
+            self.precond = kfac_for(args, self.world, self.group)
             self.scheduler = kfac.KFACParamScheduler(
                 self.precond, damping_alpha=args.damping_alpha,
                 damping_schedule=args.damping_decay,
                 update_freq_alpha=args.kfac_update_freq_alpha,
                 update_freq_schedule=args.kfac_update_freq_decay)
-        sample = torch.zeros((args.batch_size, args.img_size, args.img_size,
-                              3))
+        sample = torch.zeros((args.batch_size // self.world, args.img_size,
+                              args.img_size, 3))
         self.state = training.init_train_state(model, self.tx, self.precond,
                                                sample, self.device)
         self.step_fn = training.build_train_step(
             model, self.tx, self.precond, self.loss_fn,
             input_dtype=self.dtype)
+
+    def say(self, *args, **kw):
+        """``print`` on rank 0."""
+        if self.rank == 0:
+            print(*args, flush=True, **kw)
 
     def loss_fn(self, outputs, batch):
         """Label-smoothed CE on the model's (bf16) logits."""
@@ -247,6 +352,9 @@ class Trainer:
             outputs, batch['label'], smoothing=self.args.label_smoothing)
 
     def to_device(self, batch):
+        """This rank's rows of a global host batch, on the device."""
+        if self.world > 1:
+            batch = kmesh.shard_batch(batch, self.rank, self.world)
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items()}
 
@@ -270,27 +378,27 @@ class Trainer:
         return loss / n, acc / n
 
     def resume(self):
-        """Auto-resume from the newest restorable checkpoint: returns the
-        epoch to start from (0 without one). The scheduler steps to it and
-        the loader draws the epochs it skips, so the resumed epochs see
-        the batches an uninterrupted run would."""
-        restored, epoch = checkpoint.auto_resume(
-            self.args.checkpoint_format, self.args.epochs, self.state)
+        """Auto-resume from ``--checkpoint-format`` (:func:`resume_from`):
+        returns the epoch to start from (0 without a checkpoint). The
+        scheduler steps to it and the loader draws the epochs it skips,
+        so the resumed epochs see the batches an uninterrupted run
+        would."""
+        epoch = resume_from(self, self.args.checkpoint_format)
         if epoch is None:
             return 0
-        self.state = restored
         start = epoch + 1
         if self.scheduler is not None:
             self.scheduler.step(start)
         for _ in range(start):
             self.train_loader.rng.randint(1 << 31)
-        print(f'resumed from checkpoint-{epoch} (step {self.state.step})',
-              flush=True)
         return start
 
-    def save(self, epoch):
+    def save(self, epoch, block=True):
+        """Checkpoint ``epoch`` of the state (every rank calls it; rank 0
+        writes)."""
         checkpoint.save_checkpoint(self.args.checkpoint_format, epoch,
-                                   self.state)
+                                   self.state, block=block,
+                                   retry=self.io_retry, group=self.group)
 
 
 def speed(tr):
@@ -309,26 +417,29 @@ def speed(tr):
         sync()
         times.append(time.perf_counter() - t0)
     mean, std = float(np.mean(times)), float(np.std(times))
-    print(f'SPEED: iter time {mean:.4f} +- {std:.4f} s (imgs/sec '
-          f'{len(batch["label"]) / mean:.1f})', flush=True)
+    tr.say(f'SPEED: iter time {mean:.4f} +- {std:.4f} s (imgs/sec '
+           f'{len(batch["label"]) / mean:.1f})')
 
 
-def main(argv=None):
+def main(argv=None, group=None):
+    """Run the trainer (in ``group`` if given, as ``launch.spawn`` gives
+    one; else the launcher's group at world>1); returns it."""
     args = parse_args(argv)
-    tr = Trainer(args)
+    tr = Trainer(args, group=group)
     start_epoch = tr.resume()
     if args.speed:
         speed(tr)
-        return
-    guard = checkpoint.PreemptionGuard()
+        return tr
+    stamp_world(tr, args.checkpoint_format)
+    guard = checkpoint.PreemptionGuard(group=tr.group)
     monitor = utils.HealthMonitor(state=tr.state)
     try:
         for epoch in range(start_epoch, args.epochs):
             t0 = time.time()
             total = count = 0.0
-            with tr.train_loader.epoch() as batches:
+            with tr.train_loader.epoch(retry=tr.io_retry) as batches:
                 for batch in batches:
-                    if guard.should_stop():
+                    if guard.should_stop(tr.state.step):
                         break
                     m = tr.train_step(batch)
                     total += float(m['loss']) * len(batch['label'])
@@ -339,27 +450,31 @@ def main(argv=None):
                 # the interrupted one (the step count keeps the lr exact)
                 tag = max(epoch - 1, 0)
                 tr.save(tag)
-                print(f'preempted in epoch {epoch} (step {tr.state.step}): '
-                      f'state saved as checkpoint-{tag}, exiting',
-                      flush=True)
-                return
+                tr.say(f'preempted in epoch {epoch} (step {tr.state.step}): '
+                       f'state saved as checkpoint-{tag}, exiting')
+                return tr
             vl, va = tr.evaluate()
-            print(f'epoch {epoch}: train_loss {total / max(count, 1):.4f} '
-                  f'val_loss {vl:.4f} val_acc {va:.4f} '
-                  f'({time.time() - t0:.1f}s)'
-                  f'{utils.health_suffix(monitor.epoch_flush())}',
-                  flush=True)
+            tr.say(f'epoch {epoch}: train_loss {total / max(count, 1):.4f} '
+                   f'val_loss {vl:.4f} val_acc {va:.4f} '
+                   f'({time.time() - t0:.1f}s)'
+                   f'{utils.health_suffix(monitor.epoch_flush())}')
             if tr.scheduler is not None:
                 tr.scheduler.step(epoch + 1)
-            tr.save(epoch)
+            tr.save(epoch, block=False)
             checkpoint.prune_checkpoints(args.checkpoint_format,
                                          args.keep_checkpoints)
             if guard.should_stop():
-                print(f'preempted after epoch {epoch}: exiting', flush=True)
-                return
+                checkpoint.wait_for_checkpoints()
+                tr.say(f'preempted after epoch {epoch}: exiting')
+                return tr
         checkpoint.wait_for_checkpoints()
+        checkpoint.prune_checkpoints(args.checkpoint_format,
+                                     args.keep_checkpoints)
+        if group is None and tr.world > 1:
+            torch.distributed.destroy_process_group()
     finally:
         guard.uninstall()
+    return tr
 
 
 if __name__ == '__main__':

@@ -22,7 +22,7 @@ are not ported yet (ROADMAP queue 1, slices F and G).
 
 import dataclasses
 import hashlib
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -209,6 +209,62 @@ class Snapshot:
             torch._foreach_copy_(flats, chunks)
 
 
+class WorldRescale(NamedTuple):
+    """What the batch geometry and the learning rate become after an
+    elastic world change (:func:`world_change_rescale`)."""
+    old_world: int
+    new_world: int
+    global_batch: int          # the global batch after the change
+    per_host_batch: int        # the per-rank batch after the change
+    lr: float                  # the rescaled learning rate
+    lr_factor: float           # the lr multiplier applied
+
+    def log_line(self):
+        """The trainer's ``WORLD_RESCALE`` protocol line, the JAX
+        package's grammar byte for byte."""
+        return (f'WORLD_RESCALE from_world={self.old_world} '
+                f'to_world={self.new_world} '
+                f'global_batch={self.global_batch} '
+                f'lr={self.lr:g} lr_factor={self.lr_factor:g}')
+
+
+def world_change_rescale(old_world, new_world, *, lr, global_batch=None,
+                         per_host_batch=None, lr_scaling='linear'):
+    """The batch and learning-rate hook of an elastic shrink or grow.
+    Exactly one of ``global_batch``/``per_host_batch`` names the batch
+    invariant: a fixed GLOBAL batch (the port's trainers, whose loaders
+    produce it whatever the world) re-splits as ``ceil(global /
+    new_world)`` a rank and keeps the lr (``lr_factor`` 1); a fixed
+    PER-RANK batch makes the global batch follow the world, and the lr
+    follows it by ``lr_scaling``: 'linear' (Goyal et al.), 'sqrt', or
+    'none'. Returns a :class:`WorldRescale`; the trainers log its
+    ``log_line()``."""
+    old_world, new_world = int(old_world), int(new_world)
+    if old_world < 1 or new_world < 1:
+        raise ValueError('world sizes must be >= 1, got '
+                         f'{old_world} -> {new_world}')
+    if (global_batch is None) == (per_host_batch is None):
+        raise ValueError('pass exactly one of global_batch / '
+                         'per_host_batch (the batch invariant)')
+    if lr_scaling not in ('linear', 'sqrt', 'none'):
+        raise ValueError(f'lr_scaling must be linear/sqrt/none, '
+                         f'got {lr_scaling!r}')
+    if global_batch is not None:
+        global_batch = int(global_batch)
+        per_host = max(1, -(-global_batch // new_world))
+        factor = 1.0
+        new_global = global_batch
+    else:
+        per_host = int(per_host_batch)
+        new_global = per_host * new_world
+        ratio = new_global / (per_host * old_world)
+        factor = {'linear': ratio, 'sqrt': float(np.sqrt(ratio)),
+                  'none': 1.0}[lr_scaling]
+    return WorldRescale(old_world=old_world, new_world=new_world,
+                        global_batch=new_global, per_host_batch=per_host,
+                        lr=float(lr) * factor, lr_factor=factor)
+
+
 @dataclasses.dataclass
 class TrainState:
     step: int
@@ -289,8 +345,10 @@ def replica_digest(model):
     for name, t in list(model.named_parameters()) + list(
             model.named_buffers()):
         h.update(name.encode())
-        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy()
-                 .tobytes())
+        # flattened first: a contiguous 1x1 conv weight in channels_last
+        # keeps a stride other than 1 on its last (size-1) dim
+        h.update(t.detach().cpu().contiguous().reshape(-1)
+                 .view(torch.uint8).numpy().tobytes())
     return h.hexdigest()
 
 
@@ -432,7 +490,6 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
         fisher_loss_fn = softmax_cross_entropy
     if fisher_sample_fn is None:
         fisher_sample_fn = sample_pseudo_labels
-    group = None if precond is None else precond.group
     seen = {}
     if precond is not None:
         # after a replan that changes the step, the next step re-derives
@@ -453,7 +510,8 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
                 for k in ('last_full', 'warm_streak'):
                     seen.pop(k, None)
                 state = dataclasses.replace(
-                    state, decomposed=has_decomposition(state.kfac_state))
+                    state, decomposed=has_decomposition(state.kfac_state,
+                                                        precond.group))
             seen['yes'] = bool(state.decomposed)
             uf, ui, ub, warm, st, pf = _dispatch(precond, seen, step)
             if st:
@@ -461,6 +519,8 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
             # before any decomposition exists the grads pass through while
             # the factor statistics accumulate
             factors_only = not seen['yes']
+        # read at every step: a replan may have moved the world
+        group = None if precond is None else precond.group
         params = dict(model.named_parameters())
         hstate = state.health
         guard = health_cfg is not None
@@ -596,14 +656,21 @@ def _select_kfac_state(ok, new, old):
                      comm_err=pick(new.comm_err, old.comm_err))
 
 
-def has_decomposition(kfac_state):
+def has_decomposition(kfac_state, group=None):
     """Whether ``kfac_state`` holds a decomposition (any non-zero entry),
     read back to the host: what ``TrainState.decomposed`` is re-derived
-    from after a replan."""
+    from after a replan. With a ``group``, whether any rank's does (a
+    rank may hold only padding rows, and every rank must take the same
+    branch)."""
     if kfac_state is None:
         return False
-    return any(bool(torch.any(v != 0)) for tree in kfac_state.decomp.values()
+    mine = any(bool(torch.any(v != 0)) for tree in kfac_state.decomp.values()
                for v in tree.values())
+    if group is None:
+        return mine
+    flags = [None] * coll.axis_size(group)
+    torch.distributed.all_gather_object(flags, mine, group=group)
+    return any(flags)
 
 
 def _match_comm_err(precond, kfac_state):

@@ -449,11 +449,28 @@ def test_stagger_at_world_above_one_names_its_roadmap_item():
                      bucket_fn=_bucket)
     pre.setup(_metas(tcapture))
     assert pre.stagger and pre.cohorts.rows[8].shape[1] == 2
-    # E-KFAC (item 18) is ported; its replan to another world is not
+    # E-KFAC (item 18) is ported, and so is its replan to another world
+    # (item 13): every layer's factor block moves, the moments restart at
+    # zero in the new world's pred-mode shape
     pre = tkfac.KFAC(variant='ekfac_dp', bucket_fn=_bucket)
     pre.setup(_metas(tcapture))
-    with pytest.raises(NotImplementedError, match='item 13'):
-        pre.replan(num_devices=2)
+    old_plan, state = pre.plan, pre.init('cpu')
+    state.factors = {k: v + torch.arange(v.shape[0])[:, None, None]
+                     for k, v in state.factors.items()}
+    moved = pre.replan(state, num_devices=2)
+    assert pre.num_devices == pre.plan.num_devices == 2 and len(moved) == 2
+    fresh = pre.init('cpu')
+    for st in moved:
+        assert {k: v.shape for k, v in st.decomp['scales'].items()} == \
+            {k: v.shape for k, v in fresh.decomp['scales'].items()}
+        assert not any(bool(v.any()) for v in st.decomp['scales'].values())
+    for i, meta in enumerate(old_plan.metas):
+        ba, ra, _, _, _ = old_plan.layer_rows[i]
+        nb, nr, _, _, _ = pre.plan.layer_rows[i]
+        per = pre.plan.buckets[nb].per_dev
+        d = meta.in_dim
+        assert torch.equal(moved[nr // per].factors[str(nb)][nr % per, :d, :d],
+                           state.factors[str(ba)][ra, :d, :d])
 
 
 def test_layer_meta_fields_match_jax():

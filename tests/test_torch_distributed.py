@@ -527,12 +527,31 @@ def test_kfac_checks_the_group_size():
         pre.setup(tcapture.collect_layer_meta(workers.MLP(),
                                               torch.zeros(2, 5)))
         pre.step(pre.init('cpu'), {}, {}, {})
-    # the E-KFAC variants construct at any world; a replan at world>1 is
-    # the elastic lane's
+    # the E-KFAC variants construct at any world, and replan at world>1:
+    # without a group the state is the whole world's (a list, one state a
+    # rank); the factors carry, the moments restart in pred shape
     pre = KFAC(variant='ekfac', num_devices=2)
     pre.setup(tcapture.collect_layer_meta(workers.MLP(), torch.zeros(2, 5)))
-    with pytest.raises(NotImplementedError, match='item 13'):
-        pre.replan(comm_mode='pred')
+    old_plan, states = pre.plan, [pre.init('cpu'), pre.init('cpu')]
+    for r, st in enumerate(states):
+        st.factors = {k: v * (r + 2) for k, v in st.factors.items()}
+    moved = pre.replan(states, comm_mode='pred')
+    assert pre.comm_mode == 'pred' and len(moved) == 2
+
+    def block(plan, sts, i, side):
+        b, row = plan.layer_rows[i][2 * side:2 * side + 2]
+        per = plan.buckets[b].per_dev
+        d = (plan.metas[i].in_dim, plan.metas[i].out_dim)[side]
+        return sts[row // per].factors[str(b)][row % per, :d, :d]
+
+    for i in range(len(old_plan.metas)):
+        for side in (0, 1):
+            assert torch.equal(block(pre.plan, moved, i, side),
+                               block(old_plan, states, i, side))
+    fresh = pre.init('cpu')
+    for st in moved:
+        assert {k: v.shape for k, v in st.decomp['scales'].items()} == \
+            {k: v.shape for k, v in fresh.decomp['scales'].items()}
 
 
 def test_shard_batch_and_init_retry():

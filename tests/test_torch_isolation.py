@@ -10,7 +10,9 @@
 4. The world>1 entry points (the launcher, the trainer at
    ``--num-devices`` > 1) raise without a GPU unless ``--device cpu``.
 5. The ImageNet trainer raises NotImplementedError, naming its ROADMAP
-   item, for every flag of the JAX trainer whose feature is not ported.
+   item, for every flag of the JAX trainer whose feature is not ported
+   (``--io-retries`` and ``--num-devices`` are ported since the elastic
+   lane and keep their cases).
 6. ``--kfac-name ekfac_dp`` reaches ``KFAC`` in both trainers, and
    ``--kfac-stagger`` with E-KFAC raises.
 """
@@ -199,8 +201,18 @@ def test_world_gt1_entry_points_raise_without_gpu(no_gpu, monkeypatch):
     ids=lambda a: a[0])
 def test_imagenet_unported_flags_raise(argv):
     from kfac_pytorch_tpu_torch import train_imagenet
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        train_imagenet.main(['--device', 'cpu', *argv])
+    if argv[0] == '--io-retries':
+        # ported: the JAX trainers' retry policy, that many retries
+        args = train_imagenet.parse_args(['--device', 'cpu', *argv])
+        train_imagenet.check_ported(args)
+        assert train_imagenet.io_retry(args).attempts == 4
+    elif argv[0] == '--num-devices':
+        # ported: world>1 needs the launcher's process group
+        with pytest.raises(ValueError, match='WORLD_SIZE=1'):
+            train_imagenet.main(['--device', 'cpu', *argv])
+    else:
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            train_imagenet.main(['--device', 'cpu', *argv])
 
 
 @pytest.mark.parametrize('argv,attrs', [

@@ -15,8 +15,9 @@ same layers.
   the top of the next step;
 - ``bucket_overrides`` under stagger rebuild the cohorts with the
   stretched period;
-- the validation errors are JAX's (type and message), and the
-  not-ported moves raise NotImplementedError naming their ROADMAP item;
+- the validation errors are JAX's (type and message), a host replan to
+  another world equals JAX's reshard, and the not-ported moves raise
+  NotImplementedError naming their ROADMAP item;
 - ``same_row_layout`` and ``reshard_kfac_state`` (with and without
   ``carry_decomp``) equal JAX's at 1 -> 1, 2 -> 1 and 1 -> 2 ranks.
 """
@@ -309,8 +310,24 @@ def test_replan_validation_rules_match_jax(ctor, spec):
 def test_unported_replans_name_their_roadmap_item(spec, item):
     pre = tkfac.KFAC(variant='eigen_dp', bucket_fn=workers.bucket_tiny)
     pre.setup(_metas(tcapture))
-    with pytest.raises(NotImplementedError, match=item):
-        pre.replan(None, **spec)
+    if 'num_devices' in spec:
+        # the elastic lane (item 13) is ported: a host replan to another
+        # world returns that world's states, JAX's reshard row for row
+        jold, jnew = _pre(jkfac, 'eigen_dp', 1), _pre(jkfac, 'eigen_dp', 2)
+        jstate = _global_state(jold, 3)
+        got = pre.replan(_port_states(pre, jstate), **spec)
+        want = _port_states(_pre(tkfac, 'eigen_dp', 2),
+                            jckpt.reshard_kfac_state(jold, jnew, jstate,
+                                                     carry_decomp=True))
+        assert pre.num_devices == pre.plan.num_devices == 2
+        assert len(got) == len(want) == 2
+        for g, w in zip(got, want):
+            assert g.step == w.step == 7
+            _assert_equal(g.factors, w.factors)
+            _assert_equal(g.decomp, w.decomp)
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            pre.replan(None, **spec)
     with pytest.raises(NotImplementedError, match='slice F'):
         pre.request_replan(_invalidate=False, comm_mode='inverse')
     assert pre.pending_replan is None

@@ -324,3 +324,52 @@ def shard_module_runs(rank, world, group, cfgs, trainer_argv, steps):
     return runs, {'steps': trained,
                   'stagger': tr.precond.stagger,
                   'shard': tr.precond.decomp_shard_plan is not None}
+
+
+def cifar_main_run(rank, world, group, argv):
+    """``train_cifar.main`` with ``argv`` at ``--num-devices world`` in
+    ``group`` (on the CPU); returns this rank's K-FAC factor rows and
+    decomposition (numpy) and whether the state holds a decomposition."""
+    from kfac_pytorch_tpu_torch import train_cifar
+    torch.set_num_threads(1)
+    tr = train_cifar.main(argv + ['--device', 'cpu', '--num-devices',
+                                  str(world)], group=group)
+    st = tr.state.kfac_state
+    return {'factors': {k: v.numpy().copy() for k, v in st.factors.items()},
+            'decomp': _np_tree(st.decomp), 'decomposed': tr.state.decomposed,
+            'step': tr.state.step}
+
+
+def seeded_kfac_state(pre, rank, seed=0):
+    """``pre.init('cpu')`` with factors and decomposition filled from a
+    seeded stream of this rank's own."""
+    st = pre.init('cpu')
+    gen = torch.Generator().manual_seed(seed + 100 * rank)
+    st.factors = {k: torch.randn(v.shape, generator=gen)
+                  for k, v in st.factors.items()}
+    st.decomp = {p: {k: torch.randn(v.shape, generator=gen)
+                     for k, v in tree.items()}
+                 for p, tree in st.decomp.items()}
+    st.step = 5
+    return st
+
+
+def live_replans(rank, world, group):
+    """Two replans of a world-2 ``eigen`` preconditioner with a live group,
+    on seeded states (:func:`seeded_kfac_state`): to ``eigen_dp`` (this
+    rank's entry comes back), then to one rank without a group (the whole
+    world-1 state comes back on every rank). Returns both (numpy)."""
+    torch.set_num_threads(1)
+    pre = KFAC(variant='eigen', num_devices=world, group=group,
+               bucket_fn=bucket_tiny)
+    pre.setup(capture.collect_layer_meta(MLP(), torch.zeros(2, 5)))
+    st = seeded_kfac_state(pre, rank)
+    out = []
+    st = pre.replan(st, variant='eigen_dp')
+    out.append({'factors': {k: v.numpy() for k, v in st.factors.items()},
+                'decomp': _np_tree(st.decomp)})
+    st = pre.replan(st, num_devices=1, group=None)
+    out.append({'factors': {k: v.numpy() for k, v in st.factors.items()},
+                'decomp': _np_tree(st.decomp),
+                'world': pre.num_devices, 'group': pre.group is None})
+    return out
