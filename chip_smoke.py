@@ -91,7 +91,7 @@ launches:
   (``--kfac-update-freq 3``, 7 steps): each prefetched update's
   preconditioned gradients are the stored table's, it publishes the table
   a plain update computes, and the next step reads that table;
-- slice 12, last: durability and the elastic lane, through the trainers'
+- slice 12: durability and the elastic lane, through the trainers'
   ``main``. ResNet-32 (``train_cifar``, batch 128, ``eigen_dp``, the
   capture kernels, 4-step epochs) for 3 epochs with a checkpoint every
   epoch, then the same run with a SIGTERM in epoch 2 (it saves and
@@ -106,7 +106,22 @@ launches:
   after a move preconditioning, K3 launched at world 2, the lossy residual
   dropped at world 1, replicas bitwise. The ImageNet trainer (ResNet-50
   bs32 bf16) at world 2 for 2 steps, checkpointed and resumed at world 1
-  with the same row check, and its saves timed.
+  with the same row check, and its saves timed;
+- slice 13, last: the rest of the vision zoo through the trainers at
+  full width and depth (``S13_NETS``: VGG-16 on CIFAR-100 and WRN-28-10
+  in fp32, DenseNet-201 and Inception-v4 at batch 16, 224 x 224, bf16):
+  finite losses, K1/K2 one a conv and one a conv's G and a dense layer's
+  A and G a factor step, the decomposition on the steps the cadence
+  says, the step median, images/s, the decomposition's ms and peak
+  memory; K1/K2 against their plain versions at every distinct captured
+  shape (timed once each); Inception-v4's K-FAC step in lockstep with
+  the plain path (its 1x7, 7x1, 1x3 and 3x1 kernels); and the
+  reference's time breakdown by subtraction on DenseNet-201
+  (``--exclude-parts``: without ComputeFactor no K1/K2, without
+  ComputeInverse no decomposition and the gradients bitwise untouched).
+  The world=2 phase runs MPD ``eigen`` over the bf16 wire without
+  CommunicateFactor (no byte in its scope, no K3) and without
+  CommunicateInverse (no byte in its scope).
 
 After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
 fp32 and bf16 inputs, K4, K5a and K5b at every head dim), the tensor-core
@@ -199,12 +214,21 @@ def fail(msg):
     sys.exit(1)
 
 
-def close(got, want, rtol, atol, scale=1.0):
+def close(got, want, rtol, atol, scale=1.0, stat=None, alpha=None):
     """Max |got - want| and whether every element is within
-    ``atol * scale + rtol * |want|``."""
+    ``atol * scale + rtol * |want|``. With the EMA epilogue (``alpha``,
+    ``stat`` the raw statistic ``scale`` was taken from) the output is
+    ``cur * (1 - alpha) + stat * alpha``: the statistic's own tolerance
+    enters with its weight, ``alpha * (atol * scale + rtol * |stat|) +
+    rtol * |want|`` (where the two terms cancel, ``|want|`` alone would
+    hold the statistic to a tolerance relative to the difference)."""
     got, want = got.detach().double(), want.detach().double()
     err = (got - want).abs()
-    ok = bool(torch.all(err <= atol * scale + rtol * want.abs()))
+    bound = atol * scale + rtol * want.abs()
+    if alpha is not None:
+        bound = alpha * (atol * scale + rtol * stat.detach().double().abs()) \
+            + rtol * want.abs()
+    ok = bool(torch.all(err <= bound))
     return float(err.max()), ok
 
 
@@ -415,12 +439,13 @@ def check_kernels(cases, path, dtypes=None, timed=torch.float32):
                 with fp64_stat_gemm():
                     want = plain()
                 if scale is None:
-                    scale = cs_scale(want)
+                    scale, stat = cs_scale(want), want
                 torch.cuda.synchronize()
                 if got.shape != (f, f) or not bool(torch.isfinite(got).all()):
                     fail(f"{case['kernel']} {case['what']} {tuple(x.shape)}: "
                          f'shape {tuple(got.shape)} or non-finite output')
-                err, ok = close(got, want, RTOL, ATOL, scale)
+                err, ok = close(got, want, RTOL, ATOL, scale, stat,
+                                None if ema is None else ema[1])
                 if not ok:
                     fail(f"{case['kernel']} {case['what']} {tuple(x.shape)} "
                          f'{dtype} ema={ema is not None}: max |err| {err:.3e} '
@@ -473,7 +498,12 @@ OFF_PATH_K1 = [((8, 9, 9, 6), (3, 3), (2, 2), ((1, 2), (0, 1)), True),
                # F = 289 (> 256, odd: a third chunk) and F = 45 (not a
                # multiple of 8)
                ((4, 12, 12, 32), (3, 3), (1, 1), 'SAME', True),
-               ((6, 10, 10, 5), (3, 3), (1, 1), 'SAME', False)]
+               ((6, 10, 10, 5), (3, 3), (1, 1), 'SAME', False),
+               # Inception-v4's 1x7/7x1 pair and its VALID stride-2 3x3
+               # on an odd map
+               ((4, 17, 17, 24), (1, 7), (1, 1), (0, 3), False),
+               ((4, 17, 17, 24), (7, 1), (1, 1), (3, 0), False),
+               ((4, 15, 15, 16), (3, 3), (2, 2), 'VALID', False)]
 #: ... and K2 tall and narrow with the ones column, short and wide
 OFF_PATH_K2 = [((32, 12), True), ((50, 13), True), ((7, 3), False),
                ((20000, 64), True), ((3, 1024), True)]
@@ -506,8 +536,9 @@ def check_off_path():
             for ema in (None, (cur, 0.95)):
                 got, want = kern(x, ema), plain(x, ema)
                 if scale is None:
-                    scale = cs_scale(want)
-                err, ok = close(got, want, RTOL, ATOL, scale)
+                    scale, stat = cs_scale(want), want
+                err, ok = close(got, want, RTOL, ATOL, scale, stat,
+                                None if ema is None else ema[1])
                 worst = max(worst, err)
                 if not ok:
                     fail(f'off-path {tuple(shape)} {dtype} ema='
@@ -1336,6 +1367,10 @@ SHARD_RTOL, SHARD_ATOL = 1e-5, 1e-6
 WORLD2_PREFETCH = ['--kfac-name', 'eigen', '--kfac-comm-prefetch',
                    '--kfac-update-freq', '3', '--kfac-capture-impl', 'auto']
 WORLD2_PREFETCH_STEPS = 7
+#: slice 13 at world=2: the MPD eigen bf16 trainer with each communication
+#: phase excluded (``--exclude-parts``), WORLD2_EXCLUDE_STEPS steps each
+WORLD2_EXCLUDE = ('CommunicateFactor', 'CommunicateInverse')
+WORLD2_EXCLUDE_STEPS = 3
 #: K3 inputs off the main path: element counts (odd, one, a vector group
 #: plus a tail) and whether the tensors start 4 bytes past an aligned
 #: address (the kernel's scalar path)
@@ -1576,7 +1611,67 @@ def world2_rank(rank, world, group):
     out['stagger'] = world2_stagger(trainer)
     out['shard'] = world2_shard_lockstep(trainer, group)
     out['prefetch'] = world2_prefetch(trainer)
+    out['exclude'] = world2_exclude(trainer)
     return out
+
+
+def world2_exclude(trainer):
+    """Slice 13 at world=2 (one rank): the MPD eigen bf16 trainer without
+    each communication phase (WORLD2_EXCLUDE), WORLD2_EXCLUDE_STEPS steps:
+    the launches, the collectives of every step by scope, the losses and
+    whether the parameters stay finite. Returns numbers only."""
+    from kfac_pytorch_tpu_torch.parallel import collectives as coll
+    out = {}
+    for parts in WORLD2_EXCLUDE:
+        tr = trainer(WORLD2_EIGEN + ['--exclude-parts', parts])
+        it = tr.train_loader.epoch()
+        reset_counts()
+        losses = []
+        with coll.ledger() as led:
+            for _ in range(WORLD2_EXCLUDE_STEPS):
+                losses.append(float(tr.train_step(next(it))['loss']))
+        out[parts] = {
+            'launches': read_counts(), 'losses': losses,
+            'collectives': [[scope, op, str(dtype), n]
+                            for scope, op, dtype, n in led],
+            'finite': all(bool(torch.isfinite(p).all())
+                          for p in tr.state.model.parameters())}
+        del tr
+    return out
+
+
+def check_world2_exclude(outs, nb, conv, dense):
+    """Slice 13's world=2 checks: without CommunicateFactor no byte in its
+    scope and no K3 launch; without CommunicateInverse no byte in its
+    scope; K1/K2 a step as always, the losses and parameters finite."""
+    n = WORLD2_EXCLUDE_STEPS
+    for parts in WORLD2_EXCLUDE:
+        want = {'K1 conv_a': conv * n, 'K2 stat_rows': (conv + 2 * dense) * n,
+                'K3 ef_quantize': 0 if parts == 'CommunicateFactor'
+                else nb * n, 'K4 flash_fwd': 0, 'K5a flash_bwd_dq': 0,
+                'K5b flash_bwd_dkv': 0}
+        scope = 'kfac.' + parts
+        for r, out in enumerate(outs):
+            o = out['exclude'][parts]
+            if o['launches'] != want:
+                fail(f'world2 exclude {parts} rank {r}: kernel launches '
+                     f'{o["launches"]}, expected {want}')
+            moved = [c for c in o['collectives']
+                     if c[0].startswith(scope) and c[3]]
+            if moved:
+                fail(f'world2 exclude {parts} rank {r}: bytes in the '
+                     f'excluded scope: {moved}')
+            if not (all(np.isfinite(o['losses'])) and o['finite']):
+                fail(f'world2 exclude {parts} rank {r}: non-finite losses '
+                     f'{o["losses"]} or parameters')
+        o = outs[0]['exclude'][parts]
+        by_scope = {}
+        for c in o['collectives']:
+            by_scope[c[0]] = by_scope.get(c[0], 0) + c[3]
+        print(f'world2 exclude_parts {parts} (resnet32 eigen bf16, {n} '
+              f'steps): losses {[round(x, 4) for x in o["losses"]]}, '
+              f'launches per rank {o["launches"]}, collective bytes by scope '
+              f'{json.dumps(by_scope)}', flush=True)
 
 
 def world2_ekfac(trainer, batches_of):
@@ -1959,11 +2054,15 @@ def run_world2():
           ' s', flush=True)
     check_world2_ekfac(outs, nb, conv, dense)
     check_world2_slice11(outs, nb, conv, dense)
+    check_world2_exclude(outs, nb, conv, dense)
     total = {k: sum(out['launches'][k] for out in outs) for k in want}
     stagger = {k: sum(out['stagger'][name]['launches'][k] for out in outs
                       for name in WORLD2_STAGGER) for k in want}
+    exclude = {k: sum(out['exclude'][parts]['launches'][k] for out in outs
+                      for parts in WORLD2_EXCLUDE) for k in want}
     return {'resnet32_world2_eigen_bf16': total,
-            'resnet32_world2_stagger': stagger}, o
+            'resnet32_world2_stagger': stagger,
+            'resnet32_world2_exclude': exclude}, o
 
 
 def check_world2_ekfac(outs, nb, conv, dense):
@@ -2163,10 +2262,10 @@ def make_imagenet_trainer(capture_impl='pallas', extra=()):
     return train_imagenet.Trainer(train_imagenet.parse_args(argv))
 
 
-def r50_launches_wanted(tr, steps):
+def launches_wanted(tr, steps):
     """K1/K2 launches of ``steps`` factor steps of ``tr``'s model at
-    world=1 (ResNet-50, or ResNet-32): one K1 a conv, one K2 a conv's G
-    and a dense layer's A and G."""
+    world=1 (any trainer's: ResNet-50, ResNet-32, the slice-13 nets): one
+    K1 a conv, one K2 a conv's G and a dense layer's A and G."""
     layers = tr.precond.plan.metas
     n_conv = sum(m.kind == 'conv' for m in layers)
     n_dense = len(layers) - n_conv
@@ -2184,7 +2283,7 @@ def run_resnet50():
     t0 = time.perf_counter()
     tr = make_imagenet_trainer('pallas')
     built_s = time.perf_counter() - t0
-    want, n_conv, n_dense = r50_launches_wanted(tr, R50_STEPS)
+    want, n_conv, n_dense = launches_wanted(tr, R50_STEPS)
     batches = tr.train_loader.epoch()
     reset_counts()
     losses, times, decomp_steps = [], [], []
@@ -2369,7 +2468,7 @@ def run_resnet50_ladder(name, default_ms, default_decomp_ms):
     from kfac_pytorch_tpu_torch import engine
     extra, expect = R50_LADDER_RUNS[name]
     tr = make_imagenet_trainer('pallas', extra)
-    want, _, _ = r50_launches_wanted(tr, R50_LADDER_STEPS)
+    want, _, _ = launches_wanted(tr, R50_LADDER_STEPS)
     # more steps than one epoch of the synthetic set has: epoch after epoch
     batches = (b for _ in iter(int, 1) for b in tr.train_loader.epoch())
     reset_counts()
@@ -2454,14 +2553,15 @@ def resnet50_cases(tr):
         lambda out: tr.loss_fn(out, batch))
 
 
-def check_resnet50_lockstep(tr):
+def check_resnet50_lockstep(tr, label='resnet50', steps=R50_AGREE_STEPS):
     """The trainer's kernel preconditioner in lockstep with two
     capture_impl=None ones (the second with its factor GEMMs summed in
     fp64, the control), each from a fresh K-FAC state: every step all
     three take the same bf16 captures and gradients. The kernels'
     preconditioned gradients may part from the unfused ones by GRAD_RTOL
     of each tensor's largest entry, or by TRAJ_FACTOR times the
-    control's gap (the rule of the bf16 wire)."""
+    control's gap (the rule of the bf16 wire). ``tr`` is an ImageNet
+    trainer (``label`` names its net in the output), ``steps`` steps."""
     import kfac_pytorch_tpu_torch as tkfac
     from kfac_pytorch_tpu_torch import capture, training
     from kfac_pytorch_tpu_torch.preconditioner import KFACHyperParams
@@ -2482,8 +2582,8 @@ def check_resnet50_lockstep(tr):
     model = tr.state.model
     params = dict(model.named_parameters())
     it = tr.train_loader.epoch()
-    bad = []
-    for i in range(R50_AGREE_STEPS):
+    bad, gaps = [], []
+    for i in range(steps):
         batch = tr.to_device(next(it))
         model.train()
         model.zero_grad(set_to_none=True)
@@ -2507,16 +2607,18 @@ def check_resnet50_lockstep(tr):
                           - states[1].factors[b].double()).abs()
                          / cs_scale(states[1].factors[b])).max())
                   for b in states[1].factors)
-        print(f'resnet50 lockstep (kernels vs capture_impl=None, bf16 '
+        print(f'{label} lockstep (kernels vs capture_impl=None, bf16 '
               f'captures) step {i}: factors max err {fac:.3e} x sqrt(F_ii '
               f'F_jj), preconditioned grads max rel err {gap:.3e} ({k}); '
               f'control (fp64 factor GEMMs) {ctl:.3e} ({kc})', flush=True)
+        gaps.append({'factors': fac, 'grads': gap, 'control': ctl})
         if gap > GRAD_RTOL and gap > TRAJ_FACTOR * ctl:
             bad.append(f'step {i}: preconditioned grad {k} {gap:.3e} of its '
                        f'largest entry, over {GRAD_RTOL} and {TRAJ_FACTOR} x '
                        f'the control {ctl:.3e}')
     if bad:
-        fail('resnet50 lockstep: ' + '; '.join(bad))
+        fail(f'{label} lockstep: ' + '; '.join(bad))
+    return gaps
 
 
 def _state_tensors(state):
@@ -3203,7 +3305,7 @@ def run_resnet50_ekfac():
     step of each (device busy ms)."""
     t0 = time.perf_counter()
     tr = make_imagenet_trainer('pallas', ['--kfac-name', 'ekfac_dp'])
-    want, n_conv, n_dense = r50_launches_wanted(tr, R50_EKFAC_STEPS)
+    want, n_conv, n_dense = launches_wanted(tr, R50_EKFAC_STEPS)
     batches = take_batches(tr.train_loader, R50_EKFAC_STEPS)
     reset_counts()
     losses, times, zero = [], [], {}
@@ -3262,7 +3364,7 @@ def run_resnet50_ekfac():
     print(f'resnet50 ekfac_dp vs eigen_dp (alternating, {R50_EKFAC_ROUNDS} '
           f'rounds x {R50_EKFAC_BLOCK} steps): step ms medians {med}, ratio '
           f'{ratio:.4f}; peak MiB a step adds {json.dumps(peak)}', flush=True)
-    per, _, _ = r50_launches_wanted(tr, 1)
+    per, _, _ = launches_wanted(tr, 1)
     prof = {name: profile_steps(t, iter(timed + timed), f'resnet50 {name}',
                                 per, steps=1, host=False)
             for name, t in runs.items()}
@@ -3314,7 +3416,7 @@ def run_replan():
         if tr.precond.ekfac and not scales_nonzero(tr.state.kfac_state):
             fail(f'replan run: {variant}\'s moments stayed zero')
     launches = read_counts()
-    want, _, _ = r50_launches_wanted(tr, step)
+    want, _, _ = launches_wanted(tr, step)
     if launches != want:
         fail(f'replan run: kernel launches {launches}, expected {want}')
     # only the last switch changes the method: from it until its first
@@ -3764,6 +3866,241 @@ def run_slice12():
     return launches, r50, out
 
 
+# ---------------------------------------------------------------------------
+# slice 13: the rest of the vision zoo, and the exclude_parts ablation
+# ---------------------------------------------------------------------------
+
+#: the slice-13 nets through their trainers at the repo launchers'
+#: configurations, full width and depth, world=1, seed 42, synthetic data,
+#: the capture kernels: name -> (trainer module, flags, steps, the dtype
+#: of the kernel checks). VGG-16 as train_cifar100.sh runs it (batch.sh:12:
+#: bs128, eigen_dp, a factor and a decomposition every step, damping
+#: 0.03); WRN-28-10 at the CIFAR trainer's defaults (kfac_update_freq 10);
+#: DenseNet-201 and Inception-v4 at train_imagenet.sh's defaults with
+#: batch.sh:14's batch of 16 (bf16, eigen_dp every step, damping 0.002)
+S13_NETS = {
+    'vgg16_cifar100': ('train_cifar', [
+        '--model', 'vgg16', '--dataset', 'cifar100', '--kfac-update-freq',
+        '1', '--kfac-cov-update-freq', '1', '--damping', '0.03'], 4,
+        torch.float32),
+    'wrn28_10': ('train_cifar', ['--model', 'wrn-28-10'], 4, torch.float32),
+    'densenet201': ('train_imagenet', [
+        '--model', 'densenet201', '--batch-size', '16', '--synthetic-size',
+        '128'], 4, torch.bfloat16),
+    'inception_v4': ('train_imagenet', [
+        '--model', 'inception-v4', '--batch-size', '16', '--synthetic-size',
+        '128'], 4, torch.bfloat16),
+}
+#: the Inception-v4 lockstep (its non-square kernels), kernels against the
+#: plain path, in steps
+S13_LOCKSTEP_STEPS = 1
+#: the reference's time breakdown by subtraction on DenseNet-201: the
+#: trainer with each of these --exclude-parts, S13_EXCLUDE_STEPS steps
+S13_EXCLUDE = ('', 'ComputeFactor', 'ComputeInverse',
+               'ComputeFactor,ComputeInverse')
+S13_EXCLUDE_STEPS = 3
+
+
+def s13_trainer(name, extra=()):
+    """Net ``name``'s trainer (S13_NETS) with the capture kernels."""
+    import importlib
+    module, argv, _, _ = S13_NETS[name]
+    mod = importlib.import_module(f'kfac_pytorch_tpu_torch.{module}')
+    return mod.Trainer(mod.parse_args(
+        ['--device', DEVICE, '--kfac-capture-impl', 'pallas'] + argv
+        + list(extra)))
+
+
+def s13_steps(tr, steps):
+    """``steps`` synchronized steps of ``tr`` on fresh batches: host-clock
+    ms, losses, the decomposition each ran (``step_fn.last_decomp``), the
+    launches and the peak device memory (MiB) over the run."""
+    batches = tr.train_loader.epoch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, losses, decomps = [], [], []
+    for _ in range(steps):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m['loss']))
+        decomps.append(tr.step_fn.last_decomp)
+    return {'step_ms': times, 'losses': losses, 'decomps': decomps,
+            'launches': read_counts(),
+            'peak_mib': torch.cuda.max_memory_allocated() / 2**20}
+
+
+def s13_decomposition_ms(tr):
+    """Device and host ms of one whole decomposition of ``tr``'s trained
+    factors (``torch.linalg.eigh`` waits on its error flags on the host)."""
+    from kfac_pytorch_tpu_torch import engine
+    pre = tr.precond
+    damping = torch.tensor(pre.damping, device=tr.device)
+    return time_ms(lambda: engine.compute_decomposition(
+        pre.plan, tr.state.kfac_state.factors, damping, pre.method, pre.eps),
+        reps=2, hide_host=False)
+
+
+def s13_net(name):
+    """Net ``name``'s trainer for its steps: finite losses, K1/K2 one a
+    conv and one a conv's G and a dense layer's A and G each factor step,
+    the decomposition on the steps the cadence says; the step median,
+    images/s, the decomposition's ms, peak memory; then K1/K2 against
+    their plain versions at every distinct captured shape. Returns the
+    trainer, its launches, its per-shape rows and its numbers."""
+    t0 = time.perf_counter()
+    _, _, steps, dtype = S13_NETS[name]
+    tr = s13_trainer(name)
+    built_s = time.perf_counter() - t0
+    pre = tr.precond
+    want, n_conv, n_dense = launches_wanted(tr, steps)
+    run = s13_steps(tr, steps)
+    if not all(np.isfinite(run['losses'])):
+        fail(f'{name}: non-finite training loss: {run["losses"]}')
+    if run['launches'] != want:
+        fail(f'{name}: kernel launches {run["launches"]}, expected {want}')
+    cadence = ['full' if i % pre.kfac_update_freq == 0 else None
+               for i in range(steps)]
+    if run['decomps'] != cadence:
+        fail(f'{name}: decompositions {run["decomps"]}, expected '
+             f'{cadence}')
+    med = float(np.median(run['step_ms']))
+    batch = tr.args.batch_size
+    out = {'built_s': built_s, **run, 'step_ms_median': med,
+           'images_per_s': batch / med * 1e3,
+           'decomposition_ms': s13_decomposition_ms(tr),
+           'convs': n_conv, 'dense': n_dense,
+           'buckets': list(pre.plan.bucket_dims),
+           'params': sum(p.numel() for p in tr.state.model.parameters())}
+    cases = (resnet50_cases(tr) if dtype == torch.bfloat16
+             else resnet_cases(tr))
+    out['distinct_shapes'] = len(cases)
+    rows = check_kernels(cases, name, dtypes=(dtype,), timed=dtype)
+    out['k1_ms'] = sum(r['ms'] * r['per_step'] for r in rows
+                       if r['kernel'] == 'K1 conv_a')
+    out['k2_ms'] = sum(r['ms'] * r['per_step'] for r in rows
+                       if r['kernel'] == 'K2 stat_rows')
+    print(f'slice 13 {name}: {out["params"] / 1e6:.1f} M parameters, '
+          f'{n_conv} convs, {n_dense} dense, buckets {out["buckets"]}; '
+          f'bs{batch} {str(dtype)[6:]} eigen_dp kfac_update_freq='
+          f'{pre.kfac_update_freq} damping {pre.damping}, {steps} steps, '
+          f'losses {[round(x, 4) for x in run["losses"]]}, decompositions '
+          f'{run["decomps"]}, step ms median {med:.1f} (first '
+          f'{run["step_ms"][0]:.1f}), images/s {out["images_per_s"]:.1f}, '
+          f'decomposition {out["decomposition_ms"]:.1f} ms, peak '
+          f'{out["peak_mib"]:.0f} MiB, launches {run["launches"]} (K1 '
+          f'{n_conv}, K2 {n_conv + 2 * n_dense} a factor step); K1/K2 '
+          f'against plain at {len(cases)} distinct shapes: K1 '
+          f'{out["k1_ms"]:.3f} ms, K2 {out["k2_ms"]:.3f} ms a factor step; '
+          f'trainer built in {built_s:.1f} s', flush=True)
+    return tr, run['launches'], rows, out
+
+
+def s13_exclude_parts():
+    """The reference's breakdown by subtraction on DenseNet-201: its
+    trainer with each of S13_EXCLUDE (``--exclude-parts``) for
+    S13_EXCLUDE_STEPS steps, each step median printed. Without
+    ComputeFactor no K1/K2 launches; without ComputeInverse no
+    decomposition runs and the gradients leave the preconditioner bitwise
+    as they entered it. Returns the launches and the numbers."""
+    from kfac_pytorch_tpu_torch import engine
+    out, launches, batch = {}, None, None
+    calls = {'decompositions': 0}
+    inner = engine.compute_decomposition
+
+    def counted(*a, **k):
+        calls['decompositions'] += 1
+        return inner(*a, **k)
+
+    engine.compute_decomposition = counted
+    try:
+        for parts in S13_EXCLUDE:
+            tr = s13_trainer('densenet201', ['--exclude-parts', parts])
+            batch = tr.args.batch_size
+            want, _, _ = launches_wanted(tr, S13_EXCLUDE_STEPS)
+            step, same = tr.precond.step, []
+
+            def spy(state, grads, *a, **k):
+                new, st = step(state, grads, *a, **k)
+                same.append(all(torch.equal(new[n], grads[n])
+                                for n in grads))
+                return new, st
+
+            tr.precond.step = spy
+            calls['decompositions'] = 0
+            run = s13_steps(tr, S13_EXCLUDE_STEPS)
+            label = parts or 'none'
+            if not all(np.isfinite(run['losses'])):
+                fail(f'exclude_parts {label}: non-finite loss')
+            if 'ComputeFactor' in parts:
+                want = dict(want, **{'K1 conv_a': 0, 'K2 stat_rows': 0})
+            if run['launches'] != want:
+                fail(f'exclude_parts {label}: kernel launches '
+                     f'{run["launches"]}, expected {want}')
+            if 'ComputeInverse' in parts:
+                if calls['decompositions'] or any(run['decomps']) \
+                        or not all(same):
+                    fail(f'exclude_parts {label}: {calls["decompositions"]} '
+                         f'decompositions ran, or the gradients changed '
+                         f'({same})')
+            elif calls['decompositions'] != S13_EXCLUDE_STEPS:
+                fail(f'exclude_parts {label}: {calls["decompositions"]} '
+                     'decompositions')
+            launches = ({k: v + run['launches'][k] for k, v in
+                         launches.items()} if launches else run['launches'])
+            out[label] = {**run,
+                          'step_ms_median': float(np.median(run['step_ms'])),
+                          'grads_untouched': same}
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        engine.compute_decomposition = inner
+    med = {k: v['step_ms_median'] for k, v in out.items()}
+    out['breakdown_ms'] = {
+        'ComputeFactor': med['none'] - med['ComputeFactor'],
+        'ComputeInverse': med['none'] - med['ComputeInverse'],
+        'rest': med['ComputeFactor,ComputeInverse']}
+    print(f'slice 13 exclude_parts on densenet201 (bs{batch} bf16 eigen_dp, '
+          f'{S13_EXCLUDE_STEPS} steps each): step ms medians '
+          f'{json.dumps({k: round(v, 1) for k, v in med.items()})}; by '
+          f'subtraction ComputeFactor {out["breakdown_ms"]["ComputeFactor"]:.1f}'
+          f' ms, ComputeInverse {out["breakdown_ms"]["ComputeInverse"]:.1f} '
+          f'ms, the rest {out["breakdown_ms"]["rest"]:.1f} ms; without '
+          'ComputeFactor no K1/K2, without ComputeInverse no decomposition '
+          'and the gradients bitwise untouched', flush=True)
+    return launches, out
+
+
+def run_slice13():
+    """The slice-13 phase: the four nets (:func:`s13_net`), the
+    Inception-v4 lockstep and the exclude_parts breakdown. Returns the
+    launches by path, the per-shape rows (fp32 and bf16) and the
+    numbers."""
+    t0 = time.perf_counter()
+    launches, rows, out = {}, [], {}
+    for name in S13_NETS:
+        t1 = time.perf_counter()
+        tr, launches[name], net_rows, out[name] = s13_net(name)
+        rows += net_rows
+        if name == 'inception_v4':
+            out[name]['lockstep'] = check_resnet50_lockstep(
+                tr, label=name, steps=S13_LOCKSTEP_STEPS)
+        del tr
+        torch.cuda.empty_cache()
+        out[name]['seconds'] = time.perf_counter() - t1
+    launches['densenet201_exclude_parts'], out['exclude_parts'] = \
+        s13_exclude_parts()
+    out['seconds'] = time.perf_counter() - t0
+    nets = {k: round(out[k]['seconds'], 1) for k in S13_NETS}
+    print(f'slice 13 phase: {out["seconds"]:.1f} s (nets {json.dumps(nets)})',
+          flush=True)
+    return launches, rows, out
+
+
 def build_kernels():
     """Compile every ``csrc/*.cu`` at once (one nvcc each), then load."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3861,6 +4198,10 @@ def main():
 
     # slice 12: checkpoints, preemption and the world moves
     s12_launches, s12_r50, slice12 = run_slice12()
+    torch.cuda.empty_cache()
+
+    # slice 13: VGG-16, WRN-28-10, DenseNet-201, Inception-v4; exclude_parts
+    s13_launches, s13_rows, slice13 = run_slice13()
 
     kernels = kernel_summary(rows, {'resnet32': launches,
                                     'transformer_lm': lm_launches,
@@ -3869,9 +4210,18 @@ def main():
                                          'resnet50_slice12_world2': s12_r50},
                               names=('K1 conv_a', 'K2 stat_rows'),
                               suffix=' (resnet50 bf16)')
+    for name, (_, _, _, dtype) in S13_NETS.items():
+        paths = {name: s13_launches[name]}
+        if name == 'densenet201':
+            paths['densenet201_exclude_parts'] = \
+                s13_launches['densenet201_exclude_parts']
+        kernels += kernel_summary(
+            [r for r in s13_rows if r['path'] == name], paths,
+            names=('K1 conv_a', 'K2 stat_rows'),
+            suffix=f' ({name} {str(dtype)[6:]})')
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
-        json.dump({'device': smi, 'shapes': rows + r50_rows,
+        json.dump({'device': smi, 'shapes': rows + r50_rows + s13_rows,
                    'kernels': kernels, 'tc_build': tc_report,
                    'step_ms': {'resnet32': step_times,
                                'transformer_lm': lm_times,
@@ -3879,6 +4229,7 @@ def main():
                                'resnet50': r50_times},
                    'world2': w2, 'nccl': nccl, 'slice9': slice9,
                    'slice10': slice10, 'slice12': slice12,
+                   'slice13': slice13,
                    'resnet50': {'decomposition': decomp,
                                 'resume': {k: v for k, v in resume.items()
                                            if k != 'differ'},

@@ -360,21 +360,22 @@ def local_invs(plan, decomp, group, comm_mode):
 
 
 def refresh_decomposition(plan, factors_local, decomp_prev, eps, group,
-                          comm_mode, comm_precision='fp32'):
+                          comm_mode, communicate=True, comm_precision='fp32'):
     """Eigenvalue-only refresh in the retained basis: ``d <- clamp(diag(Q^T
     F Q))`` per bucket, two batched matmuls instead of an eigh. In
     comm_mode 'inverse' only the eigenvalue vectors are re-gathered (the
-    replicated basis stays put). ``decomp_prev`` is the stored
-    decomposition (this rank's rows in 'pred' mode, all rows in
-    'inverse'); the result has the same layout."""
+    replicated basis stays put; with ``communicate=False``, the
+    CommunicateInverse ablation, each rank places its own rows, zeros
+    elsewhere). ``decomp_prev`` is the stored decomposition (this rank's
+    rows in 'pred' mode, all rows in 'inverse'); the result has the same
+    layout."""
     evecs_local = local_evecs(plan, decomp_prev, group, comm_mode)
     evals = {key: refresh_evals(factors_local[key], q, eps)
              for key, q in evecs_local.items()}
     if comm_mode == 'inverse':
-        with coll.named_scope('kfac.CommunicateInverse'):
-            evals = {k: coll.all_gather_rows_compressed(v, group,
-                                                        comm_precision)
-                     for k, v in evals.items()}
+        evals = gather_decomposition(plan, {'evals': evals}, group,
+                                     communicate=communicate,
+                                     comm_precision=comm_precision)['evals']
         return {'evals': evals, 'evecs': decomp_prev['evecs']}
     return {'evals': evals, 'evecs': evecs_local}
 
@@ -580,18 +581,22 @@ def merge_shard_decomposition(plan, shard, decomp_stored, shard_new,
 
 def merge_cohort_decomposition(plan, cohorts, decomp_stored, cohort_new,
                                cohort_idx, group, comm_mode, method,
-                               guard=True, comm_precision='fp32'):
+                               communicate=True, guard=True,
+                               comm_precision='fp32'):
     """Write the freshly decomposed cohort rows into the stored
     decomposition; every other row keeps its stored bits. comm_mode
     'pred': a local scatter; 'inverse': the cohort rows are all-gathered
-    first (``sum_b R_b`` rows a step). With ``guard`` a row that is not
+    first (``sum_b R_b`` rows a step), or with ``communicate=False`` (the
+    CommunicateInverse ablation) each rank writes only its own rows at
+    their global offsets. With ``guard`` a row that is not
     finite keeps its stored value (the staggered form of
     :func:`guard_decomposition`; evals and evecs commit together); padding
     rows write their stored value back, so no two writes to a row
     differ."""
     part = 'evals' if method == 'eigh' else 'invs'
     dev = next(iter(decomp_stored[part].values())).device
-    if comm_mode == 'inverse':
+    idx = coll.axis_index(group)
+    if comm_mode == 'inverse' and communicate:
         rows = {b: _long(cohorts.global_rows[b][cohort_idx], dev)
                 for b in plan.bucket_dims}
         valid = {b: torch.as_tensor(cohorts.global_valid[b][cohort_idx],
@@ -602,11 +607,23 @@ def merge_cohort_decomposition(plan, cohorts, decomp_stored, cohort_new,
                 return coll.all_gather_rows_compressed(x, group,
                                                        comm_precision)
     else:
-        idx = coll.axis_index(group)
-        rows = {b: _long(cohorts.rows[b][cohort_idx, idx], dev)
-                for b in plan.bucket_dims}
-        valid = {b: torch.as_tensor(cohorts.valid[b][cohort_idx, idx],
-                                    device=dev) for b in plan.bucket_dims}
+        if comm_mode == 'inverse':
+            # this rank's stretch of the global cohort tables
+            def own(tbl):
+                f, pr = tbl.shape
+                return tbl.reshape(f, plan.num_devices,
+                                   pr // plan.num_devices)[cohort_idx, idx]
+            rows = {b: _long(own(cohorts.global_rows[b]), dev)
+                    for b in plan.bucket_dims}
+            valid = {b: torch.as_tensor(own(cohorts.global_valid[b]),
+                                        device=dev)
+                     for b in plan.bucket_dims}
+        else:
+            rows = {b: _long(cohorts.rows[b][cohort_idx, idx], dev)
+                    for b in plan.bucket_dims}
+            valid = {b: torch.as_tensor(cohorts.valid[b][cohort_idx, idx],
+                                        device=dev)
+                     for b in plan.bucket_dims}
 
         def gather(x):
             return x
@@ -822,6 +839,16 @@ def guard_decomposition(decomp_new, decomp_prev, method):
     return {**decomp_new, 'invs': out_i}
 
 
+def _place_own_rows(plan, x, group):
+    """This rank's rows ``x`` at its offset of the all-gathered layout,
+    zeros elsewhere: a gather's shapes with no communication."""
+    idx = coll.axis_index(group)
+    per_dev = x.shape[0]
+    full = x.new_zeros((plan.num_devices * per_dev,) + tuple(x.shape[1:]))
+    full[idx * per_dev:(idx + 1) * per_dev] = x
+    return full
+
+
 def gather_decomposition(plan, decomp_local, group, communicate=True,
                          comm_precision='fp32'):
     """All-gather every rank's decomposition rows to every rank
@@ -829,15 +856,10 @@ def gather_decomposition(plan, decomp_local, group, communicate=True,
     ``communicate=False`` (the CommunicateInverse ablation) each rank
     places its own rows at its offset, zeros elsewhere: global shapes,
     zero communication."""
-    idx = coll.axis_index(group)
-
     def gather(x):
         if communicate:
             return coll.all_gather_rows_compressed(x, group, comm_precision)
-        per_dev = x.shape[0]
-        full = x.new_zeros((plan.num_devices * per_dev,) + tuple(x.shape[1:]))
-        full[idx * per_dev:(idx + 1) * per_dev] = x
-        return full
+        return _place_own_rows(plan, x, group)
 
     with coll.named_scope('kfac.CommunicateInverse'):
         return {part: {k: gather(v) for k, v in tree.items()}
@@ -897,10 +919,13 @@ def compute_pred_replicated(plan, decomp, grad_mats, damping, method,
 
 
 def compute_pred_local(plan, decomp_local, grad_mats, damping, method,
-                       group=None, comm_precision='fp32', scales=None):
+                       group=None, communicate=True, comm_precision='fp32',
+                       scales=None):
     """Owner-computes preconditioning (comm_pred): each rank
     preconditions the layers it owns, batched per pred group, and the
-    results are all-gathered over the ``comm_precision`` wire.
+    results are all-gathered over the ``comm_precision`` wire (with
+    ``communicate=False``, the CommunicateInverse ablation, each rank
+    keeps its own and the other layers' rows are zero).
     ``scales``: the owner-local E-KFAC moments in slot order
     (:func:`update_ekfac_scales_local`)."""
     preds = [None] * plan.num_layers
@@ -921,9 +946,12 @@ def compute_pred_local(plan, decomp_local, grad_mats, damping, method,
         else:
             pred = _pred_inv(decomp_local['invs'][kg][rg],
                              decomp_local['invs'][ka][ra], g_loc)
-        with coll.named_scope('kfac.Precondition'):
-            gathered = coll.all_gather_rows_compressed(pred, group,
-                                                       comm_precision)
+        if communicate:
+            with coll.named_scope('kfac.Precondition'):
+                gathered = coll.all_gather_rows_compressed(pred, group,
+                                                           comm_precision)
+        else:
+            gathered = _place_own_rows(plan, pred, group)
         for pos, i in enumerate(pg.layer_idx):
             meta = plan.metas[int(i)]
             row = int(pg.gathered_row[pos])
@@ -935,11 +963,14 @@ def compute_pred_local(plan, decomp_local, grad_mats, damping, method,
 # Phase 4: KL clip + write-back
 # ---------------------------------------------------------------------------
 
-def preconditioned_grads(plan, grads, grad_mats, preds, lr, kl_clip):
+def preconditioned_grads(plan, grads, grad_mats, preds, lr, kl_clip,
+                         skip_clip=False):
     """Scale preds by the KL clip factor
     ``nu = min(1, sqrt(kl_clip / |sum(pred * grad) * lr^2|))`` and write
-    them into a new grads dict; other parameters pass through."""
-    if kl_clip is not None:
+    them into a new grads dict; other parameters pass through.
+    ``skip_clip`` (the CommunicateInverse ablation: the factor reads every
+    layer's pred) writes them unscaled."""
+    if kl_clip is not None and not skip_clip:
         vg = torch.zeros((), dtype=torch.float32, device=grad_mats[0].device)
         for p, g in zip(preds, grad_mats):
             vg = vg + torch.sum(p * g)

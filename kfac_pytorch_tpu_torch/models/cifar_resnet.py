@@ -143,14 +143,25 @@ def _kaiming_(w, fan_in, gen):
                                 generator=gen)
 
 
-def init_weights(model, seed=0):
+def _lecun_(w, fan_in, gen):
+    # Flax's default kernel init, lecun_normal: variance scaling 1/fan_in,
+    # the same truncation
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                generator=gen)
+
+
+def init_weights(model, seed=0, lecun=()):
     """Seeded initialization with the Flax model's distributions: conv and
-    dense kernels kaiming-normal, biases zero, BN scale one and bias zero."""
+    dense kernels kaiming-normal (lecun-normal, Flax's default, for the
+    modules named in ``lecun``), biases zero, BN scale one and bias
+    zero."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for m in model.modules():
+        for name, m in model.named_modules():
             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
-                _kaiming_(m.weight, m.weight[0].numel(), gen)
+                init = _lecun_ if name in lecun else _kaiming_
+                init(m.weight, m.weight[0].numel(), gen)
                 if m.bias is not None:
                     m.bias.zero_()
     return model

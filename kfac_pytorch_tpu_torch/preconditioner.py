@@ -226,6 +226,16 @@ class KFAC:
         the trainer drives; False turns every screen off
         (``self.health`` is then None). With E-KFAC a non-finite moment
         row keeps its (rotated) previous value.
+      exclude_parts: the reference's phase ablation, a string naming any
+        of 'ComputeFactor' (no factor update: no K1/K2 launch),
+        'CommunicateFactor' (the statistics stay local, no reduce),
+        'ComputeInverse' (no decomposition; the gradients pass through
+        unpreconditioned, the step still counts) and
+        'CommunicateInverse' (no decomposition or preconditioned-gradient
+        gather: each rank places its own rows, zeros elsewhere, and the
+        KL clip, which reads every layer's pred, is skipped). Timing runs
+        with each part removed splits a step's time by subtraction. Not
+        with ``decomp_shard`` and 'CommunicateInverse'.
 
     The E-KFAC variants ('ekfac', 'ekfac_dp') warn once a process that a
     damping tuned for an eigen variant may be too small for them, and
@@ -243,7 +253,7 @@ class KFAC:
                  basis_update_freq=None, warm_start_basis=False,
                  warm_sweeps=None, cold_restart_every=50, stagger=False,
                  decomp_impl=None, health=True, comm_prefetch=False,
-                 decomp_shard=False):
+                 decomp_shard=False, exclude_parts=''):
         if variant not in _VARIANTS:
             raise KeyError(f'unknown variant {variant!r}')
         if capture_impl is not None and capture_impl not in CAPTURE_IMPLS:
@@ -290,6 +300,16 @@ class KFAC:
                                 warm_sweeps, cold_restart_every, stagger,
                                 decomp_impl, decomp_shard)
         self._check_prefetch(comm_prefetch)
+        if self.decomp_shard and 'CommunicateInverse' in exclude_parts:
+            raise ValueError(
+                'decomp_shard IS a communication pattern — the '
+                'CommunicateInverse ablation cannot exclude the shard '
+                'exchange (drop decomp_shard for that ablation)')
+        self.exclude_compute_factor = 'ComputeFactor' in exclude_parts
+        self.exclude_communicate_factor = 'CommunicateFactor' in exclude_parts
+        self.exclude_compute_inverse = 'ComputeInverse' in exclude_parts
+        self.exclude_communicate_inverse = ('CommunicateInverse'
+                                            in exclude_parts)
         self.plan = None
         self._cohorts = None
         self._shard_plan = None
@@ -814,9 +834,12 @@ class KFAC:
                                   device=dev)
         lr = torch.as_tensor(hyper.lr, dtype=torch.float32, device=dev)
 
-        if update_factors:
+        # the stats reduce, or none under the CommunicateFactor ablation
+        reduce = ('local' if self.exclude_communicate_factor
+                  else self.stats_reduce)
+        if update_factors and not self.exclude_compute_factor:
             cap_impl = self.resolved_capture_impl
-            if (cap_impl == 'pallas' and self.stats_reduce == 'local'
+            if (cap_impl == 'pallas' and reduce == 'local'
                     and plan.num_devices == 1):
                 # world=1 local stats: capture -> factor GEMM -> EMA is one
                 # fused kernel per factor row
@@ -829,8 +852,7 @@ class KFAC:
                     capture_impl=cap_impl)
                 stats = engine.stack_stats(plan, a_list, g_list)
                 factors, comm_err = engine.update_factors(
-                    plan, factors, stats, self.factor_decay,
-                    self.stats_reduce, group,
+                    plan, factors, stats, self.factor_decay, reduce, group,
                     comm_precision=self.comm_precision, comm_err=comm_err,
                     capture_impl=cap_impl)
             if self.health is not None and comm_err is not None:
@@ -845,10 +867,13 @@ class KFAC:
                 factors = engine.where_finite_rows(factors, state.factors,
                                                    reinit_identity=True)
 
-        if factors_only:
+        if factors_only or self.exclude_compute_inverse:
+            # no decomposition yet, or the ComputeInverse ablation: the
+            # gradients pass through
             return grads, KFACState(step=state.step + 1, factors=factors,
                                     decomp=decomp, comm_err=comm_err)
 
+        communicate = not self.exclude_communicate_inverse
         if stagger_update:
             update_inverse = False
         impl = self.resolved_decomp_impl
@@ -863,7 +888,7 @@ class KFAC:
             # the basis is kept, so the stored moments stay as they are
             refreshed = engine.refresh_decomposition(
                 plan, factors, decomp, self.eps, group, self.comm_mode,
-                comm_precision=self.comm_precision)
+                communicate=communicate, comm_precision=self.comm_precision)
             if self.health is not None:
                 refreshed = engine.guard_decomposition(refreshed, decomp,
                                                        'eigh')
@@ -889,7 +914,7 @@ class KFAC:
                     self.method)
             if self.comm_mode == 'inverse':
                 new_decomp = engine.gather_decomposition(
-                    plan, decomp_local, group,
+                    plan, decomp_local, group, communicate=communicate,
                     comm_precision=self.comm_precision)
                 if self.ekfac:
                     # the moments live in the old basis: carry them over
@@ -905,7 +930,8 @@ class KFAC:
                 decomp = decomp_local
         if self.ekfac:
             decomp = {**decomp, 'scales': scales_prev}
-            if update_factors and acts is not None:
+            if (update_factors and acts is not None
+                    and not self.exclude_compute_factor):
                 if self.comm_mode == 'pred':
                     scales = engine.update_ekfac_scales_local(
                         plan, decomp, acts, gs, self.batch_averaged,
@@ -913,8 +939,8 @@ class KFAC:
                 else:
                     scales = engine.update_ekfac_scales(
                         plan, decomp, acts, gs, self.batch_averaged,
-                        scales_prev, self.factor_decay, self.stats_reduce,
-                        group, comm_precision=self.comm_precision)
+                        scales_prev, self.factor_decay, reduce, group,
+                        comm_precision=self.comm_precision)
                 if self.health is not None:
                     # a non-finite moment row keeps the (rotated) previous
                     scales = engine.where_finite_rows(scales, scales_prev)
@@ -952,8 +978,8 @@ class KFAC:
                     comm_mode=self.comm_mode, warm_sweeps=self.warm_sweeps)
                 decomp = engine.merge_cohort_decomposition(
                     plan, cohorts, decomp, cohort_new, cohort_idx, group,
-                    self.comm_mode, self.method, guard=guard,
-                    comm_precision=self.comm_precision)
+                    self.comm_mode, self.method, communicate=communicate,
+                    guard=guard, comm_precision=self.comm_precision)
 
         grad_mats = [engine.layer_grad_matrix(m, grads) for m in plan.metas]
         scales = pred_decomp.get('scales') if self.ekfac else None
@@ -964,8 +990,10 @@ class KFAC:
         else:
             preds = engine.compute_pred_local(
                 plan, pred_decomp, grad_mats, damping, self.method, group,
-                comm_precision=self.comm_precision, scales=scales)
-        new_grads = engine.preconditioned_grads(plan, grads, grad_mats,
-                                                preds, lr, self.kl_clip)
+                communicate=communicate, comm_precision=self.comm_precision,
+                scales=scales)
+        new_grads = engine.preconditioned_grads(
+            plan, grads, grad_mats, preds, lr, self.kl_clip,
+            skip_clip=not communicate)
         return new_grads, KFACState(step=state.step + 1, factors=factors,
                                     decomp=decomp, comm_err=comm_err)

@@ -1,4 +1,4 @@
-"""CIFAR ResNet trainer of the port (counterpart of
+"""CIFAR trainer of the port (ResNet, VGG, WRN-28-10) (counterpart of
 ``examples/cifar10_resnet.py``): the same flag names and defaults for the
 flags the port supports, plus ``--device`` (default ``cuda``),
 ``--dist-backend`` and ``--steps-per-epoch``.
@@ -29,7 +29,10 @@ the checkpoints' world or another (a world change prints ``RESHARDED``
 and ``WORLD_RESCALE`` lines), and continues at the batch after the last
 one the state took (the JAX trainer replays an interrupted epoch from its
 start). ``--io-retries`` retries checkpoint I/O and the next batch;
-``--speed`` prints images/s of warm steps and exits. A world change::
+``--speed`` prints images/s of warm steps and exits.
+``--exclude-parts`` leaves phases out of every K-FAC step (``KFAC``'s
+``exclude_parts``: the reference's time breakdown by subtraction). A
+world change::
 
   python -m kfac_pytorch_tpu_torch.launch --nproc 2 -- train_cifar \\
       --checkpoint-dir D --epochs 2
@@ -330,10 +333,16 @@ def main(argv=None, group=None):
         if ckdir:
             checkpoint.prune_checkpoints(ckdir, args.keep_checkpoints)
         if tr.world > 1:
-            if not tr.replicas_agree():
+            if tr.precond is not None and \
+                    tr.precond.exclude_communicate_inverse:
+                # each rank preconditions only the layers it owns
+                tr.say('replicas: not compared (the CommunicateInverse '
+                       'ablation updates each rank\'s own layers)')
+            elif not tr.replicas_agree():
                 raise RuntimeError('the ranks\' parameters and buffers '
                                    'differ')
-            tr.say(f'replicas: {tr.world} ranks bitwise identical')
+            else:
+                tr.say(f'replicas: {tr.world} ranks bitwise identical')
             if group is None:
                 torch.distributed.destroy_process_group()
     finally:

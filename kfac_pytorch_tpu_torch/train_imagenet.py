@@ -1,7 +1,8 @@
-"""ImageNet ResNet trainer of the port (counterpart of
-``examples/imagenet_resnet.py``): the JAX trainer's flag names and
-defaults (ResNet-50, batch 32, 224 x 224, base lr 0.0125 scaled by the
-accumulated batches, 5 warmup epochs, wd 5e-5, label smoothing 0.1,
+"""ImageNet trainer of the port (counterpart of
+``examples/imagenet_resnet.py``; ResNets, ResNeXts, DenseNet-BC,
+Inception-v4): the JAX trainer's flag names and defaults (ResNet-50,
+batch 32, 224 x 224, base lr 0.0125 scaled by the accumulated batches,
+5 warmup epochs, wd 5e-5, label smoothing 0.1,
 ``eigen_dp`` with ``kfac_update_freq=1``, bf16 on), gradient accumulation
 (``--batches-per-allreduce``), the K-FAC scheduler, auto-resume from
 ``--checkpoint-format`` at start, a checkpoint every epoch, retention
@@ -25,8 +26,10 @@ train_imagenet``), ``--batch-size`` is the GLOBAL batch and rank r trains
 on its rows, as in the CIFAR trainer; the run stamps its world beside its
 checkpoints and resumes through ``resilience.elastic_resume``, at that
 world or another. ``--io-retries`` retries checkpoint I/O and the next
-batch. Flags of the JAX trainer whose features the port does not have
-yet raise NotImplementedError naming their ROADMAP item.
+batch. ``--exclude-parts`` leaves phases out of every K-FAC step
+(``KFAC``'s ``exclude_parts``). Flags of the JAX trainer whose features
+the port does not have yet raise NotImplementedError naming their
+ROADMAP item.
 """
 
 import argparse
@@ -55,7 +58,6 @@ UNPORTED = [
                          'watchdog)'),
     ('straggler_budget', 0, 'queue 1, slice G item 23 (resilience: the '
                             'straggler governor)'),
-    ('exclude_parts', '', 'queue 1, slice B leftovers (exclude_parts)'),
 ]
 #: steps the --speed timer discards, then times (the JAX speed_report's)
 SPEED_WARMUP, SPEED_ITERS = 5, 60
@@ -127,7 +129,6 @@ def parse_args(argv=None):
     add_decomp_flags(p)
     # the JAX trainer's flags whose features are not ported (UNPORTED)
     p.add_argument('--kfac-autotune', action='store_true')
-    p.add_argument('--exclude-parts', default='')
     p.add_argument('--tb-dir', default=None)
     p.add_argument('--step-deadline', type=float, default=0)
     p.add_argument('--straggler-budget', type=float, default=0)
@@ -137,8 +138,8 @@ def parse_args(argv=None):
 
 
 def add_decomp_flags(p):
-    """The decomposition-ladder flags of the JAX trainers, shared by the
-    port's three trainers."""
+    """The decomposition-ladder flags of the JAX trainers and
+    ``--exclude-parts``, shared by the port's three trainers."""
     p.add_argument('--kfac-basis-update-freq', type=int, default=0,
                    help='full eigendecomposition cadence; intermediate '
                         'inverse updates refresh eigenvalues in the '
@@ -172,16 +173,23 @@ def add_decomp_flags(p):
                         'jacobi (eigh variants) and newton_schulz '
                         '(Cholesky variants) warm-start from the stored '
                         'decomposition; auto = subspace or newton_schulz')
+    p.add_argument('--exclude-parts', default='',
+                   help='phase ablation: any of ComputeFactor, '
+                        'CommunicateFactor, ComputeInverse, '
+                        'CommunicateInverse (comma-separated) left out of '
+                        'every K-FAC step, to split its time by '
+                        'subtraction')
 
 
 def decomp_kwargs(args):
-    """``KFAC`` keyword arguments of the decomposition-ladder flags."""
+    """``KFAC`` keyword arguments of :func:`add_decomp_flags`' flags."""
     return dict(basis_update_freq=args.kfac_basis_update_freq or None,
                 warm_start_basis=args.kfac_warm_start,
                 stagger=args.kfac_stagger,
                 decomp_impl=args.kfac_decomp_impl,
                 decomp_shard=args.kfac_decomp_shard,
-                comm_prefetch=args.kfac_comm_prefetch)
+                comm_prefetch=args.kfac_comm_prefetch,
+                exclude_parts=args.exclude_parts)
 
 
 def check_ported(args):

@@ -607,13 +607,19 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
                          health_lib.metrics(hstate, ok).items()})
 
         decomp = None
-        if precond is None or factors_only:
-            phases = ('stats',) if uf else ()
+        # the phases the preconditioner ran, its exclude_parts ablation
+        # taken out
+        stats = (('stats',) if uf and not (
+            precond is not None and precond.exclude_compute_factor) else ())
+        if (precond is None or factors_only
+                or precond.exclude_compute_inverse):
+            phases = stats
         else:
-            phases = ('pred',) + (('stats',) if uf else ())
+            phases = ('pred',) + stats
             if ui or st:
                 phases += ('decomp',) + (
-                    ('gather',) if precond.comm_mode == 'inverse' else ())
+                    ('gather',) if precond.comm_mode == 'inverse'
+                    and not precond.exclude_communicate_inverse else ())
                 decomp = ('cohort' if st else 'refresh' if not ub
                           else 'warm' if warm else 'full')
         step_fn.last_phases = phases

@@ -236,11 +236,10 @@ def test_zoo_state_dict_matches_jax_shapes(zoo_pair):
     tmodel.load_state_dict(sd)   # strict: every name converts
 
 
-#: the JAX registry's nets the port has not ported yet (ROADMAP queue 1,
-#: item 14), by constructor name
-ZOO_NOT_PORTED = {'vgg11', 'vgg13', 'vgg16', 'vgg19', 'wrn_28_10',
-                  'inception_v4', 'densenet121', 'densenet169',
-                  'densenet201'}
+#: the JAX registry's nets the port has not ported yet, by constructor
+#: name: none since the rest of the vision zoo (VGG, WRN-28-10,
+#: DenseNet-BC, Inception-v4) was ported
+ZOO_NOT_PORTED = set()
 
 
 def _jax_registry():
@@ -259,8 +258,8 @@ def _jax_registry():
                          ids=lambda v: v if isinstance(v, str) else None)
 def test_jax_model_names_resolve_in_the_port(name, ctor):
     """Every name of the JAX registry names the same net in the port's
-    (``'resnext50'`` -> ``resnext50_32x4d``), unless the net is one of
-    item 14's; ``train_imagenet --model`` takes the name."""
+    (``'resnext50'`` -> ``resnext50_32x4d``, ``'inception-v4'`` ->
+    ``inception_v4``); ``train_imagenet --model`` takes the name."""
     from kfac_pytorch_tpu_torch import models as tmodels, train_imagenet
     if ctor in ZOO_NOT_PORTED:
         assert name not in tmodels.REGISTRY

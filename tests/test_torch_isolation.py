@@ -174,6 +174,18 @@ def test_attention_wrappers_never_fall_back(monkeypatch):
                      True)
 
 
+@pytest.mark.parametrize('trainer,model', [
+    ('train_cifar', 'vgg16'), ('train_cifar', 'wrn-28-10'),
+    ('train_imagenet', 'densenet201'), ('train_imagenet', 'inception-v4')])
+def test_zoo_entry_points_raise_without_gpu(no_gpu, trainer, model):
+    # the rest of the vision zoo: no GPU, no run (and no net built)
+    import importlib
+    mod = importlib.import_module(f'kfac_pytorch_tpu_torch.{trainer}')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        mod.main(['--model', model, '--epochs', '1', '--exclude-parts',
+                  'ComputeInverse'])
+
+
 def test_world_gt1_entry_points_raise_without_gpu(no_gpu, monkeypatch):
     from kfac_pytorch_tpu_torch import launch, train_cifar
     started = []
@@ -206,6 +218,15 @@ def test_imagenet_unported_flags_raise(argv):
         args = train_imagenet.parse_args(['--device', 'cpu', *argv])
         train_imagenet.check_ported(args)
         assert train_imagenet.io_retry(args).attempts == 4
+    elif argv[0] == '--exclude-parts':
+        # ported: the phase ablation reaches KFAC
+        args = train_imagenet.parse_args(['--device', 'cpu', *argv])
+        train_imagenet.check_ported(args)
+        pre = train_imagenet.kfac_for(args, 1)
+        assert pre.exclude_compute_inverse
+        assert not (pre.exclude_compute_factor
+                    or pre.exclude_communicate_factor
+                    or pre.exclude_communicate_inverse)
     elif argv[0] == '--num-devices':
         # ported: world>1 needs the launcher's process group
         with pytest.raises(ValueError, match='WORLD_SIZE=1'):
@@ -222,7 +243,10 @@ def test_imagenet_unported_flags_raise(argv):
     (['--kfac-decomp-impl', 'subspace'], {'decomp_impl': 'subspace'}),
     (['--kfac-decomp-shard'], {'decomp_shard': True, 'stagger': True}),
     (['--kfac-comm-prefetch', '--kfac-name', 'eigen'],
-     {'comm_prefetch': True})],
+     {'comm_prefetch': True}),
+    (['--exclude-parts', 'ComputeFactor,CommunicateInverse'],
+     {'exclude_compute_factor': True, 'exclude_communicate_inverse': True,
+      'exclude_compute_inverse': False})],
     ids=lambda a: a[0] if isinstance(a, list) else None)
 @pytest.mark.filterwarnings('ignore:warm_start_basis')
 def test_imagenet_decomp_flags_reach_kfac(argv, attrs):

@@ -6,13 +6,16 @@ then starts in about two seconds). The test modules compute the JAX
 oracles in the parent process and hand the inputs over as numpy arrays.
 """
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch import capture, engine
 from kfac_pytorch_tpu_torch import nn as knn
-from kfac_pytorch_tpu_torch.models.cifar_resnet import BatchNorm2d
+from kfac_pytorch_tpu_torch.models import tiny
+from kfac_pytorch_tpu_torch.ops import capture_kernels as ck
 from kfac_pytorch_tpu_torch.parallel import collectives as coll
 from kfac_pytorch_tpu_torch.preconditioner import KFAC
 
@@ -42,24 +45,10 @@ class MLP(torch.nn.Module):
         return self.fc2(F.relu(self.fc1(x)))
 
 
-class TinyCNN(torch.nn.Module):
-    """``kfac_pytorch_tpu.models.tiny.TinyCNN(batch_norm=True)`` on 7x7
-    inputs (odd, so its stride-2 SAME padding is symmetric): c1 (3x3, 8),
-    BatchNorm, relu, c2 (3x3 stride 2, 8), relu, NHWC flatten, fc (10)."""
-
-    input_layout = 'NHWC'   # training.model_input's NHWC batch
-
-    def __init__(self):
-        super().__init__()
-        self.c1 = knn.Conv2d(3, 8, 3, padding=1)
-        self.bn1 = BatchNorm2d(8)
-        self.c2 = knn.Conv2d(8, 8, 3, stride=2, padding=1)
-        self.fc = knn.Linear(4 * 4 * 8, 10)
-
-    def forward(self, x):
-        x = F.relu(self.bn1(self.c1(x)))
-        x = F.relu(self.c2(x))
-        return self.fc(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
+#: ``kfac_pytorch_tpu.models.tiny.TinyCNN(batch_norm=True)`` on 7x7
+#: inputs (odd, so its stride-2 SAME padding is symmetric): the package's
+#: port of it
+TinyCNN = functools.partial(tiny.TinyCNN, batch_norm=True, in_size=7)
 
 
 MODELS = {'mlp': MLP, 'tiny': TinyCNN}
@@ -373,3 +362,26 @@ def live_replans(rank, world, group):
                 'decomp': _np_tree(st.decomp),
                 'world': pre.num_devices, 'group': pre.group is None})
     return out
+
+
+def exclude_parts_runs(rank, world, group, cfgs):
+    """:func:`run_steps` of every config (``cfg['kfac']`` carries the
+    ``exclude_parts``), each with the calls of K3's plain version (the
+    error-feedback prep of the lossy stats reduce) it made."""
+    torch.set_num_threads(1)
+    plain, calls = ck._ef_quantize_plain, [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return plain(*args, **kw)
+
+    ck._ef_quantize_plain = counted
+    try:
+        out = []
+        for cfg in cfgs:
+            calls[0] = 0
+            out.append({**run_steps(rank, world, group, cfg),
+                        'k3_calls': calls[0]})
+        return out
+    finally:
+        ck._ef_quantize_plain = plain
