@@ -27,7 +27,7 @@ launches:
 - slice 7: the ImageNet trainer (``train_imagenet``: ResNet-50, batch
   32, 224 x 224, bf16, ``eigen_dp`` with a decomposition every step, the
   capture kernels) for 8 steps with K1/K2 launch counts, images/s and a
-  2-step device profile; ``eigh`` ms per bucket; K1 and K2 against their
+  1-step device profile; ``eigh`` ms per bucket; K1 and K2 against their
   plain versions in bf16 at every ResNet-50 factor shape (bitwise over
   two runs, timed beside one bf16 tensor-core GEMM with an fp32 result,
   the bound at the bf16 tensor-core rate); the kernels' K-FAC step in
@@ -107,7 +107,7 @@ launches:
   dropped at world 1, replicas bitwise. The ImageNet trainer (ResNet-50
   bs32 bf16) at world 2 for 2 steps, checkpointed and resumed at world 1
   with the same row check, and its saves timed;
-- slice 13, last: the rest of the vision zoo through the trainers at
+- slice 13: the rest of the vision zoo through the trainers at
   full width and depth (``S13_NETS``: VGG-16 on CIFAR-100 and WRN-28-10
   in fp32, DenseNet-201 and Inception-v4 at batch 16, 224 x 224, bf16):
   finite losses, K1/K2 one a conv and one a conv's G and a dense layer's
@@ -121,7 +121,19 @@ launches:
   ComputeInverse no decomposition and the gradients bitwise untouched).
   The world=2 phase runs MPD ``eigen`` over the bf16 wire without
   CommunicateFactor (no byte in its scope, no K3) and without
-  CommunicateInverse (no byte in its scope).
+  CommunicateInverse (no byte in its scope);
+- slice 14, last: the sequence trainers on their synthetic fallbacks
+  (``S14_NETS``): Transformer-base on Multi30k (bs128, a factor and a
+  decomposition every step), BERT-base on SQuAD (bs4, sequence 64, every
+  step), and the WikiText-2 LSTM (650 wide, 2 layers, bs20, BPTT 35)
+  with SGD and with K-FAC every 10 steps (the per-timestep capture, the
+  timed window ending on a decomposition): finite losses, K2 once for
+  each dense layer's A and G a factor step, the step median, tokens/s,
+  the decomposition's ms and peak memory; K2 against its plain version
+  at every distinct captured shape (128 rows at d up to 2049, 4 rows at
+  d up to 3073, 35 rows at d up to 2600), bitwise over two runs and
+  timed; the Transformer-base and K-FAC LSTM K-FAC steps in lockstep
+  with the plain path.
 
 After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
 fp32 and bf16 inputs, K4, K5a and K5b at every head dim), the tensor-core
@@ -336,9 +348,11 @@ def captured_shapes(model, metas, x, loss_of):
             sides = [('K2 stat_rows', 'dense A', a),
                      ('K2 stat_rows', 'dense G', g)]
         for kname, what, t in sides:
+            # an A side's factor takes the bias column: the same rows with
+            # and without it are two launches
             key = (kname, what, tuple(t.shape),
                    (meta.kernel_size, meta.strides) if what == 'conv A'
-                   else None)
+                   else None, meta.use_bias if what.endswith('A') else None)
             if key not in cases:
                 cases[key] = {'kernel': kname, 'what': what, 'meta': meta,
                               'x': t, 'count': 0}
@@ -2222,7 +2236,7 @@ def run_nccl():
 #: kfac_update_freq=1) with the capture kernels, on 256 synthetic images
 R50_ARGS = ['--device', 'cuda', '--synthetic-size', '256']
 R50_STEPS = 8
-R50_PROFILE_STEPS = 2
+R50_PROFILE_STEPS = 1
 R50_AGREE_STEPS = 2
 #: the resume check: save after R50_SAVE_AFTER steps, restore into a fresh
 #: trainer, run R50_RESUME_MORE more
@@ -2358,8 +2372,10 @@ def time_decomposition(tr, prev):
     seeds = engine.compute_decomposition(plan, prev.factors, damping,
                                          'cholesky', eps)['invs']
 
+    # two reps a rung and bucket: the whole run keeps inside its time
+    # limit as the script grows
     def ms(fn):
-        return time_ms(fn, reps=3, hide_host=False)
+        return time_ms(fn, reps=2, hide_host=False)
 
     rows, bad = [], []
     for d in plan.bucket_dims:
@@ -2553,15 +2569,18 @@ def resnet50_cases(tr):
         lambda out: tr.loss_fn(out, batch))
 
 
-def check_resnet50_lockstep(tr, label='resnet50', steps=R50_AGREE_STEPS):
+def check_lockstep(tr, label='resnet50', steps=R50_AGREE_STEPS,
+                   batches=None):
     """The trainer's kernel preconditioner in lockstep with two
     capture_impl=None ones (the second with its factor GEMMs summed in
     fp64, the control), each from a fresh K-FAC state: every step all
-    three take the same bf16 captures and gradients. The kernels'
+    three take the same captures and gradients. The kernels'
     preconditioned gradients may part from the unfused ones by GRAD_RTOL
     of each tensor's largest entry, or by TRAJ_FACTOR times the
-    control's gap (the rule of the bf16 wire). ``tr`` is an ImageNet
-    trainer (``label`` names its net in the output), ``steps`` steps."""
+    control's gap (the rule of the bf16 wire). ``tr`` is a world=1
+    trainer (``label`` names its net in the output), ``steps`` steps on
+    ``batches`` (host batches; default the trainer's loader), the KL
+    clip at the lr the trainer's step hands K-FAC (``tr.kfac_lr``)."""
     import kfac_pytorch_tpu_torch as tkfac
     from kfac_pytorch_tpu_torch import capture, training
     from kfac_pytorch_tpu_torch.preconditioner import KFACHyperParams
@@ -2581,7 +2600,7 @@ def check_resnet50_lockstep(tr, label='resnet50', steps=R50_AGREE_STEPS):
     states = [p.init(tr.device) for p in pres]
     model = tr.state.model
     params = dict(model.named_parameters())
-    it = tr.train_loader.epoch()
+    it = tr.train_loader.epoch() if batches is None else batches
     bad, gaps = [], []
     for i in range(steps):
         batch = tr.to_device(next(it))
@@ -2592,7 +2611,7 @@ def check_resnet50_lockstep(tr, label='resnet50', steps=R50_AGREE_STEPS):
                                              tr.dtype))
             tr.loss_fn(out, batch).backward()
         grads = {k: p.grad for k, p in params.items()}
-        hyper = KFACHyperParams(lr=tr.lr_fn(i), damping=tr.precond.damping)
+        hyper = KFACHyperParams(lr=tr.kfac_lr(i), damping=tr.precond.damping)
         pgs = []
         for j, (pre, st) in enumerate(zip(pres, states)):
             with (fp64_stat_gemm() if j == 2 else contextlib.nullcontext()):
@@ -2607,8 +2626,9 @@ def check_resnet50_lockstep(tr, label='resnet50', steps=R50_AGREE_STEPS):
                           - states[1].factors[b].double()).abs()
                          / cs_scale(states[1].factors[b])).max())
                   for b in states[1].factors)
-        print(f'{label} lockstep (kernels vs capture_impl=None, bf16 '
-              f'captures) step {i}: factors max err {fac:.3e} x sqrt(F_ii '
+        print(f'{label} lockstep (kernels vs capture_impl=None, '
+              f'{str(tr.dtype)[6:]} captures) '
+              f'step {i}: factors max err {fac:.3e} x sqrt(F_ii '
               f'F_jj), preconditioned grads max rel err {gap:.3e} ({k}); '
               f'control (fp64 factor GEMMs) {ctl:.3e} ({kc})', flush=True)
         gaps.append({'factors': fac, 'grads': gap, 'control': ctl})
@@ -2702,7 +2722,7 @@ LADDER_RUNGS = [0, 0, 0, 1, 2, 2, 2, 0, 0, 0]
 F1MC_STEPS = 3
 #: timed steps of the guard's cost (after GUARD_WARM untimed ones), in
 #: rounds alternating on and off
-GUARD_STEPS_R32, GUARD_STEPS_R50, GUARD_WARM = 15, 5, 2
+GUARD_STEPS_R32, GUARD_STEPS_R50, GUARD_WARM = 15, 3, 2
 #: steps of each loader-depth timing, in rounds alternating 2 and 0
 DEPTH_STEPS, DEPTH_ROUNDS = 6, 3
 
@@ -3185,7 +3205,7 @@ def run_slice9(launches):
 
 #: ResNet-50 ekfac_dp: trainer steps, then alternating timing rounds of
 #: R50_EKFAC_BLOCK steps each against eigen_dp
-R50_EKFAC_STEPS, R50_EKFAC_ROUNDS, R50_EKFAC_BLOCK = 6, 3, 2
+R50_EKFAC_STEPS, R50_EKFAC_ROUNDS, R50_EKFAC_BLOCK = 6, 2, 2
 #: the moments at every ResNet-50 layer against the same operands in fp64:
 #: the largest gap relative to the layer's largest moment
 SCALES_TOL = 1e-4
@@ -4087,7 +4107,7 @@ def run_slice13():
         tr, launches[name], net_rows, out[name] = s13_net(name)
         rows += net_rows
         if name == 'inception_v4':
-            out[name]['lockstep'] = check_resnet50_lockstep(
+            out[name]['lockstep'] = check_lockstep(
                 tr, label=name, steps=S13_LOCKSTEP_STEPS)
         del tr
         torch.cuda.empty_cache()
@@ -4098,6 +4118,163 @@ def run_slice13():
     nets = {k: round(out[k]['seconds'], 1) for k in S13_NETS}
     print(f'slice 13 phase: {out["seconds"]:.1f} s (nets {json.dumps(nets)})',
           flush=True)
+    return launches, rows, out
+
+
+#: slice 14: the sequence trainers at the repo's configurations, on their
+#: synthetic fallbacks with the capture kernels: Transformer-base on
+#: Multi30k (train_multi30k.sh: bs128, max_len 32, a factor and a
+#: decomposition every step, damping 0.03, a 10000-token vocabulary),
+#: BERT-base on SQuAD (train_squad.sh: bs4, sequence 64, every step,
+#: damping 0.003), the WikiText-2 LSTM (650 wide, 2 layers, bs20, BPTT 35,
+#: 10000 tokens) with SGD and with K-FAC every 10 steps
+S14_COMMON = ['--kfac-capture-impl', 'pallas', '--seed', '42']
+S14_NETS = {
+    'transformer_base': ('train_multi30k', [
+        '--kfac-update-freq', '1', '--kfac-cov-update-freq', '1',
+        '--damping', '0.03', '--synthetic-vocab', '10000']),
+    'bert_base': ('train_squad', [
+        '--model-size', 'base', '--batch-size', '4', '--max-seq-length',
+        '64', '--kfac-update-freq', '1', '--kfac-cov-update-freq', '1',
+        '--damping', '0.003']),
+    'lstm_sgd': ('train_wikitext', ['--synthetic-vocab', '10000']),
+    'lstm_kfac': ('train_wikitext', ['--synthetic-vocab', '10000',
+                                     '--kfac-update-freq', '10']),
+}
+#: timed steps a net, after its warm steps (one, or as many as put a
+#: decomposition step last in the window)
+S14_TIMED = 4
+#: the kernels' K-FAC step in lockstep with the plain path, in steps
+S14_LOCKSTEP_STEPS = 2
+S14_LOCKSTEP = ('transformer_base', 'lstm_kfac')
+
+
+def s14_trainer(name, corpus=None):
+    """Net ``name``'s trainer (S14_NETS); the LSTMs share ``corpus``."""
+    import importlib
+    module, argv = S14_NETS[name]
+    mod = importlib.import_module(f'kfac_pytorch_tpu_torch.{module}')
+    args = mod.parse_args(['--device', DEVICE] + S14_COMMON + argv)
+    return mod.Trainer(args) if corpus is None else mod.Trainer(args,
+                                                                corpus)
+
+
+def s14_net(name, corpus=None):
+    """Net ``name``'s trainer: warm steps, then S14_TIMED synchronized
+    steps with finite losses, K2 launched once for each dense layer's A
+    and G a factor step (none for SGD), the decomposition on the steps
+    the cadence says; the step median, tokens/s, the decomposition's ms,
+    the peak memory of the trainer's build, warm and timed steps over
+    what was allocated before; then K2 against its plain version at
+    every distinct captured shape, and the lockstep for S14_LOCKSTEP.
+    Returns the launches, the per-shape rows and the numbers."""
+    from kfac_pytorch_tpu_torch import training
+    # the net's peak is taken over what earlier phases left allocated
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = s14_trainer(name, corpus)
+    built_s = time.perf_counter() - t0
+    pre = tr.precond
+    freq = pre.kfac_update_freq if pre is not None else 0
+    warm = max(1, freq - S14_TIMED + 1)
+    batches = tr.batches()
+    for _ in range(warm):
+        tr.train_step(next(batches))
+    torch.cuda.synchronize()
+    reset_counts()
+    times, losses, decomps = [], [], []
+    for _ in range(S14_TIMED):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(m['loss']))
+        decomps.append(tr.step_fn.last_decomp)
+    launches = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+    if not all(np.isfinite(losses)):
+        fail(f'{name}: non-finite training loss: {losses}')
+    if pre is None:
+        want = {k: 0 for k in launches}
+        cadence = [None] * S14_TIMED
+    else:
+        want, _, _ = launches_wanted(tr, S14_TIMED)
+        cadence = ['full' if (warm + i) % freq == 0 else None
+                   for i in range(S14_TIMED)]
+    if launches != want:
+        fail(f'{name}: kernel launches {launches}, expected {want}')
+    if decomps != cadence:
+        fail(f'{name}: decompositions {decomps}, expected {cadence}')
+    if pre is not None and 'full' not in decomps:
+        fail(f'{name}: no decomposition in the timed window')
+    med = float(np.median(times))
+    out = {'built_s': built_s, 'warm_steps': warm, 'step_ms': times,
+           'losses': losses, 'decomps': decomps, 'launches': launches,
+           'peak_mib': peak, 'held_before_mib': held / 2**20,
+           'step_ms_median': med,
+           'tokens_per_s': tr.tokens(batch) / med * 1e3,
+           'k2_per_factor_step': launches['K2 stat_rows'] // S14_TIMED,
+           'params': sum(p.numel() for p in tr.state.model.parameters()),
+           'decomposition_ms': None, 'buckets': None}
+    rows = []
+    if pre is not None:
+        out['decomposition_ms'] = s13_decomposition_ms(tr)
+        out['buckets'] = list(pre.plan.bucket_dims)
+        b = tr.to_device(next(batches))
+        model = tr.state.model
+        cases = captured_shapes(model, pre.plan.metas,
+                                training.model_input(model, b['input']),
+                                lambda o: tr.loss_fn(o, b))
+        out['distinct_shapes'] = [list(c['x'].shape) for c in cases]
+        rows = check_kernels(cases, name, dtypes=(torch.float32,))
+        out['k2_ms'] = sum(r['ms'] * r['per_step'] for r in rows)
+        if name in S14_LOCKSTEP:
+            out['lockstep'] = check_lockstep(tr, label=name,
+                                             steps=S14_LOCKSTEP_STEPS,
+                                             batches=tr.batches())
+    a = tr.args
+    print(f'slice 14 {name} ({a.kfac_name if pre else "sgd"}, '
+          f'kfac_update_freq {freq}): {out["params"] / 1e6:.1f} M '
+          f'parameters, buckets {out["buckets"]}; {warm} warm + {S14_TIMED} '
+          f'steps, losses {[round(x, 4) for x in losses]}, decompositions '
+          f'{decomps}, step ms median {med:.1f} (first {times[0]:.1f}), '
+          f'tokens/s {out["tokens_per_s"]:.0f}, decomposition '
+          f'{out["decomposition_ms"]} ms, peak {peak:.0f} MiB over the '
+          f'{held / 2**20:.0f} MiB held before the trainer, K2 '
+          f'{out["k2_per_factor_step"]} a factor step'
+          + (f', K2 against plain at {len(rows)} distinct shapes '
+             f'{out["distinct_shapes"]}: {out["k2_ms"]:.3f} ms a factor step'
+             if rows else '')
+          + f'; trainer built in {built_s:.1f} s; {gpu_line()}', flush=True)
+    del tr
+    torch.cuda.empty_cache()
+    return launches, rows, out
+
+
+def run_slice14():
+    """The slice-14 phase: the four runs of S14_NETS (:func:`s14_net`),
+    the LSTMs on one corpus. Returns the launches by net, the per-shape
+    rows and the numbers."""
+    from kfac_pytorch_tpu_torch import train_wikitext
+    t0 = time.perf_counter()
+    launches, rows, out = {}, [], {}
+    corpus = train_wikitext.load_corpus(train_wikitext.parse_args(
+        S14_NETS['lstm_sgd'][1]))
+    out['corpus_s'] = time.perf_counter() - t0
+    for name in S14_NETS:
+        t1 = time.perf_counter()
+        launches[name], net_rows, out[name] = s14_net(
+            name, corpus if name.startswith('lstm') else None)
+        rows += net_rows
+        out[name]['seconds'] = time.perf_counter() - t1
+    out['seconds'] = time.perf_counter() - t0
+    nets = {k: round(out[k]['seconds'], 1) for k in S14_NETS}
+    print(f'slice 14 phase: {out["seconds"]:.1f} s (corpus '
+          f'{out["corpus_s"]:.1f} s, nets {json.dumps(nets)})', flush=True)
     return launches, rows, out
 
 
@@ -4175,7 +4352,7 @@ def main():
     r50_rows = check_kernels(resnet50_cases(r50), 'resnet50',
                              dtypes=(torch.bfloat16,), timed=torch.bfloat16)
     lap('kernel checks')
-    check_resnet50_lockstep(r50)
+    check_lockstep(r50)
     lap('lockstep')
     slice9['guard_cost_resnet50'] = guard_cost(
         r50, r50.loss_fn, GUARD_STEPS_R50, 'resnet50 bs32', rounds=1)
@@ -4202,6 +4379,10 @@ def main():
 
     # slice 13: VGG-16, WRN-28-10, DenseNet-201, Inception-v4; exclude_parts
     s13_launches, s13_rows, slice13 = run_slice13()
+    torch.cuda.empty_cache()
+
+    # slice 14: Transformer-base, BERT-base, the WikiText-2 LSTM
+    s14_launches, s14_rows, slice14 = run_slice14()
 
     kernels = kernel_summary(rows, {'resnet32': launches,
                                     'transformer_lm': lm_launches,
@@ -4219,9 +4400,16 @@ def main():
             [r for r in s13_rows if r['path'] == name], paths,
             names=('K1 conv_a', 'K2 stat_rows'),
             suffix=f' ({name} {str(dtype)[6:]})')
+    for name in S14_NETS:
+        if any(r['path'] == name for r in s14_rows):
+            kernels += kernel_summary(
+                [r for r in s14_rows if r['path'] == name],
+                {name: s14_launches[name]}, names=('K2 stat_rows',),
+                suffix=f' ({name} fp32)')
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
-        json.dump({'device': smi, 'shapes': rows + r50_rows + s13_rows,
+        json.dump({'device': smi,
+                   'shapes': rows + r50_rows + s13_rows + s14_rows,
                    'kernels': kernels, 'tc_build': tc_report,
                    'step_ms': {'resnet32': step_times,
                                'transformer_lm': lm_times,
@@ -4229,7 +4417,7 @@ def main():
                                'resnet50': r50_times},
                    'world2': w2, 'nccl': nccl, 'slice9': slice9,
                    'slice10': slice10, 'slice12': slice12,
-                   'slice13': slice13,
+                   'slice13': slice13, 'slice14': slice14,
                    'resnet50': {'decomposition': decomp,
                                 'resume': {k: v for k, v in resume.items()
                                            if k != 'differ'},

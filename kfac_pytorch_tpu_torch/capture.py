@@ -168,6 +168,12 @@ def _nhwc(t):
     return t.permute(0, 2, 3, 1) if t.ndim == 4 else t
 
 
+def _stacked(calls):
+    """One layer's captures: the tensor of its one call as it is, or the
+    calls stacked along a new leading axis (time, for a recurrent cell)."""
+    return calls[0] if len(calls) == 1 else torch.stack(calls)
+
+
 class Capture:
     """Arm capture on the K-FAC layers ``metas`` (the plan's) of ``model``
     for one forward and backward: ``with Capture(model, plan.metas) as
@@ -175,15 +181,36 @@ class Capture:
     name: tensor}`` (NHWC for convs). Layers outside the plan, such as an
     excluded vocabulary head, are not hooked and keep nothing. Hooks are
     removed on exit. :meth:`regrad`, inside the block, takes ``g`` again
-    from a second loss of the same forward."""
+    from a second loss of the same forward.
+
+    A layer called more than once in the forward (a recurrent cell's
+    projections, once a timestep) has its calls stacked along a new
+    leading axis, ``[T, B, ...]``: the layout of the JAX package's
+    ``nn.scan`` over a capturing cell (``variable_axes`` 0 on the sown
+    inputs and taps), whose factor statistics average the batch axis and
+    count time as the ``n`` of ``compute_a_dense``/``compute_g_dense``. A
+    layer called once keeps its tensor as it is."""
 
     def __init__(self, model, metas):
         self.model = model
         self.metas = list(metas)
-        self.acts = {}
-        self.gs = {}
+        # {name: one entry a call}, in call order
+        self._acts = {}
+        self._gs = {}
         self._outs = {}
         self._handles = []
+
+    @property
+    def acts(self):
+        """``{name: a}``, each layer's calls stacked (:func:`_stacked`)."""
+        return {k: _stacked(v) for k, v in self._acts.items()}
+
+    @property
+    def gs(self):
+        """``{name: g}``, each layer's calls stacked; a layer whose output
+        took no gradient has no entry."""
+        return {k: _stacked(v) for k, v in self._gs.items()
+                if all(t is not None for t in v)}
 
     def __enter__(self):
         modules = dict(self.model.named_modules())
@@ -195,11 +222,13 @@ class Capture:
         return self
 
     def _on_forward(self, key, inp, out):
-        self.acts[key] = _nhwc(inp[0].detach())
+        self._acts.setdefault(key, []).append(_nhwc(inp[0].detach()))
         if out.requires_grad:
-            self._outs[key] = out
-            def save_g(grad, key=key):
-                self.gs[key] = _nhwc(grad)
+            self._outs.setdefault(key, []).append(out)
+            calls = self._gs.setdefault(key, [])
+            calls.append(None)
+            def save_g(grad, calls=calls, i=len(calls) - 1):
+                calls[i] = _nhwc(grad)
             out.register_hook(save_g)
 
     def __exit__(self, *exc):
@@ -219,12 +248,13 @@ class Capture:
         computes the layers' output gradients only: no parameter gradient
         is formed or accumulated. The F1mc Fisher's recapture; ``acts``
         stay the forward's."""
-        keys = list(self._outs)
-        grads = torch.autograd.grad(loss, [self._outs[k] for k in keys],
+        outs = [(k, o) for k, calls in self._outs.items() for o in calls]
+        grads = torch.autograd.grad(loss, [o for _, o in outs],
                                     allow_unused=True)
-        for key, g in zip(keys, grads):
-            self.gs[key] = _nhwc(torch.zeros_like(self._outs[key])
-                                 if g is None else g)
+        self._gs = {k: [] for k in self._outs}
+        for (key, o), g in zip(outs, grads):
+            self._gs[key].append(_nhwc(torch.zeros_like(o) if g is None
+                                       else g))
 
 
 def tensor_leaves(tree):

@@ -10,8 +10,9 @@ Batches are host numpy dicts, ``{'input': [B, H, W, 3] float32 NHWC,
 int32 tokens, 'label': [B, L] int32 next tokens}`` for the LM, drawn from
 the same seeded streams as the JAX package's, so both packages see the
 same batches. ``Loader.epoch(retry=)`` survives a transient producer
-failure (``resilience.resumable_iter``). Not ported yet: the loader's
-multi-host ``shard`` and its fault hook (ROADMAP queue 1, slice G).
+failure (``resilience.resumable_iter``), and ``Loader(shard=)`` gives each
+process its slice of every epoch. Not ported yet: the loader's fault
+hook (ROADMAP queue 1, slice G).
 """
 
 import collections
@@ -206,18 +207,39 @@ def _prefetch_gen(gen, depth):
         t.join()
 
 
+def default_shard():
+    """``(rank, world)`` of the default process group, or ``(0, 1)``
+    without one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 class Loader:
     """Persistent shuffling batch iterator (drop-last, reshuffle per
     epoch). Each epoch draws one child seed from the loader's stream, as
-    the JAX loader does."""
+    the JAX loader does.
 
-    def __init__(self, x, y, batch_size, train=True, augment=None, seed=0):
+    ``shard=(index, count)`` restricts iteration to this process's slice
+    of every epoch's permutation, the multi-host DistributedSampler: every
+    process draws the same permutation (the same seed) and takes the
+    ``index``-th of ``count`` contiguous slices, so ``batch_size`` is the
+    per-process batch and an epoch is ``len(x) // (batch_size * count)``
+    steps. The default is :func:`default_shard`. The port's CIFAR and
+    ImageNet trainers pass ``(0, 1)``: their loaders produce the global
+    batch, and each rank takes its rows in the step."""
+
+    def __init__(self, x, y, batch_size, train=True, augment=None, seed=0,
+                 shard=None):
         self.x, self.y = x, y
         self.batch_size = batch_size
         self.train = train
         self.augment = augment
         self.rng = np.random.RandomState(seed)
-        self.steps_per_epoch = len(x) // batch_size
+        self.shard_index, self.shard_count = (default_shard() if shard is None
+                                              else shard)
+        self.steps_per_epoch = len(x) // (batch_size * self.shard_count)
 
     def epoch(self, prefetch_depth=2, retry=None):
         """One epoch of batches, assembled ``prefetch_depth`` ahead on a
@@ -246,6 +268,8 @@ class Loader:
         idx = np.arange(len(self.x))
         if self.train:
             rng.shuffle(idx)
+        per = len(self.x) // self.shard_count
+        idx = idx[self.shard_index * per:(self.shard_index + 1) * per]
         for s in range(self.steps_per_epoch):
             sel = idx[s * self.batch_size:(s + 1) * self.batch_size]
             bx = _normalize(self.x[sel])

@@ -1,7 +1,9 @@
 """Model zoo of the port: the JAX zoo's vision nets (CIFAR ResNets, VGG,
-WRN-28-10; ImageNet ResNets and ResNeXts, DenseNet-BC, Inception-v4) and
-the long-context LM (``models/tiny.py`` holds the tests' tiny conv
-net)."""
+WRN-28-10; ImageNet ResNets and ResNeXts, DenseNet-BC, Inception-v4), the
+long-context LM and the sequence models (the encoder-decoder Transformer,
+BERT with its SQuAD head, the WikiText-2 LSTM; ``models/translator.py``
+decodes the Transformer). ``models/tiny.py`` holds the tests' tiny conv
+net."""
 
 from kfac_pytorch_tpu_torch.models.cifar_resnet import (
     resnet20, resnet32, resnet44, resnet56, resnet110)
@@ -14,11 +16,14 @@ from kfac_pytorch_tpu_torch.models.imagenet_resnet import (
     resnet18, resnet34, resnet50, resnet101, resnet152, resnext50_32x4d,
     resnext101_32x8d)
 from kfac_pytorch_tpu_torch.models.inception_v4 import inception_v4
+from kfac_pytorch_tpu_torch.models.bert import bert_base_qa, bert_tiny_qa
+from kfac_pytorch_tpu_torch.models.rnn import wikitext_lstm
+from kfac_pytorch_tpu_torch.models.transformer import multi30k_transformer
 
 
 #: ``--model`` name -> constructor: every name of the JAX registry,
 #: aliases included (``'resnext50'``/``'resnext101'`` beside the long
-#: ones)
+#: ones), and the sequence models the JAX package exports beside it
 REGISTRY = {
     'resnet20': resnet20, 'resnet32': resnet32, 'resnet44': resnet44,
     'resnet56': resnet56, 'resnet110': resnet110,
@@ -33,6 +38,9 @@ REGISTRY = {
     'densenet121': densenet121, 'densenet169': densenet169,
     'densenet201': densenet201,
     'transformer_lm': transformer_lm,
+    'wikitext_lstm': wikitext_lstm,
+    'multi30k_transformer': multi30k_transformer,
+    'bert_base_qa': bert_base_qa, 'bert_tiny_qa': bert_tiny_qa,
 }
 
 

@@ -50,7 +50,7 @@ import kfac_pytorch_tpu_torch as kfac
 from kfac_pytorch_tpu_torch import data as kdata
 from kfac_pytorch_tpu_torch import models, training, utils
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
-from kfac_pytorch_tpu_torch.train_imagenet import (add_decomp_flags,
+from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
                                                    init_world, io_retry,
                                                    kfac_for, resume_from,
                                                    speed, stamp_world)
@@ -73,42 +73,17 @@ def parse_args(argv=None):
     p.add_argument('--warmup-epochs', type=int, default=5)
     p.add_argument('--wd', type=float, default=5e-4)
     p.add_argument('--momentum', type=float, default=0.9)
-    p.add_argument('--kfac-update-freq', type=int, default=10,
-                   help='0 disables K-FAC (pure SGD)')
-    p.add_argument('--kfac-capture-impl', default=None,
-                   choices=['xla', 'pallas', 'auto'],
-                   help="capture path: unset or 'xla' = plain torch ops; "
-                        "'pallas'/'auto' = the fused CUDA capture kernels")
-    p.add_argument('--kfac-cov-update-freq', type=int, default=1)
+    add_kfac_flags(p, update_freq=10, damping=0.003)
     p.add_argument('--kfac-type', '--fisher-type', default='Femp',
                    choices=['Femp', 'F1mc'],
                    help='Fisher estimator: empirical-gradient (Femp) or '
                         '1-sample MC with model-sampled pseudo labels '
                         '(F1mc)')
-    add_decomp_flags(p)
-    p.add_argument('--kfac-name', default='eigen_dp',
-                   choices=list(kfac.KFAC_VARIANTS))
-    p.add_argument('--stat-decay', type=float, default=0.95)
-    p.add_argument('--damping', type=float, default=0.003)
-    p.add_argument('--kl-clip', type=float, default=0.001)
     p.add_argument('--damping-alpha', type=float, default=0.5)
     p.add_argument('--damping-decay', nargs='+', type=int, default=None)
     p.add_argument('--kfac-update-freq-alpha', type=float, default=10)
     p.add_argument('--kfac-update-freq-decay', nargs='+', type=int,
                    default=None)
-    p.add_argument('--kfac-comm-precision', default='fp32',
-                   choices=['fp32', 'bf16', 'int8'],
-                   help='wire dtype of the K-FAC factor collectives: bf16 '
-                        'halves, int8 quarters the gather payloads; a lossy '
-                        'stats reduce carries an error-feedback residual; '
-                        'the gradient all-reduce is never compressed')
-    p.add_argument('--kfac-comm-mode', default=None,
-                   choices=['inverse', 'pred'],
-                   help="override the variant's comm mode: 'inverse' "
-                        "gathers decompositions once per refresh, 'pred' "
-                        'gathers preconditioned gradients every step')
-    p.add_argument('--assignment', default='round_robin',
-                   choices=['round_robin', 'balanced'])
     p.add_argument('--num-devices', type=int, default=1,
                    help='ranks of the K-FAC world; > 1 must be launched '
                         '(python -m kfac_pytorch_tpu_torch.launch) and '
@@ -163,15 +138,16 @@ class Trainer:
         num_classes = 10 if args.dataset == 'cifar10' else 100
         (train_x, train_y), (val_x, val_y) = kdata.get_cifar(args.dir,
                                                              num_classes)
+        # the global batch: each rank takes its rows in to_device
         self.train_loader = kdata.Loader(train_x, train_y, args.batch_size,
                                          train=True,
                                          augment=kdata.augment_cifar,
-                                         seed=args.seed)
+                                         seed=args.seed, shard=(0, 1))
         if args.steps_per_epoch is not None:
             self.train_loader.steps_per_epoch = min(
                 args.steps_per_epoch, self.train_loader.steps_per_epoch)
         self.val_loader = kdata.Loader(val_x, val_y, args.val_batch_size,
-                                       train=False)
+                                       train=False, shard=(0, 1))
         model = models.get_model(args.model, num_classes=num_classes,
                                  seed=args.seed)
         # the JAX trainer's scale, quirk included: world x GLOBAL batch

@@ -79,29 +79,12 @@ def parse_args(argv=None):
     p.add_argument('--wd', type=float, default=5e-5)
     p.add_argument('--label-smoothing', type=float, default=0.1)
     p.add_argument('--img-size', type=int, default=224)
-    p.add_argument('--kfac-update-freq', type=int, default=1,
-                   help='0 disables K-FAC (pure SGD)')
-    p.add_argument('--kfac-cov-update-freq', type=int, default=1)
-    p.add_argument('--kfac-capture-impl', default=None,
-                   choices=['xla', 'pallas', 'auto'],
-                   help="capture path: unset or 'xla' = plain torch ops; "
-                        "'pallas'/'auto' = the fused CUDA capture kernels")
-    p.add_argument('--kfac-comm-precision', default='fp32',
-                   choices=['fp32', 'bf16', 'int8'])
-    p.add_argument('--kfac-comm-mode', default=None,
-                   choices=['inverse', 'pred'])
-    p.add_argument('--kfac-name', default='eigen_dp',
-                   choices=list(kfac.KFAC_VARIANTS))
-    p.add_argument('--stat-decay', type=float, default=0.95)
-    p.add_argument('--damping', type=float, default=0.002)
-    p.add_argument('--kl-clip', type=float, default=0.001)
+    add_kfac_flags(p, update_freq=1, damping=0.002, assignment='balanced')
     p.add_argument('--damping-alpha', type=float, default=0.5)
     p.add_argument('--damping-decay', nargs='+', type=int, default=None)
     p.add_argument('--kfac-update-freq-alpha', type=float, default=10)
     p.add_argument('--kfac-update-freq-decay', nargs='+', type=int,
                    default=None)
-    p.add_argument('--assignment', default='balanced',
-                   choices=['round_robin', 'balanced'])
     p.add_argument('--num-devices', type=int, default=1,
                    help='ranks of the K-FAC world; > 1 must be launched '
                         '(python -m kfac_pytorch_tpu_torch.launch) and '
@@ -126,7 +109,6 @@ def parse_args(argv=None):
                    help='cut each epoch to this many steps (default: the '
                         'whole training set)')
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
-    add_decomp_flags(p)
     # the JAX trainer's flags whose features are not ported (UNPORTED)
     p.add_argument('--kfac-autotune', action='store_true')
     p.add_argument('--tb-dir', default=None)
@@ -137,9 +119,41 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def add_kfac_flags(p, update_freq, damping, assignment='round_robin'):
+    """The K-FAC flags of the port's trainers (the JAX trainers' names;
+    ``update_freq``, ``damping`` and ``assignment`` their defaults), with
+    the ladder's and ``--exclude-parts`` (:func:`add_decomp_flags`)."""
+    p.add_argument('--kfac-update-freq', type=int, default=update_freq,
+                   help='0 disables K-FAC (pure SGD)')
+    p.add_argument('--kfac-cov-update-freq', type=int, default=1)
+    p.add_argument('--kfac-capture-impl', default=None,
+                   choices=['xla', 'pallas', 'auto'],
+                   help="capture path: unset or 'xla' = plain torch ops; "
+                        "'pallas'/'auto' = the fused CUDA capture kernels")
+    p.add_argument('--kfac-comm-precision', default='fp32',
+                   choices=['fp32', 'bf16', 'int8'],
+                   help='wire dtype of the K-FAC factor collectives: bf16 '
+                        'halves, int8 quarters the gather payloads; a lossy '
+                        'stats reduce carries an error-feedback residual; '
+                        'the gradient all-reduce is never compressed')
+    p.add_argument('--kfac-comm-mode', default=None,
+                   choices=['inverse', 'pred'],
+                   help="override the variant's comm mode: 'inverse' "
+                        "gathers decompositions once per refresh, 'pred' "
+                        'gathers preconditioned gradients every step')
+    p.add_argument('--kfac-name', default='eigen_dp',
+                   choices=list(kfac.KFAC_VARIANTS))
+    p.add_argument('--stat-decay', type=float, default=0.95)
+    p.add_argument('--damping', type=float, default=damping)
+    p.add_argument('--kl-clip', type=float, default=0.001)
+    p.add_argument('--assignment', default=assignment,
+                   choices=['round_robin', 'balanced'])
+    add_decomp_flags(p)
+
+
 def add_decomp_flags(p):
     """The decomposition-ladder flags of the JAX trainers and
-    ``--exclude-parts``, shared by the port's three trainers."""
+    ``--exclude-parts``, shared by the port's trainers."""
     p.add_argument('--kfac-basis-update-freq', type=int, default=0,
                    help='full eigendecomposition cadence; intermediate '
                         'inverse updates refresh eigenvalues in the '
@@ -211,10 +225,12 @@ def io_retry(args):
     return resilience.RetryPolicy(attempts=args.io_retries + 1)
 
 
-def kfac_for(args, world, group=None):
-    """The trainers' preconditioner from their K-FAC flags, at ``world``
-    ranks (``group`` their process group; None for the groupless host
-    structure of another world, as ``elastic_resume`` asks for)."""
+def kfac_for(args, world=1, group=None, exclude_vocabulary_size=None):
+    """The trainers' preconditioner from their K-FAC flags
+    (:func:`add_kfac_flags`), at ``world`` ranks (``group`` their process
+    group; None for the groupless host structure of another world, as
+    ``elastic_resume`` asks for), the pre-softmax head of
+    ``exclude_vocabulary_size`` outputs left out."""
     return kfac.get_kfac_module(args.kfac_name)(
         lr=args.base_lr, damping=args.damping,
         fac_update_freq=args.kfac_cov_update_freq,
@@ -224,7 +240,9 @@ def kfac_for(args, world, group=None):
         comm_mode=args.kfac_comm_mode,
         kl_clip=args.kl_clip, factor_decay=args.stat_decay,
         num_devices=world, group=group,
-        assignment=args.assignment, **decomp_kwargs(args))
+        assignment=args.assignment,
+        exclude_vocabulary_size=exclude_vocabulary_size,
+        **decomp_kwargs(args))
 
 
 def resume_from(tr, base_dir):
@@ -315,13 +333,15 @@ class Trainer:
         self.dtype = torch.bfloat16 if args.bf16 else torch.float32
         (train_x, train_y), (val_x, val_y) = kdata.get_imagenet(
             args.train_dir, args.img_size, args.synthetic_size)
+        # the global batch: each rank takes its rows in to_device
         self.train_loader = kdata.Loader(train_x, train_y, args.batch_size,
-                                         train=True, seed=args.seed)
+                                         train=True, seed=args.seed,
+                                         shard=(0, 1))
         if args.steps_per_epoch is not None:
             self.train_loader.steps_per_epoch = min(
                 args.steps_per_epoch, self.train_loader.steps_per_epoch)
         self.val_loader = kdata.Loader(val_x, val_y, args.val_batch_size,
-                                       train=False)
+                                       train=False, shard=(0, 1))
         model = models.get_model(args.model, num_classes=1000,
                                  seed=args.seed, dtype=self.dtype)
         self.lr_fn = utils.warmup_multistep(
@@ -366,11 +386,16 @@ class Trainer:
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items()}
 
+    def kfac_lr(self, step):
+        """The lr the step hands K-FAC (its KL clip) at ``step``: the
+        schedule's."""
+        return self.lr_fn(step)
+
     def train_step(self, batch):
         """One step on a host batch; returns the metrics dict."""
-        lr = self.lr_fn(self.state.step)
         self.state, m = self.step_fn(
-            self.state, self.to_device(batch), lr=lr,
+            self.state, self.to_device(batch),
+            lr=self.kfac_lr(self.state.step),
             damping=self.precond.damping if self.precond else 0.0)
         return m
 
@@ -409,10 +434,15 @@ class Trainer:
                                    retry=self.io_retry, group=self.group)
 
 
-def speed(tr):
-    """Images/s over SPEED_ITERS synchronized steps on one batch, after
-    SPEED_WARMUP steps (the JAX ``speed_report``'s counts)."""
-    batch = next(tr.train_loader.epoch())
+def speed(tr, batch=None, units=None, unit='imgs/sec'):
+    """``unit`` a second over SPEED_ITERS synchronized steps on one host
+    batch (default the loader's first) of ``units`` items (default its
+    labels), after SPEED_WARMUP steps (the JAX ``speed_report``'s counts
+    and line)."""
+    if batch is None:
+        batch = next(tr.train_loader.epoch())
+    if units is None:
+        units = len(batch['label'])
     sync = (torch.cuda.synchronize if tr.device.type == 'cuda'
             else (lambda: None))
     for _ in range(SPEED_WARMUP):
@@ -425,8 +455,8 @@ def speed(tr):
         sync()
         times.append(time.perf_counter() - t0)
     mean, std = float(np.mean(times)), float(np.std(times))
-    tr.say(f'SPEED: iter time {mean:.4f} +- {std:.4f} s (imgs/sec '
-           f'{len(batch["label"]) / mean:.1f})')
+    tr.say(f'SPEED: iter time {mean:.4f} +- {std:.4f} s ({unit} '
+           f'{units / mean:.1f})')
 
 
 def main(argv=None, group=None):

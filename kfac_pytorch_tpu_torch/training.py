@@ -91,6 +91,89 @@ def sgd(lr_schedule, momentum=0.9, weight_decay=0.0):
     return SGD(lr_schedule, momentum=momentum, weight_decay=weight_decay)
 
 
+class Adam:
+    """``optax.chain(optax.scale_by_adam(b1, b2, eps),
+    optax.scale_by_learning_rate(lr_schedule))`` (the Transformer
+    trainer's Adam): ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2
+    nu``, each divided by its bias correction ``1 - b^(count + 1)``, and
+    ``p += -lr * mu_hat / (sqrt(nu_hat) + eps)`` with ``lr`` the schedule
+    at ``count``, the updates applied before this one."""
+
+    def __init__(self, lr_schedule, b1=0.9, b2=0.999, eps=1e-8):
+        self.lr_schedule = lr_schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params):
+        return {'mu': {k: torch.zeros_like(p) for k, p in params.items()},
+                'nu': {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    lr = SGD.lr
+
+    def _corrections(self, count):
+        t = np.float32(int(count) + 1)
+        return tuple(float(np.float32(1.0) - np.float32(b) ** t)
+                     for b in (self.b1, self.b2))
+
+    @torch.no_grad()
+    def apply(self, params, grads, opt_state, count):
+        keys = list(params)
+        p = [params[k] for k in keys]
+        g = [grads[k] for k in keys]
+        mu = [opt_state['mu'][k] for k in keys]
+        nu = [opt_state['nu'][k] for k in keys]
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - self.b1))
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g),
+                                                   1.0 - self.b2))
+        c1, c2 = self._corrections(count)
+        den = torch._foreach_add(torch._foreach_sqrt(
+            torch._foreach_div(nu, c2)), self.eps)
+        upd = torch._foreach_div(torch._foreach_div(mu, c1), den)
+        lr = self.lr(count)
+        torch._foreach_add_(p, torch._foreach_mul(upd, -lr))
+
+
+def adam(lr_schedule, b1=0.9, b2=0.999, eps=1e-8):
+    """The :class:`Adam` optimizer."""
+    return Adam(lr_schedule, b1=b1, b2=b2, eps=eps)
+
+
+class ClipByGlobalNorm:
+    """``optax.chain(optax.clip_by_global_norm(max_norm), inner)``: the
+    gradients scaled by ``max_norm / ||g||`` (the norm over every tensor)
+    when that norm is not below ``max_norm``, then ``inner`` (an optimizer
+    of this module) applied to them. A select on the device, no host
+    read."""
+
+    def __init__(self, max_norm, inner):
+        self.max_norm = max_norm
+        self.inner = inner
+
+    def init(self, params):
+        return self.inner.init(params)
+
+    def lr(self, count):
+        return self.inner.lr(count)
+
+    @torch.no_grad()
+    def apply(self, params, grads, opt_state, count):
+        keys = list(grads)
+        g = [grads[k] for k in keys]
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        keep = norm < self.max_norm
+        scaled = torch._foreach_mul(torch._foreach_div(g, norm),
+                                    self.max_norm)
+        clipped = {k: torch.where(keep, t, c)
+                   for k, t, c in zip(keys, g, scaled)}
+        self.inner.apply(params, clipped, opt_state, count)
+
+
+def clip_by_global_norm(max_norm, inner):
+    """The :class:`ClipByGlobalNorm` chain."""
+    return ClipByGlobalNorm(max_norm, inner)
+
+
 class MultiSteps:
     """Gradient accumulation, ``optax.MultiSteps(inner, every_k)`` with
     its default mean: every call folds the gradients into a running mean
@@ -301,7 +384,7 @@ def init_train_state(model, tx, precond, sample_input, device=None,
     kfac_state = None
     if precond is not None:
         if precond.plan is None:
-            x = torch.as_tensor(sample_input).to(device, non_blocking=True)
+            x = to_device(sample_input, device)
             precond.setup(capture.collect_layer_meta(model,
                                                      model_input(model, x)))
         kfac_state = precond.init(device)
@@ -312,17 +395,29 @@ def init_train_state(model, tx, precond, sample_input, device=None,
                       kfac_state=kfac_state, health=hstate)
 
 
+def to_device(x, device):
+    """A batch input (an array, or a tuple of arrays) as tensors on
+    ``device``."""
+    if isinstance(x, (tuple, list)):
+        return tuple(to_device(t, device) for t in x)
+    return torch.as_tensor(x).to(device, non_blocking=True)
+
+
 def model_input(model, x, dtype=None):
     """``batch['input']`` as ``model`` takes it, by ``model.input_layout``:
     an ``'NHWC'`` image batch becomes its NCHW view (channels_last in
     memory when the batch is NHWC-contiguous), cast to ``dtype`` if one is
     given (the JAX trainers' ``batch['input'].astype(dtype)``);
-    ``'tokens'`` pass as they are."""
+    ``'tokens'`` pass as they are, and so does a ``'tuple'`` of tensors
+    (the Transformer's ``(src, trg)``, BERT's ``(ids, types, mask)``),
+    which the model takes as its one argument."""
     if model.input_layout == 'NHWC':
         x = x.permute(0, 3, 1, 2)
         return x if dtype is None else x.to(dtype)
     if model.input_layout == 'tokens':
         return x
+    if model.input_layout == 'tuple':
+        return tuple(x)
     raise ValueError(f'unknown input_layout {model.input_layout!r}')
 
 

@@ -6,7 +6,8 @@ info``, the JAX package's ``utils`` exports) load on first use:
 package.
 """
 
-from kfac_pytorch_tpu_torch.utils.lr import warmup_multistep  # noqa: F401
+from kfac_pytorch_tpu_torch.utils.lr import (  # noqa: F401
+    inverse_sqrt, polynomial_decay, warmup_multistep)
 from kfac_pytorch_tpu_torch.utils.metrics import (  # noqa: F401
     HealthMonitor, accuracy)
 from kfac_pytorch_tpu_torch.utils.platform import resolve_device  # noqa: F401
@@ -26,5 +27,6 @@ def __getattr__(name):
     raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
 
 
-__all__ = ['warmup_multistep', 'HealthMonitor', 'accuracy',
-           'resolve_device', 'health_suffix', *_CHECKPOINT]
+__all__ = ['warmup_multistep', 'polynomial_decay', 'inverse_sqrt',
+           'HealthMonitor', 'accuracy', 'resolve_device', 'health_suffix',
+           *_CHECKPOINT]

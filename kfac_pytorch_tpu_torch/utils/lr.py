@@ -1,4 +1,6 @@
-"""Learning-rate schedules (port of ``kfac_pytorch_tpu/utils/lr.py``).
+"""Learning-rate schedules (port of ``kfac_pytorch_tpu/utils/lr.py``):
+warmup + multi-step decay, polynomial decay and the Transformer's
+inverse square root.
 
 Step-indexed callables evaluated in float32, op for op as the JAX
 schedule evaluates them, so both packages feed the optimizer the same lr.
@@ -82,3 +84,79 @@ def warmup_multistep(base_lr, steps_per_epoch, warmup_epochs, decay_epochs,
     return WarmupMultistep(base_lr, steps_per_epoch, warmup_epochs,
                            decay_epochs, decay_factor=decay_factor,
                            init_scale=init_scale, scale=scale)
+
+
+class PolynomialDecay:
+    """Polynomial decay to zero after a linear warmup (the reference's
+    ``examples/utils.py`` schedule): ``base_lr * scale * step /
+    warmup_steps`` during the warmup, then ``base_lr * scale * (1 - t /
+    (total_steps - warmup_steps)) ** power`` with ``t`` the steps since
+    the warmup, clipped to the decay's length."""
+
+    def __init__(self, base_lr, total_steps, power=2.0, warmup_steps=0,
+                 scale=1.0):
+        self.base = np.float32(base_lr * scale)
+        self.power = np.float32(power)
+        self.warmup_steps = warmup_steps
+        self.span = total_steps - warmup_steps
+        self._tables = {}
+
+    def __call__(self, step):
+        s = np.float32(step)
+        if s < self.warmup_steps:
+            return float(self.base * s / np.float32(max(self.warmup_steps,
+                                                        1)))
+        t = np.clip(s - np.float32(self.warmup_steps), np.float32(0),
+                    np.float32(self.span))
+        frac = np.float32(1.0) - t / np.float32(max(self.span, 1))
+        return float(self.base * frac ** self.power)
+
+    def device(self, count):
+        """The lr at step ``count`` (a 0-d integer tensor) as a float32
+        0-d tensor on its device, the same bits as ``self(count)``."""
+        dev = count.device
+        divisors = self._tables.get(str(dev))
+        if divisors is None:
+            divisors = torch.tensor([max(self.warmup_steps, 1),
+                                     max(self.span, 1)],
+                                    dtype=torch.float32, device=dev)
+            self._tables[str(dev)] = divisors
+        s = count.to(torch.float32)
+        warm = s * float(self.base) / divisors[0]
+        t = torch.clamp(s - float(self.warmup_steps), 0.0, float(self.span))
+        frac = 1.0 - t / divisors[1]
+        decayed = torch.pow(frac, float(self.power)) * float(self.base)
+        return torch.where(s < float(self.warmup_steps), warm, decayed)
+
+
+def polynomial_decay(base_lr, total_steps, power=2.0, warmup_steps=0,
+                     scale=1.0):
+    """The :class:`PolynomialDecay` schedule."""
+    return PolynomialDecay(base_lr, total_steps, power=power,
+                           warmup_steps=warmup_steps, scale=scale)
+
+
+class InverseSqrt:
+    """The Transformer schedule, ``lr_mul * d_model^-0.5 * min(s^-0.5, s *
+    warmup_steps^-1.5)`` with ``s = max(step, 1)``."""
+
+    def __init__(self, d_model, warmup_steps=4000, lr_mul=1.0):
+        self.scale = np.float32(lr_mul * d_model ** -0.5)
+        self.ramp = np.float32(warmup_steps ** -1.5)
+
+    def __call__(self, step):
+        s = np.maximum(np.float32(step), np.float32(1.0))
+        return float(self.scale * np.minimum(s ** np.float32(-0.5),
+                                             s * self.ramp))
+
+    def device(self, count):
+        """The lr at step ``count`` (a 0-d integer tensor) as a float32
+        0-d tensor on its device."""
+        s = torch.clamp(count.to(torch.float32), min=1.0)
+        return torch.minimum(torch.pow(s, -0.5),
+                             s * float(self.ramp)) * float(self.scale)
+
+
+def inverse_sqrt(d_model, warmup_steps=4000, lr_mul=1.0):
+    """The :class:`InverseSqrt` schedule."""
+    return InverseSqrt(d_model, warmup_steps=warmup_steps, lr_mul=lr_mul)

@@ -7,6 +7,13 @@ embedding table ``embedding`` -> ``weight``, BatchNorm and LayerNorm
 ``scale/bias`` -> ``weight/bias``, BatchNorm ``mean/var`` ->
 ``running_mean/running_var``. K-FAC factors need no conversion: the
 port's bucket layout is the JAX one, row for row.
+
+The port's nets keep the Flax module names, so the same walk converts
+the sequence models: the Transformer's and BERT's embeddings and
+LayerNorms, the tied target projection (it is the target embedding, so
+nothing more), the K-FAC LSTM cell's ``ih``/``hh`` and the plain cell's
+``ii, if, ig, io, hi, hf, hg, ho`` (``models.rnn``), each kernel
+transposed into its ``Linear``.
 """
 
 import numpy as np

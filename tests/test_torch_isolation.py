@@ -51,6 +51,12 @@ def test_port_imports_without_jax_or_the_jax_package():
         bad = [m for m in sys.modules
                if re.match(r'kfac_pytorch_tpu(?!_torch)', m)]
         assert not bad, bad
+        # the sequence slice: its three trainers and four model modules
+        seq = {pkg.__name__ + '.' + m for m in (
+            'train_multi30k', 'train_squad', 'train_wikitext',
+            'models.transformer', 'models.translator', 'models.bert',
+            'models.rnn')}
+        assert seq <= set(mods) and seq <= set(sys.modules), seq
         print(len(mods))
     ''')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -184,6 +190,28 @@ def test_zoo_entry_points_raise_without_gpu(no_gpu, trainer, model):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         mod.main(['--model', model, '--epochs', '1', '--exclude-parts',
                   'ComputeInverse'])
+
+
+@pytest.mark.parametrize('trainer,argv', [
+    ('train_multi30k', ['--d-model', '16', '--d-inner', '32', '--n-layers',
+                        '1', '--n-head', '2', '--batch-size', '8',
+                        '--synthetic-size', '16', '--steps-per-epoch', '1']),
+    ('train_squad', ['--steps-per-epoch', '1', '--synthetic-size', '16']),
+    ('train_wikitext', ['--embed-dim', '8', '--hidden-dim', '8', '--bptt',
+                        '4', '--synthetic-vocab', '16', '--synthetic-tokens',
+                        '400', '--steps-per-epoch', '1',
+                        '--kfac-update-freq', '1'])])
+def test_sequence_entry_points_raise_without_gpu(no_gpu, trainer, argv):
+    # the sequence trainers: no GPU, no run; the CPU, asked for, runs
+    import importlib
+    mod = importlib.import_module(f'kfac_pytorch_tpu_torch.{trainer}')
+    argv = argv + ['--epochs', '1']
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        mod.main(argv)
+    tr = mod.main(argv + ['--device', 'cpu'])
+    assert tr.device.type == 'cpu' and tr.state.step == 1
+    assert all(p.device.type == 'cpu'
+               for p in tr.state.model.parameters())
 
 
 def test_world_gt1_entry_points_raise_without_gpu(no_gpu, monkeypatch):
