@@ -122,7 +122,7 @@ launches:
   The world=2 phase runs MPD ``eigen`` over the bf16 wire without
   CommunicateFactor (no byte in its scope, no K3) and without
   CommunicateInverse (no byte in its scope);
-- slice 14, last: the sequence trainers on their synthetic fallbacks
+- slice 14: the sequence trainers on their synthetic fallbacks
   (``S14_NETS``): Transformer-base on Multi30k (bs128, a factor and a
   decomposition every step), BERT-base on SQuAD (bs4, sequence 64, every
   step), and the WikiText-2 LSTM (650 wide, 2 layers, bs20, BPTT 35)
@@ -133,7 +133,26 @@ launches:
   at every distinct captured shape (128 rows at d up to 2049, 4 rows at
   d up to 3073, 35 rows at d up to 2600), bitwise over two runs and
   timed; the Transformer-base and K-FAC LSTM K-FAC steps in lockstep
-  with the plain path.
+  with the plain path;
+- slice 15, last: sequence parallelism over process groups, every rank
+  on this one card over gloo. The LM at full width (4 layers, 8 heads,
+  d_model 256, L 2048, global batch 4, every kernel on) on a data x seq
+  grid of ranks: (1, 2) ring and (1, 2) Ulysses for 6 steps, (1, 2) ring
+  with MPD ``eigen`` over the bf16 wire (K3) for 3, and (2, 2) ring on
+  four ranks for 6: finite losses, each rank's K2/K3/K4/K5a/K5b
+  launches, the replicas bitwise equal every step, the bytes of one
+  step's ring or all-to-all traffic; the (1, 2) ring's averaged
+  gradients against the world=1 LM's (GRAD_RTOL of each tensor's largest
+  entry), and its K-FAC step in lockstep with the same grid's plain path
+  (preconditioned gradients within GRAD_RTOL, or TRAJ_FACTOR x a control
+  with fp64 factor GEMMs);
+  Transformer-base and BERT-base through their trainers at
+  ``--num-devices 2`` for 3 steps with their K2 launches and replicas.
+  Then K4/K5a/K5b against their plain versions at every block of the
+  grids (the ring's diagonal, full and skipped blocks at their offsets,
+  Ulysses' whole-sequence block on half the heads), the skipped block's
+  outputs exactly (-1e30, 0, 0) and zero gradients, bitwise over two
+  runs, timed beside ``scaled_dot_product_attention`` and the bound.
 
 After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
 fp32 and bf16 inputs, K4, K5a and K5b at every head dim), the tensor-core
@@ -160,6 +179,7 @@ throughout, so every comparison is fp32 against fp32.
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -312,12 +332,20 @@ def counters():
 
 
 def reset_counts():
-    for fn in counters().values():
+    for name, fn in counters().items():
         fn.launches = 0
+        if name in ATTN_KERNELS:
+            fn.by_kind = {}
 
 
 def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def read_kinds():
+    """``{K4/K5 name: {block kind: launches}}`` (``block_kind``)."""
+    return {name: dict(fn.by_kind) for name, fn in counters().items()
+            if name in ATTN_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -1065,19 +1093,23 @@ def attn_bound(name, bh, lq, lk, d, starts, causal):
     launch: each input read once, each output written once; 4D (K4), 6D
     (K5a) or 8D (K5b) operations per (query, key) pair the causal mask
     keeps, over the fp32 rate and, three TF32 passes each, over the TF32
-    tensor-core rate."""
+    tensor-core rate. A block the mask keeps no pair of reads nothing:
+    its outputs are constants, (-1e30, 0, 0) from K4 and zeros from K5,
+    so only they are counted."""
     if causal:
         qpos = starts[0] + np.arange(lq)
         pairs = bh * int(np.clip(qpos - starts[1] + 1, 0, lk).sum())
     else:
         pairs = bh * lq * lk
-    qkv = (bh * lq * d + 2 * bh * lk * d + bh * lk) * 4   # q, k, v, mask
-    if name == 'K4 flash_fwd':
+    read = 1 if pairs else 0
+    qkv = read * (bh * lq * d + 2 * bh * lk * d + bh * lk) * 4  # q k v mask
+    if name == 'K4 flash_fwd':   # writes m, l, pv
         nbytes, per_pair = qkv + (2 * bh * lq + bh * lq * d) * 4, 4
-    elif name == 'K5a flash_bwd_dq':
-        nbytes, per_pair = qkv + (2 * bh * lq + 2 * bh * lq * d) * 4, 6
-    else:
-        nbytes, per_pair = (qkv + (2 * bh * lq + bh * lq * d) * 4
+    elif name == 'K5a flash_bwd_dq':   # reads m, dl, dpv; writes dq
+        nbytes, per_pair = (qkv + read * (2 * bh * lq + bh * lq * d) * 4
+                            + bh * lq * d * 4), 6
+    else:   # reads m, dl, dpv; writes dk, dv
+        nbytes, per_pair = (qkv + read * (2 * bh * lq + bh * lq * d) * 4
                             + 2 * bh * lk * d * 4), 8
     ops = pairs * per_pair * d
     return (nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3,
@@ -1285,19 +1317,19 @@ def build_report():
     return report
 
 
-def library_attention_ms(q, k, v, heads):
+def library_attention_ms(q, k, v, heads, causal=True):
     """The library yardstick (never called by the port): one
-    ``scaled_dot_product_attention`` call, causal, on the same q/k/v as
-    ``[B, H, L, D]``, forward and (separately) backward. It returns the
-    normalized output, not the kernels' (m, l, pv)."""
+    ``scaled_dot_product_attention`` call, causal or not, on the same
+    q/k/v as ``[B, H, L, D]``, forward and (separately) backward. It
+    returns the normalized output, not the kernels' (m, l, pv)."""
     F = torch.nn.functional
     bh, lq, d = q.shape
     q4, k4, v4 = (t.reshape(bh // heads, heads, t.shape[1], d)
                   .detach().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
     dout = torch.randn_like(out)
     return {'fwd': time_ms(lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True)),
+                q4, k4, v4, is_causal=causal)),
             'bwd': time_ms(lambda: torch.autograd.grad(
                 out, (q4, k4, v4), dout, retain_graph=True))}
 
@@ -4278,6 +4310,389 @@ def run_slice14():
     return launches, rows, out
 
 
+# ---------------------------------------------------------------------------
+# slice 15: the LM on a data x seq grid (ring and Ulysses attention over a
+# process group) and the sequence trainers at world 2
+# ---------------------------------------------------------------------------
+
+#: the LM of slice 15: examples/longcontext_lm.py's defaults (4 layers, 8
+#: heads, d_model 256, L 2048, global batch 4) with every kernel on
+S15_LM = ['--kfac-capture-impl', 'pallas', '--attn-impl', 'pallas']
+#: grid name -> (data devices, seq devices, seq impl, extra flags, steps)
+S15_GRIDS = {
+    'ring_1x2': (1, 2, 'ring', [], 6),
+    'ulysses_1x2': (1, 2, 'ulysses', [], 6),
+    'ring_1x2_bf16': (1, 2, 'ring', ['--kfac-name', 'eigen',
+                                     '--kfac-comm-precision', 'bf16'], 3),
+    'ring_2x2': (2, 2, 'ring', [], 6),
+}
+#: the (1, 2) ring's K-FAC step in lockstep with the world=1 LM, in steps
+S15_LOCKSTEP_STEPS = 3
+#: the sequence trainers at --num-devices 2, full width (S14_NETS' flags)
+S15_SEQ_NETS = ('transformer_base', 'bert_base')
+S15_SEQ_STEPS = 3
+#: the attention blocks of the grids' main paths: (label, the grid run,
+#: BH, Lq, Lk, D, starts, blocks of this kind a layer and step over all
+#: ranks of the run). The (1, 2) ring's rank 0 runs its diagonal block and
+#: the block of rank 1's keys, every tile of which the causal mask skips;
+#: rank 1 its diagonal block and the full block of rank 0's keys. Each
+#: block's kind (``block_kind``) is unique within its run, so the
+#: wrappers' launches by kind are the launches of each block.
+S15_BLOCKS = [
+    ('ring 1x2 diagonal', 'ring_1x2', 32, 1024, 1024, 32, (0, 0), 2),
+    ('ring 1x2 full', 'ring_1x2', 32, 1024, 1024, 32, (1024, 0), 1),
+    ('ring 1x2 skipped', 'ring_1x2', 32, 1024, 1024, 32, (0, 1024), 1),
+    ('ulysses 1x2', 'ulysses_1x2', 16, 2048, 2048, 32, (0, 0), 2),
+    ('ring 2x2 diagonal', 'ring_2x2', 16, 1024, 1024, 32, (0, 0), 4),
+    ('ring 2x2 full', 'ring_2x2', 16, 1024, 1024, 32, (1024, 0), 2),
+    ('ring 2x2 skipped', 'ring_2x2', 16, 1024, 1024, 32, (0, 1024), 2),
+]
+
+
+def s15_lm(argv, group=None):
+    """The LM trainer at S15_LM's flags plus ``argv``, in ``group``."""
+    from kfac_pytorch_tpu_torch import train_lm
+    args = train_lm.parse_args(['--device', DEVICE] + S15_LM + argv)
+    return train_lm.Trainer(args, group=group, local_rank=0)
+
+
+def s15_grid(name, group):
+    """Grid ``name`` of S15_GRIDS for its steps: per step the loss, the
+    host ms and this rank's replica digest; the rank's launches; the bytes
+    of one step's sequence collectives by op."""
+    from kfac_pytorch_tpu_torch import training
+    from kfac_pytorch_tpu_torch.parallel import collectives as coll
+    nd, ns, impl, extra, steps = S15_GRIDS[name]
+    tr = s15_lm(['--dist-backend', 'gloo', '--data-devices', str(nd),
+                 '--seq-devices', str(ns), '--seq-impl', impl] + extra,
+                group)
+    batches = tr.batches()
+    reset_counts()
+    times, losses, digests = [], [], []
+    for _ in range(steps):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m['loss']))
+        digests.append(training.replica_digest(tr.state.model))
+    launches, kinds = read_counts(), read_kinds()
+    with coll.ledger() as led:
+        tr.train_step(next(batches))
+    seq_bytes = {}
+    for _, op, _, n in led:
+        if op in ('ring_shift', 'all_to_all'):
+            seq_bytes[op] = seq_bytes.get(op, 0) + n
+    pre = tr.precond
+    out = {'step_ms': times, 'losses': losses, 'digests': digests,
+           'launches': launches, 'kinds': kinds, 'seq_bytes': seq_bytes,
+           'n_layer': tr.args.n_layer, 'n_kfac': len(pre.plan.metas),
+           'buckets': len(pre.plan.bucket_dims),
+           'tokens': tr.tokens(batch), 'ns': ns}
+    if name == 'ring_1x2':
+        out['lockstep'] = s15_lockstep(tr)
+    del tr
+    release_memory()
+    return out
+
+
+def s15_lockstep(tr):
+    """The grid's K-FAC step (every kernel) in lockstep with the same
+    grid's plain path (``--attn-impl xla --kfac-capture-impl xla``) and a
+    control (the plain path with its factor GEMMs summed in fp64), three
+    fresh trainers in ``tr``'s group: before each step the plain ones take
+    the kernel trainer's parameters (first ``tr``'s), all three step on
+    the same global batch, and the
+    kernels' preconditioned gradients are held to the plain path's. The
+    reference is the grid, not world=1: the dense layers' G factor
+    averages g over each rank's own tokens (``compute_g_dense``, as in
+    JAX), another estimator than the whole sequence's. Before the first
+    step the gradients the ranks average are held to the world=1 LM's
+    (rank 0). Returns rank 0's gaps (None elsewhere)."""
+    from kfac_pytorch_tpu_torch import data as kdata
+    from kfac_pytorch_tpu_torch import train_lm
+    from kfac_pytorch_tpu_torch.parallel import collectives as coll
+    a = tr.args
+    batches = list(kdata.sample_lm_batches(
+        tr.train_ids, a.seq_len, a.batch_size, S15_LOCKSTEP_STEPS,
+        np.random.RandomState(a.seed + 7)))
+    grid = ['--dist-backend', 'gloo', '--seq-devices', str(a.seq_devices)]
+    plain = grid + ['--attn-impl', 'xla', '--kfac-capture-impl', 'xla']
+    kern, ref, ctl = (s15_lm(grid, tr.group), s15_lm(plain, tr.group),
+                      s15_lm(plain, tr.group))
+    # the gradients the ranks average, against world=1's
+    batch = tr.to_device(batches[0])
+    model = tr.state.model
+    model.zero_grad(set_to_none=True)
+    train_lm.loss_fn(model(batch['input']), batch).backward()
+    avg = coll.average_grads({k: p.grad for k, p in
+                              model.named_parameters()}, tr.group)
+    raw = None
+    if tr.rank == 0:
+        one = s15_lm([])
+        one.state.model.load_state_dict(model.state_dict())
+        full = one.to_device(batches[0])
+        dense = one.state.model
+        train_lm.loss_fn(dense(full['input']), full).backward()
+        raw = grad_gap(avg, {k: p.grad for k, p in dense.named_parameters()})
+        del one
+    gaps = []
+    for batch in batches:
+        src = dict(model.named_parameters())
+        with torch.no_grad():
+            for t in (kern, ref, ctl):
+                for k, p in t.state.model.named_parameters():
+                    p.copy_(src[k])
+        kern.train_step(batch)
+        ref.train_step(batch)
+        with fp64_stat_gemm():
+            ctl.train_step(batch)
+        gaps.append({'kernels': grad_gap(kern.step_fn.last_grads,
+                                         ref.step_fn.last_grads),
+                     'control': grad_gap(ctl.step_fn.last_grads,
+                                         ref.step_fn.last_grads)})
+        model = kern.state.model
+    del kern, ref, ctl
+    return {'raw_vs_world1': raw, 'steps': gaps} if tr.rank == 0 else None
+
+
+def s15_seq_net(name, group):
+    """Sequence net ``name`` of S14_NETS through its trainer at
+    ``--num-devices 2``: a warm step, then S15_SEQ_STEPS synchronized
+    steps with their losses, host ms and replica digests, and the rank's
+    launches."""
+    import importlib
+    from kfac_pytorch_tpu_torch import training
+    module, argv = S14_NETS[name]
+    mod = importlib.import_module(f'kfac_pytorch_tpu_torch.{module}')
+    args = mod.parse_args(['--device', DEVICE, '--num-devices', '2',
+                           '--dist-backend', 'gloo'] + S14_COMMON + argv)
+    tr = mod.Trainer(args, group=group, local_rank=0)
+    batches = tr.batches()
+    tr.train_step(next(batches))
+    reset_counts()
+    times, losses, digests = [], [], []
+    for _ in range(S15_SEQ_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = tr.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m['loss']))
+        digests.append(training.replica_digest(tr.state.model))
+    out = {'step_ms': times, 'losses': losses, 'digests': digests,
+           'launches': read_counts(),
+           'launches_wanted': launches_wanted(tr, S15_SEQ_STEPS)[0],
+           'tokens': tr.tokens(batch)}
+    del tr
+    release_memory()
+    return out
+
+
+def release_memory():
+    """Free what unreachable reference cycles hold (a trainer's hooks
+    keep it in one, so ``del`` alone leaves its tensors to the cyclic
+    collector), then return the cached blocks to the card: the ranks of
+    slice 15 and the parent share it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def s15_rank(rank, world, group, grids, nets):
+    """One rank of slice 15 on cuda:0 (the ranks share the card over
+    gloo): the LM grids ``grids`` (:func:`s15_grid`), then the sequence
+    nets ``nets`` (:func:`s15_seq_net`). Returns numbers only."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    out = {name: s15_grid(name, group) for name in grids}
+    out.update({name: s15_seq_net(name, group) for name in nets})
+    return out
+
+
+def s15_want(name, out):
+    """Launches one rank of grid ``name`` (its output ``out``) must make:
+    per step a K2 for each K-FAC layer's A and G, a K4, K5a and K5b for
+    each layer and block the rank runs (``ns`` ring blocks, one Ulysses
+    block), a K3 a bucket over the bf16 wire."""
+    steps = S15_GRIDS[name][4]
+    blocks = 1 if name.startswith('ulysses') else out['ns']
+    attn = out['n_layer'] * blocks * steps
+    return {'K1 conv_a': 0, 'K2 stat_rows': 2 * out['n_kfac'] * steps,
+            'K3 ef_quantize': (out['buckets'] * steps
+                               if name.endswith('bf16') else 0),
+            'K4 flash_fwd': attn, 'K5a flash_bwd_dq': attn,
+            'K5b flash_bwd_dkv': attn}
+
+
+def check_slice15(runs):
+    """Every check of the grids and the sequence nets (``runs``: name ->
+    the ranks' outputs)."""
+    for name, ranks in runs.items():
+        for r, out in enumerate(ranks):
+            if not all(np.isfinite(out['losses'])):
+                fail(f'slice 15 {name} rank {r}: non-finite loss '
+                     f'{out["losses"]}')
+            want = (s15_want(name, out) if name in S15_GRIDS
+                    else out['launches_wanted'])
+            if out['launches'] != want:
+                fail(f'slice 15 {name} rank {r}: launches '
+                     f'{out["launches"]}, expected {want}')
+            if out['digests'] != ranks[0]['digests']:
+                fail(f'slice 15 {name}: the ranks\' parameters differ')
+            if out['losses'] != ranks[0]['losses']:
+                fail(f'slice 15 {name}: the ranks report different losses')
+    lock = runs['ring_1x2'][0]['lockstep']
+    gap, k = lock['raw_vs_world1']
+    if gap > GRAD_RTOL:
+        fail(f'slice 15: the (1, 2) ring\'s averaged gradient {k} parts '
+             f'from the world=1 LM\'s by {gap:.3e} of its largest entry')
+    for i, g in enumerate(lock['steps']):
+        (gap, k), (ctl, _) = g['kernels'], g['control']
+        if gap > GRAD_RTOL and gap > TRAJ_FACTOR * ctl:
+            fail(f'slice 15 lockstep step {i}: preconditioned grad {k} '
+                 f'{gap:.3e} of its largest entry, over {GRAD_RTOL} and '
+                 f'{TRAJ_FACTOR} x the control {ctl:.3e}')
+
+
+def s15_block_launches(runs):
+    """``{(grid run, block label): {kernel: launches}}``: the launches the
+    wrappers counted by block kind over every rank of each grid's timed
+    steps, held to the blocks S15_BLOCKS says each layer and step runs."""
+    from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
+    out = {}
+    for label, run, bh, lq, lk, d, starts, per_layer in S15_BLOCKS:
+        ranks = runs[run]
+        kind = ak.block_kind(lq, lk, starts, True)
+        want = per_layer * ranks[0]['n_layer'] * S15_GRIDS[run][4]
+        got = {name: sum(o['kinds'][name].get(kind, 0) for o in ranks)
+               for name in ATTN_KERNELS}
+        if any(v != want for v in got.values()):
+            fail(f'slice 15 {run}: {kind} blocks ({label}) launched '
+                 f'{got}, expected {want} each')
+        out[run, label] = got
+    return out
+
+
+def s15_block_rows(runs):
+    """K4/K5a/K5b against their plain versions at every block of
+    S15_BLOCKS (the skipped block's outputs exactly (-1e30, 0, 0) and
+    zero gradients), bitwise over two runs, timed beside
+    ``scaled_dot_product_attention`` where one computes the block (the
+    diagonal block causal, the full one without a mask; nothing computes
+    a block every key of which is masked) and the bound. Returns the
+    rows of the kernels line, one a kernel and block, each with the
+    launches counted at its block kind (:func:`s15_block_launches`)."""
+    from kfac_pytorch_tpu_torch.ops import attention_kernels as ak
+    counted = s15_block_launches(runs)
+    gen = torch.Generator(device=DEVICE).manual_seed(15)
+    kernels = []
+    for label, run, bh, lq, lk, d, starts, per_layer in S15_BLOCKS:
+        inputs = attn_inputs(bh, lq, lk, d, False, gen)
+        n_layer = runs[run][0]['n_layer']
+        rows = []
+        for name, (kern, plain, outs) in attn_calls(*inputs, starts,
+                                                    True).items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            worst = 0.0
+            for o, g, w in zip(outs, got, want):
+                err, ok = close(g, w, ATTN_TOL[o], ATTN_TOL[o])
+                worst = max(worst, err)
+                if not ok or not bool(torch.isfinite(g).all()):
+                    fail(f'{name} {o} at {label} {(bh, lq, lk, d)} starts '
+                         f'{starts}: max |err| {err:.3e}')
+            if label.endswith('skipped'):
+                zero = {'m': ak.NEG_INF, 'l': 0.0, 'pv': 0.0, 'dq': 0.0,
+                        'dk': 0.0, 'dv': 0.0}
+                for o, g in zip(outs, got):
+                    if not bool((g == zero[o]).all()):
+                        fail(f'{name} {o} at the skipped block {label}: '
+                             f'not exactly {zero[o]}')
+            check_bitwise_repeat(f'{name} ({label})', kern, outs)
+            bytes_ms, _, tc_ms = attn_bound(name, bh, lq, lk, d, starts,
+                                            True)
+            rows.append({'path': run, 'kernel': name, 'block': label,
+                         'shape': [bh, lq, lk, d], 'starts': list(starts),
+                         'per_step': per_layer * n_layer,
+                         'ms': time_ms(kern),
+                         'wrapper_ms': time_ms(kern, hide_host=False),
+                         'plain_ms': time_ms(plain), 'bytes_ms': bytes_ms,
+                         'ops_ms': tc_ms, 'bound_ms': max(bytes_ms, tc_ms),
+                         'max_abs_err': worst})
+        library = None
+        if not label.endswith('skipped'):
+            # [1, BH, L, D]: the heads of every sequence in one call
+            library = library_attention_ms(*inputs[:3], bh,
+                                           causal=starts == (0, 0))
+        for r in rows:
+            r['library_ms'] = (None if library is None else library[
+                'fwd' if r['kernel'].startswith('K4') else 'bwd'])
+            print(json.dumps(r), flush=True)
+        kernels += kernel_summary(rows, {run: counted[run, label]},
+                                  names=ATTN_KERNELS, suffix=f' ({label})')
+    return kernels
+
+
+def run_slice15():
+    """The slice-15 phase: the (1, 2) grids and the sequence nets on two
+    ranks, the (2, 2) grid on four, all on this one card over gloo
+    (host-staged: NCCL refuses two ranks on one card), checked; then the
+    attention kernels at the grids' blocks. Returns the kernels-line rows
+    and the numbers."""
+    from kfac_pytorch_tpu_torch import launch
+    release_memory()
+    print(f'slice 15: the parent holds '
+          f'{torch.cuda.memory_allocated() / 2**20:.0f} MiB on the card',
+          flush=True)
+    t0 = time.perf_counter()
+    pairs = launch.spawn(s15_rank, 2, backend='gloo', timeout=900,
+                         args=(['ring_1x2', 'ulysses_1x2', 'ring_1x2_bf16'],
+                               list(S15_SEQ_NETS)))
+    quad = launch.spawn(s15_rank, 4, backend='gloo', timeout=600,
+                        args=(['ring_2x2'], []))
+    runs = {name: [o[name] for o in pairs] for name in pairs[0]}
+    runs['ring_2x2'] = [o['ring_2x2'] for o in quad]
+    check_slice15(runs)
+    out = {'spawn_s': time.perf_counter() - t0}
+    for name, ranks in runs.items():
+        o = ranks[0]
+        med = float(np.median(o['step_ms']))
+        out[name] = {**{k: v for k, v in o.items() if k != 'digests'},
+                     'step_ms_median': med,
+                     'tokens_per_s': o['tokens'] / med * 1e3}
+        print(f'slice 15 {name} ({len(ranks)} ranks on one card, gloo): '
+              f'{len(o["step_ms"])} steps, losses '
+              f'{[round(x, 4) for x in o["losses"]]}, step ms median '
+              f'{med:.1f} (first {o["step_ms"][0]:.1f}), tokens/s '
+              f'{out[name]["tokens_per_s"]:.0f}, launches a rank '
+              f'{o["launches"]}'
+              + (f', sequence collectives a step {o["seq_bytes"]} B'
+                 if 'seq_bytes' in o else '')
+              + ', replicas bitwise equal every step', flush=True)
+    lock = runs['ring_1x2'][0]['lockstep']
+    print(f'slice 15 ring 1x2: the averaged gradients against the world=1 '
+          f'LM\'s, max rel err {lock["raw_vs_world1"][0]:.3e} '
+          f'({lock["raw_vs_world1"][1]})', flush=True)
+    for i, g in enumerate(lock['steps']):
+        print(f'slice 15 lockstep (ring 1x2, kernels vs the plain path) '
+              f'step {i}: preconditioned grads max rel err '
+              f'{g["kernels"][0]:.3e} ({g["kernels"][1]}); control (fp64 '
+              f'factor GEMMs) {g["control"][0]:.3e} ({g["control"][1]})',
+              flush=True)
+    kernels = s15_block_rows(runs)
+    out['launches'] = {name: {k: sum(o['launches'][k] for o in ranks)
+                              for k in ranks[0]['launches']}
+                       for name, ranks in runs.items() if name in S15_GRIDS}
+    out['seconds'] = time.perf_counter() - t0
+    print(f'slice 15 phase: {out["seconds"]:.1f} s (spawned runs '
+          f'{out["spawn_s"]:.1f} s); {gpu_line()}', flush=True)
+    return kernels, out
+
+
 def build_kernels():
     """Compile every ``csrc/*.cu`` at once (one nvcc each), then load."""
     from concurrent.futures import ThreadPoolExecutor
@@ -4379,10 +4794,14 @@ def main():
 
     # slice 13: VGG-16, WRN-28-10, DenseNet-201, Inception-v4; exclude_parts
     s13_launches, s13_rows, slice13 = run_slice13()
-    torch.cuda.empty_cache()
+    release_memory()
 
     # slice 14: Transformer-base, BERT-base, the WikiText-2 LSTM
     s14_launches, s14_rows, slice14 = run_slice14()
+    release_memory()
+
+    # slice 15: the LM on data x seq grids, the sequence trainers at world 2
+    s15_kernels, slice15 = run_slice15()
 
     kernels = kernel_summary(rows, {'resnet32': launches,
                                     'transformer_lm': lm_launches,
@@ -4406,6 +4825,7 @@ def main():
                 [r for r in s14_rows if r['path'] == name],
                 {name: s14_launches[name]}, names=('K2 stat_rows',),
                 suffix=f' ({name} fp32)')
+    kernels += s15_kernels
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump({'device': smi,
@@ -4418,6 +4838,7 @@ def main():
                    'world2': w2, 'nccl': nccl, 'slice9': slice9,
                    'slice10': slice10, 'slice12': slice12,
                    'slice13': slice13, 'slice14': slice14,
+                   'slice15': slice15,
                    'resnet50': {'decomposition': decomp,
                                 'resume': {k: v for k, v in resume.items()
                                            if k != 'differ'},

@@ -3,6 +3,8 @@ tests and ``chip_smoke.py`` share.
 
   python -m kfac_pytorch_tpu_torch.launch --nproc 2 -- train_cifar \\
       --kfac-name eigen --kfac-comm-precision bf16 --kfac-capture-impl auto
+  python -m kfac_pytorch_tpu_torch.launch --nproc 4 -- train_lm \\
+      --data-devices 2 --seq-devices 2 --dist-backend gloo
 
 starts ``--nproc`` ranks of the trainer on this host through ``torchrun``
 (``torch.distributed.run``, static rendezvous on 127.0.0.1), which
@@ -10,7 +12,8 @@ exports ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/``MASTER_ADDR``/
 ``MASTER_PORT`` to each; the trainer initializes the process group from
 them (``parallel.mesh``). Before it starts anything the launcher checks
 what ``launch_tpu.sh`` checks for the JAX trainers: the world size
-(``--num-devices``, added when absent, must equal ``--nproc``) and the
+(``--num-devices``, added when absent, must equal ``--nproc``; for the
+LM ``--data-devices`` x ``--seq-devices`` must) and the
 devices: on the GPU (the default) a CUDA device must exist, and an NCCL
 world needs one card per rank (NCCL refuses two ranks on one card; take
 ``--dist-backend gloo`` for that). Exits with the trainers' code.
@@ -28,8 +31,11 @@ import time
 import traceback
 
 #: trainer name -> module
-TRAINERS = {'train_cifar': 'kfac_pytorch_tpu_torch.train_cifar',
-            'train_imagenet': 'kfac_pytorch_tpu_torch.train_imagenet'}
+TRAINERS = {name: f'kfac_pytorch_tpu_torch.{name}' for name in (
+    'train_cifar', 'train_imagenet', 'train_lm', 'train_multi30k',
+    'train_squad')}
+#: trainers whose world is a grid, not ``--num-devices``
+GRID_TRAINERS = ('train_lm',)
 
 USAGE = ('usage: python -m kfac_pytorch_tpu_torch.launch --nproc N '
          '[--master-port P] -- TRAINER [trainer flags]; trainers: '
@@ -55,20 +61,30 @@ def _flag(args, name, default=None):
     return val
 
 
-def check_world(nproc, trainer_args, cuda_available=None, device_count=None):
-    """Validate a launch of ``nproc`` ranks with ``trainer_args``; return
-    the trainer's arguments with ``--num-devices`` set. Raises
-    ValueError on an inconsistent world, RuntimeError when the devices
-    cannot carry it."""
+def check_world(nproc, trainer_args, cuda_available=None, device_count=None,
+                trainer='train_cifar'):
+    """Validate a launch of ``nproc`` ranks of ``trainer`` with
+    ``trainer_args``; return the trainer's arguments with
+    ``--num-devices`` set (the LM has none: its ``--data-devices`` x
+    ``--seq-devices`` must equal ``nproc``). Raises ValueError on an
+    inconsistent world, RuntimeError when the devices cannot carry it."""
     import torch
     if nproc < 1:
         raise ValueError(f'--nproc must be >= 1, got {nproc}')
-    nd = _flag(trainer_args, '--num-devices')
-    if nd is None:
-        trainer_args = list(trainer_args) + ['--num-devices', str(nproc)]
-    elif int(nd) != nproc:
-        raise ValueError(f'--num-devices {nd} but --nproc {nproc}: the '
-                         'K-FAC world is the launched world')
+    if trainer in GRID_TRAINERS:
+        nd = int(_flag(trainer_args, '--data-devices', 1))
+        ns = int(_flag(trainer_args, '--seq-devices', 1))
+        if nd * ns != nproc:
+            raise ValueError(f'--data-devices {nd} x --seq-devices {ns} but '
+                             f'--nproc {nproc}: the grid is the launched '
+                             'world')
+    else:
+        nd = _flag(trainer_args, '--num-devices')
+        if nd is None:
+            trainer_args = list(trainer_args) + ['--num-devices', str(nproc)]
+        elif int(nd) != nproc:
+            raise ValueError(f'--num-devices {nd} but --nproc {nproc}: the '
+                             'K-FAC world is the launched world')
     device = _flag(trainer_args, '--device', 'cuda')
     backend = _flag(trainer_args, '--dist-backend',
                     'gloo' if device == 'cpu' else 'nccl')
@@ -108,7 +124,7 @@ def main(argv=None):
     if nproc is None:
         raise SystemExit(USAGE)
     port = int(_flag(own, '--master-port', 0)) or free_port()
-    trainer_args = check_world(int(nproc), rest[1:])
+    trainer_args = check_world(int(nproc), rest[1:], trainer=rest[0])
     return subprocess.call(torchrun_command(int(nproc), rest[0],
                                             trainer_args, port))
 

@@ -6,9 +6,15 @@ Submodule names are the Flax ones (``wte``, ``wpe``,
 so weights convert by name (``weights.transformer_lm_from_jax``) and the
 K-FAC layer names match the JAX plan. Flax conventions kept: ``gelu`` is
 the tanh approximation, LayerNorm's epsilon is 1e-5, and ``qkv`` splits
-into q, k, v in that order. The model runs on one device
-(``seq_axis=None`` in the JAX package); attention goes through
+into q, k, v in that order. Attention goes through
 ``parallel.ring_attention`` with the given ``block_impl``.
+
+``seq_group`` (the JAX ``seq_axis``) shards the sequence over a process
+group: each rank takes ``tokens [B, L_local]``, the slice of its group
+rank, positions start at ``axis_index * L_local``, and attention runs as
+the ring or Ulysses over the group (``seq_impl``); the MLP and the
+projections stay local to the shard. ``seq_group=None`` is the plain
+causal LM.
 """
 
 import math
@@ -17,15 +23,18 @@ import torch
 import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch import nn as knn
+from kfac_pytorch_tpu_torch.parallel import collectives as coll
 from kfac_pytorch_tpu_torch.parallel.ring_attention import (
     ring_attention, ulysses_attention)
 
 
 class CausalSelfAttention(torch.nn.Module):
-    def __init__(self, n_head, d_model, seq_impl='ring', block_impl='auto'):
+    def __init__(self, n_head, d_model, seq_impl='ring', block_impl='auto',
+                 seq_group=None):
         super().__init__()
         self.n_head, self.d_model = n_head, d_model
         self.seq_impl, self.block_impl = seq_impl, block_impl
+        self.seq_group = seq_group
         self.qkv = knn.Linear(d_model, 3 * d_model)
         self.proj = knn.Linear(d_model, d_model)
 
@@ -37,17 +46,18 @@ class CausalSelfAttention(torch.nn.Module):
                    for t in self.qkv(x).chunk(3, dim=-1))
         attn = ring_attention if self.seq_impl == 'ring' \
             else ulysses_attention
-        out = attn(q, k, v, None, causal=True, block_impl=self.block_impl)
+        out = attn(q, k, v, self.seq_group, causal=True,
+                   block_impl=self.block_impl)
         return self.proj(out.transpose(1, 2).reshape(B, L, self.d_model))
 
 
 class Block(torch.nn.Module):
     def __init__(self, n_head, d_model, mlp_ratio=4, seq_impl='ring',
-                 block_impl='auto'):
+                 block_impl='auto', seq_group=None):
         super().__init__()
         self.ln1 = torch.nn.LayerNorm(d_model, eps=1e-5)
         self.attn = CausalSelfAttention(n_head, d_model, seq_impl,
-                                        block_impl)
+                                        block_impl, seq_group)
         self.ln2 = torch.nn.LayerNorm(d_model, eps=1e-5)
         self.fc1 = knn.Linear(d_model, mlp_ratio * d_model)
         self.fc2 = knn.Linear(mlp_ratio * d_model, d_model)
@@ -60,31 +70,37 @@ class Block(torch.nn.Module):
 
 class TransformerLM(torch.nn.Module):
     """Causal LM: ``forward(tokens [B, L] int64)`` returns logits
-    ``[B, L, vocab]``."""
+    ``[B, L, vocab]``; under ``seq_group`` ``L`` is the local shard and
+    the positions are global."""
 
     #: the trainer hands ``batch['input']`` over as it is
     input_layout = 'tokens'
 
     def __init__(self, vocab_size, n_layer=4, n_head=8, d_model=256,
-                 max_len=65536, seq_impl='ring', block_impl='auto'):
+                 max_len=65536, seq_impl='ring', block_impl='auto',
+                 seq_group=None):
         super().__init__()
         if seq_impl not in ('ring', 'ulysses'):
             raise ValueError(f"seq_impl must be 'ring' or 'ulysses', got "
                              f'{seq_impl!r}')
         self.wte = torch.nn.Embedding(vocab_size, d_model)
         self.wpe = torch.nn.Embedding(max_len, d_model)
+        self.seq_group = seq_group
         self.blocks = []
         for i in range(n_layer):
             self.add_module(f'block{i}', Block(n_head, d_model,
                                                seq_impl=seq_impl,
-                                               block_impl=block_impl))
+                                               block_impl=block_impl,
+                                               seq_group=seq_group))
             self.blocks.append(f'block{i}')
         self.ln_f = torch.nn.LayerNorm(d_model, eps=1e-5)
         # pre-softmax projection: excluded from K-FAC by vocab size
         self.lm_head = knn.Linear(d_model, vocab_size, bias=False)
 
     def forward(self, tokens):
-        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        L = tokens.shape[1]
+        pos = (torch.arange(L, device=tokens.device)
+               + coll.axis_index(self.seq_group) * L)
         x = self.wte(tokens) + self.wpe(pos)
         for name in self.blocks:
             x = getattr(self, name)(x)

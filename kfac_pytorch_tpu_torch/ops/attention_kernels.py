@@ -41,7 +41,8 @@ times; the source says what the design does about it.
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version beside each wrapper (the same function, used by the tests); a
 CUDA tensor launches the kernel or raises. Every wrapper takes contiguous
-float32 tensors and counts its kernel launches in ``launches``.
+float32 tensors and counts its kernel launches in ``launches``, and in
+``by_kind`` by the block's kind (:func:`block_kind`).
 """
 
 import ctypes
@@ -138,6 +139,26 @@ def _raise_on(err, what):
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def block_kind(lq, lk, starts, causal):
+    """What the causal mask leaves of a ``[Lq, Lk]`` block at global
+    offsets ``starts``: 'skipped' (no pair: every query precedes every
+    key, so every tile is skipped), 'full' (every pair: no mask, or every
+    key at or before every query) or 'diagonal' (some pairs)."""
+    q_start, k_start = int(starts[0]), int(starts[1])
+    if not causal or q_start >= k_start + lk - 1:
+        return 'full'
+    if q_start + lq - 1 < k_start:
+        return 'skipped'
+    return 'diagonal'
+
+
+def _count(wrapper, q, k, starts, causal):
+    """One launch of ``wrapper``'s kernel, in its total and its kind's."""
+    wrapper.launches += 1
+    kind = block_kind(q.shape[1], k.shape[1], starts, causal)
+    wrapper.by_kind[kind] = wrapper.by_kind.get(kind, 0) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -244,11 +265,12 @@ def flash_fwd(q, k, v, kv_mask, starts, scale, causal):
         *_scalars(q, k, starts, scale, causal), m.data_ptr(), l.data_ptr(),
         pv.data_ptr(), _stream(q))
     _raise_on(err, 'K4 flash_fwd')
-    flash_fwd.launches += 1
+    _count(flash_fwd, q, k, starts, causal)
     return m, l, pv
 
 
 flash_fwd.launches = 0
+flash_fwd.by_kind = {}
 
 
 def flash_bwd_dq(q, k, v, kv_mask, m, dl, dpv, starts, scale, causal):
@@ -263,11 +285,12 @@ def flash_bwd_dq(q, k, v, kv_mask, m, dl, dpv, starts, scale, causal):
         m.data_ptr(), dl.data_ptr(), dpv.data_ptr(),
         *_scalars(q, k, starts, scale, causal), dq.data_ptr(), _stream(q))
     _raise_on(err, 'K5a flash_bwd_dq')
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, q, k, starts, causal)
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.by_kind = {}
 
 
 def flash_bwd_dkv(q, k, v, kv_mask, m, dl, dpv, starts, scale, causal):
@@ -284,11 +307,12 @@ def flash_bwd_dkv(q, k, v, kv_mask, m, dl, dpv, starts, scale, causal):
         *_scalars(q, k, starts, scale, causal), dk.data_ptr(), dv.data_ptr(),
         _stream(q))
     _raise_on(err, 'K5b flash_bwd_dkv')
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, q, k, starts, causal)
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.by_kind = {}
 
 
 class FlashBlockAttn(torch.autograd.Function):

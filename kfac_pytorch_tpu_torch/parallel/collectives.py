@@ -287,6 +287,120 @@ def all_gather_rows_compressed(x, group, comm_precision='fp32'):
                            x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# Differentiable collectives of sequence parallelism (ring, Ulysses)
+# ---------------------------------------------------------------------------
+
+def _ring_peers(group, shift):
+    """Global ranks ``(send to, receive from)`` of a rotation by ``shift``
+    inside ``group``: group rank i sends to ``(i + shift) % n`` and
+    receives from ``(i - shift) % n``."""
+    n, me = axis_size(group), axis_index(group)
+    return (dist.get_global_rank(group, (me + shift) % n),
+            dist.get_global_rank(group, (me - shift) % n))
+
+
+def _rotate(x, group, shift):
+    """``x`` of group rank ``(i - shift) % n`` on rank i: one paired
+    send/receive (``batch_isend_irecv``), so no two ranks wait on each
+    other's send."""
+    _record('ring_shift', x)
+    src = x.contiguous()
+    if _staged(group, src):
+        src = src.cpu()
+    out = torch.empty_like(src)
+    to, frm = _ring_peers(group, shift)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, src, to, group),
+        dist.P2POp(dist.irecv, out, frm, group)])
+    for r in reqs:
+        r.wait()
+    return out.to(x.device)
+
+
+class _RingShift(torch.autograd.Function):
+    """Rotation by one inside the group (``lax.ppermute`` with ``perm =
+    [(i, (i + 1) % n)]``); the backward rotates the cotangent the other
+    way, as JAX's transpose of ``ppermute`` does."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _rotate(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _rotate(dy, ctx.group, -1), None
+
+
+def ring_shift(x, group):
+    """Rank i's ``x`` on rank ``(i + 1) % n`` of ``group``, differentiable.
+    ``group=None`` or a group of one rank returns ``x``."""
+    if axis_size(group) == 1:
+        return x
+    return _RingShift.apply(x, group)
+
+
+def _all_to_all(x, split_axis, concat_axis, group):
+    """``lax.all_to_all(x, split_axis, concat_axis, tiled=True)``: axis
+    ``split_axis`` cut into ``n`` equal chunks, chunk j to group rank j;
+    the chunks received concatenated along ``concat_axis`` in group-rank
+    order."""
+    n = axis_size(group)
+    shape = list(x.shape)
+    if shape[split_axis] % n:
+        raise ValueError(f'all_to_all: axis {split_axis} of {shape} does '
+                         f'not split over {n} ranks')
+    parts = x.reshape(shape[:split_axis] + [n, shape[split_axis] // n]
+                      + shape[split_axis + 1:]).movedim(split_axis, 0)
+    src = parts.contiguous()
+    if _staged(group, src):
+        src = src.cpu()
+    out = torch.empty_like(src)
+    _record('all_to_all', out)
+    dist.all_to_all_single(out, src, group=group)
+    out = out.to(x.device).movedim(0, concat_axis)
+    merged = list(out.shape)
+    merged[concat_axis:concat_axis + 2] = [n * merged[concat_axis + 1]]
+    return out.reshape(merged)
+
+
+class _SeqSwap(torch.autograd.Function):
+    """The tiled all-to-all; its backward is the inverse swap (the chunks
+    sent home), the transpose of a permutation."""
+
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis, group):
+        ctx.attrs = (split_axis, concat_axis, group)
+        return _all_to_all(x, split_axis, concat_axis, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        split_axis, concat_axis, group = ctx.attrs
+        return _all_to_all(dy, concat_axis, split_axis, group), None, None, \
+            None
+
+
+def all_to_all(x, split_axis, concat_axis, group):
+    """Tiled all-to-all over ``group`` (JAX's ``lax.all_to_all(...,
+    tiled=True)``), differentiable. ``group=None`` or one rank returns
+    ``x``."""
+    if axis_size(group) == 1:
+        return x
+    return _SeqSwap.apply(x, split_axis, concat_axis, group)
+
+
+def all_gather_axis1(x, group):
+    """Every rank's ``x`` concatenated along axis 1 in group-rank order
+    (``lax.all_gather(x, axis=1, tiled=True)``), with no gradient: the
+    key mask of the Ulysses swap."""
+    if axis_size(group) == 1:
+        return x
+    with torch.no_grad():
+        return _all_gather(x.transpose(0, 1).contiguous(),
+                           group).transpose(0, 1)
+
+
 def decomp_exchange_gather(x, group, comm_precision='fp32'):
     """The sharded decomposition's exchange: :func:`all_gather_rows_compressed`
     under the ``kfac.DecompComm`` scope, so :func:`ledger` counts both legs

@@ -8,8 +8,10 @@ kfac_pytorch_tpu_torch.launch``) or by :func:`launch.spawn`, and the
 K-FAC world is the default process group.
 """
 
+import dataclasses
 import os
 import time
+from typing import Any
 
 import numpy as np
 import torch
@@ -91,16 +93,74 @@ def local_rank(env=None):
     return int(env.get('LOCAL_RANK', '0'))
 
 
+def _rows(v, rank, world):
+    """Rank ``rank``'s rows of one array, or of each array of a tuple
+    (a model of several inputs)."""
+    if isinstance(v, (tuple, list)):
+        return tuple(_rows(t, rank, world) for t in v)
+    n = np.shape(v)[0]
+    if n % world:
+        raise ValueError(f'batch of {n} rows does not split over '
+                         f'{world} ranks')
+    per = n // world
+    return v[rank * per:(rank + 1) * per]
+
+
 def shard_batch(batch, rank, world):
     """Rank ``rank``'s rows of a global host batch: ``[r*B/P, (r+1)*B/P)``
-    of every array (the DistributedSampler counterpart; the global batch
-    is the invariant, as in the JAX trainer)."""
+    of every array, or of every array of a tuple input (the
+    DistributedSampler counterpart; the global batch is the invariant,
+    as in the JAX trainer)."""
+    return {k: _rows(v, rank, world) for k, v in batch.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """A data x seq grid of ranks: the port's ``Mesh(devices.reshape(nd,
+    ns), ('data', 'seq'))``. World rank ``r = d * ns + s``; ``seq`` is
+    the group of the ranks that share ``d`` (size ``ns``), None when the
+    axis has size 1, as a mesh axis of size 1 is left out. The data axis
+    has no group: K-FAC and the gradient average run over the world."""
+    nd: int
+    ns: int
+    d: int
+    s: int
+    seq: Any = None
+
+
+def make_grid(nd, ns, group=None):
+    """The :class:`Grid` of ``nd x ns`` ranks over ``group`` (None: one
+    rank, no group), which must hold ``nd * ns`` ranks. Every rank
+    creates every seq group, in the same order (``new_group`` is
+    collective)."""
+    world = 1 if group is None else dist.get_world_size(group)
+    if nd < 1 or ns < 1 or nd * ns != world:
+        raise ValueError(f'a {nd} x {ns} grid needs {nd * ns} ranks, the '
+                         f'process group has {world}')
+    if world == 1:
+        return Grid(nd, ns, 0, 0)
+    d, s = divmod(dist.get_rank(group), ns)
+    ranks = [dist.get_global_rank(group, i) for i in range(world)]
+    # an axis of size 1 gets no group; ns is the same on every rank, so
+    # every rank skips it alike
+    seq = None
+    for i in range(nd if ns > 1 else 0):
+        g = dist.new_group([ranks[i * ns + j] for j in range(ns)])
+        seq = g if i == d else seq
+    return Grid(nd, ns, d, s, seq)
+
+
+def shard_tokens(batch, grid):
+    """Rank ``(d, s)``'s block of a global host batch of ``[B, L]``
+    arrays, ``P('data', 'seq')``: rows ``[d*B/nd, (d+1)*B/nd)`` and
+    columns ``[s*L/ns, (s+1)*L/ns)``."""
     out = {}
     for k, v in batch.items():
-        n = np.shape(v)[0]
-        if n % world:
-            raise ValueError(f'batch of {n} rows does not split over '
-                             f'{world} ranks')
-        per = n // world
-        out[k] = v[rank * per:(rank + 1) * per]
+        b, n = np.shape(v)[:2]
+        if b % grid.nd or n % grid.ns:
+            raise ValueError(f'a batch of {b} x {n} tokens does not split '
+                             f'over the {grid.nd} x {grid.ns} grid')
+        pb, pl = b // grid.nd, n // grid.ns
+        out[k] = v[grid.d * pb:(grid.d + 1) * pb,
+                   grid.s * pl:(grid.s + 1) * pl]
     return out

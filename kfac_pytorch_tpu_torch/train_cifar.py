@@ -171,7 +171,8 @@ class Trainer:
                                                sample, self.device)
         self.step_fn = training.build_train_step(
             model, self.tx, self.precond, loss_fn,
-            fisher_type=args.kfac_type, fisher_seed=args.seed)
+            fisher_type=args.kfac_type, fisher_seed=args.seed,
+            group=self.group)
 
     def say(self, *args, **kw):
         """``print`` on rank 0."""
@@ -224,13 +225,7 @@ class Trainer:
     def replicas_agree(self):
         """Whether every rank's parameters and buffers are bitwise the same
         as this rank's (:func:`training.replica_digest`)."""
-        digest = training.replica_digest(self.state.model)
-        if self.group is None:
-            return True
-        digests = [None] * self.world
-        torch.distributed.all_gather_object(digests, digest,
-                                            group=self.group)
-        return len(set(digests)) == 1
+        return training.replicas_agree(self.state.model, self.group)
 
     def evaluate(self):
         loss = acc = n = 0.0

@@ -293,26 +293,47 @@ def stamp_world(tr, base_dir):
                                  lineage=os.environ.get('KFAC_LINEAGE'))
 
 
-def init_world(args, group=None, local_rank=None):
-    """``(group, rank, device)`` of a trainer at ``args.num_devices``
-    ranks: ``group`` if given (as ``launch.spawn`` gives one), else the
-    default group initialized from the launcher's environment; the rank
-    runs on ``cuda:local_rank`` (``LOCAL_RANK`` unless given). Raises
-    before any group is made when the GPU is asked for and absent."""
+def init_world(args, group=None, local_rank=None, world=None):
+    """``(group, rank, device)`` of a trainer at ``world`` ranks (default
+    ``args.num_devices``): ``group`` if given (as ``launch.spawn`` gives
+    one), else the default group initialized from the launcher's
+    environment; the rank runs on ``cuda:local_rank`` (``LOCAL_RANK``
+    unless given). Raises before any group is made when the GPU is asked
+    for and absent."""
     utils.resolve_device(args.device)
-    world = args.num_devices
+    world = args.num_devices if world is None else world
     backend = args.dist_backend or ('gloo' if args.device == 'cpu'
                                     else 'nccl')
     if group is None and world > 1:
         group = kmesh.maybe_initialize_distributed(backend, world)
     if coll.axis_size(group) != world:
-        raise ValueError(f'--num-devices {world} but the process group '
-                         f'has {coll.axis_size(group)} ranks')
+        raise ValueError(f'a world of {world} ranks asked for, but the '
+                         f'process group has {coll.axis_size(group)}')
     if world > 1 and local_rank is None:
         local_rank = kmesh.local_rank()
     return group, coll.axis_index(group), utils.resolve_device(
         args.device, local_rank)
 
+
+def add_world_flags(p):
+    """``--device`` and ``--dist-backend``, the sequence trainers' flags
+    beside their world flags (``--num-devices``, or the LM's grid)."""
+    p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
+    p.add_argument('--dist-backend', default=None, choices=['nccl', 'gloo'],
+                   help='process-group backend at world > 1 (default: '
+                        'nccl on the GPU, gloo on the CPU)')
+
+
+def end_world(tr, group):
+    """At world>1: raise unless the replicas are bitwise equal, then
+    leave the launcher's process group (not a ``group`` handed in)."""
+    if tr.world == 1:
+        return
+    if not training.replicas_agree(tr.state.model, tr.group):
+        raise RuntimeError('the ranks\' parameters and buffers differ')
+    tr.say(f'replicas: {tr.world} ranks bitwise identical')
+    if group is None:
+        torch.distributed.destroy_process_group()
 
 class Trainer:
     """Everything one run needs, built from the parsed flags: data,
@@ -367,7 +388,7 @@ class Trainer:
                                                sample, self.device)
         self.step_fn = training.build_train_step(
             model, self.tx, self.precond, self.loss_fn,
-            input_dtype=self.dtype)
+            input_dtype=self.dtype, group=self.group)
 
     def say(self, *args, **kw):
         """``print`` on rank 0."""

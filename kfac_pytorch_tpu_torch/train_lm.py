@@ -1,18 +1,30 @@
 """Long-context causal-LM trainer of the port (counterpart of
-``examples/longcontext_lm.py`` at world=1): the same flag names and
-defaults for the flags the port supports, plus ``--device`` (default
-``cuda``), ``--kfac-capture-impl`` and ``--attn-impl``.
+``examples/longcontext_lm.py``): the same flag names and defaults for the
+flags the port supports, plus ``--device`` (default ``cuda``),
+``--dist-backend``, ``--kfac-capture-impl`` and ``--attn-impl``.
 
   python -m kfac_pytorch_tpu_torch.train_lm --kfac-capture-impl auto --epochs 1
+  python -m kfac_pytorch_tpu_torch.launch --nproc 2 -- train_lm \
+      --seq-devices 2 --dist-backend gloo --kfac-capture-impl auto
 
 Trains the 4-layer, 256-wide ``TransformerLM`` on 2048-token windows of
 the synthetic Markov corpus (or ``--data``, a text file) with
-``eigen_dp`` K-FAC, the vocabulary head excluded; the decomposition
-ladder's flags are the other trainers' (``--kfac-basis-update-freq``,
-``--kfac-warm-start``, ``--kfac-decomp-impl``, ``--kfac-stagger``,
-``--kfac-decomp-shard``, ``--kfac-comm-prefetch``). ``--attn-impl``
-'pallas'/'auto' runs attention through the hand-written CUDA kernels
-(K4 forward, K5a/K5b backward), 'xla' through plain PyTorch ops.
+``eigen_dp`` K-FAC, the vocabulary head excluded; the K-FAC flags are
+the other trainers' (``train_imagenet.add_kfac_flags``: the comm mode
+and wire precision, the decomposition ladder, ``--exclude-parts``).
+``--attn-impl`` 'pallas'/'auto' runs attention through the hand-written
+CUDA kernels (K4 forward, K5a/K5b backward), 'xla' through plain PyTorch
+ops.
+
+``--data-devices`` x ``--seq-devices`` ranks (started by the launcher,
+or a ``group`` from ``launch.spawn``) form the JAX trainer's ``('data',
+'seq')`` mesh (``parallel.mesh.make_grid``): rank ``d * ns + s`` trains
+on rows ``[d*B/nd, (d+1)*B/nd)`` and tokens ``[s*L/ns, (s+1)*L/ns)`` of
+the global batch, attention runs as the ring or Ulysses
+(``--seq-impl``) over the seq group, and K-FAC's world is the whole
+grid (JAX's flattened ``('data', 'seq')`` axis): each rank's loss is the
+mean over its own tokens, the gradients and factor statistics are
+reduced over every rank, and the reported losses are their mean.
 """
 
 import argparse
@@ -23,12 +35,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-import kfac_pytorch_tpu_torch as kfac
 from kfac_pytorch_tpu_torch import data as kdata
-from kfac_pytorch_tpu_torch import models, training, utils
+from kfac_pytorch_tpu_torch import models, training
+from kfac_pytorch_tpu_torch.parallel import collectives as coll
+from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
 from kfac_pytorch_tpu_torch.parallel.ring_attention import BLOCK_IMPLS
-from kfac_pytorch_tpu_torch.train_imagenet import (add_decomp_flags,
-                                                   decomp_kwargs)
+from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
+                                                   add_world_flags, end_world,
+                                                   init_world, kfac_for,
+                                                   speed)
 
 #: batches of the validation pass (as the JAX trainer's)
 VAL_BATCHES = 10
@@ -47,31 +62,23 @@ def parse_args(argv=None):
     p.add_argument('--d-model', type=int, default=256)
     p.add_argument('--seq-impl', choices=['ring', 'ulysses'], default='ring')
     p.add_argument('--seq-devices', type=int, default=1,
-                   help="size of the 'seq' mesh axis (1 in the port so far)")
+                   help="size of the 'seq' mesh axis")
     p.add_argument('--data-devices', type=int, default=1,
-                   help="size of the 'data' mesh axis (1 in the port so "
-                        'far)')
+                   help="size of the 'data' mesh axis")
+    p.add_argument('--kfac-mesh', default=None, metavar='SPEC',
+                   help='composed-mesh spec (not ported yet)')
     p.add_argument('--base-lr', type=float, default=3e-2)
-    p.add_argument('--kfac-update-freq', type=int, default=10,
-                   help='0 disables K-FAC (pure SGD)')
-    p.add_argument('--kfac-cov-update-freq', type=int, default=1)
-    p.add_argument('--kfac-capture-impl', default=None,
-                   choices=['xla', 'pallas', 'auto'],
-                   help="capture path: unset or 'xla' = plain torch ops; "
-                        "'pallas'/'auto' = the fused CUDA capture kernels")
+    add_kfac_flags(p, update_freq=10, damping=0.003)
     p.add_argument('--attn-impl', default='auto', choices=list(BLOCK_IMPLS),
                    help="attention blocks: 'xla' = plain torch ops; "
                         "'pallas'/'auto' = the CUDA flash-attention kernels")
-    p.add_argument('--kfac-name', default='eigen_dp',
-                   choices=list(kfac.KFAC_VARIANTS))
-    add_decomp_flags(p)
-    p.add_argument('--damping', type=float, default=0.003)
-    p.add_argument('--stat-decay', type=float, default=0.95)
-    p.add_argument('--kl-clip', type=float, default=0.001)
     p.add_argument('--vocab-limit', type=int, default=8192)
     p.add_argument('--synthetic-vocab', type=int, default=512)
     p.add_argument('--seed', type=int, default=42)
-    p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
+    p.add_argument('--speed', action='store_true',
+                   help='print tokens/s of warm, synchronized steps and '
+                        'exit')
+    add_world_flags(p)
     return p.parse_args(argv)
 
 
@@ -83,16 +90,31 @@ def loss_fn(outputs, batch):
 
 class Trainer:
     """Everything one run needs, built from the parsed flags: corpus,
-    model, optimizer, preconditioner, state and the step. Matmuls run in
-    fp32 (TF32 off), the reference's precision."""
+    grid, model, optimizer, preconditioner, state and the step. Matmuls
+    run in fp32 (TF32 off), the reference's precision.
 
-    def __init__(self, args):
-        if args.seq_devices != 1 or args.data_devices != 1:
+    At ``--data-devices`` x ``--seq-devices`` > 1 the process group is
+    ``group`` if given (as :func:`launch.spawn` gives it), else the
+    default group initialized from the launcher's environment; the rank
+    runs on ``cuda:local_rank`` (``LOCAL_RANK`` unless given)."""
+
+    def __init__(self, args, group=None, local_rank=None):
+        if args.kfac_mesh:
             raise NotImplementedError(
-                '--seq-devices/--data-devices > 1 (the sequence and data '
-                'mesh over a process group) are port slices E and B')
+                '--kfac-mesh is not ported yet: ROADMAP queue 1, item 21 '
+                '(parallel layers and the mesh plan)')
         self.args = args
-        self.device = utils.resolve_device(args.device)
+        self.world = args.data_devices * args.seq_devices
+        self.group, self.rank, self.device = init_world(
+            args, group, local_rank, world=self.world)
+        self.grid = kmesh.make_grid(args.data_devices, args.seq_devices,
+                                    self.group)
+        if args.batch_size % args.data_devices or \
+                args.seq_len % args.seq_devices:
+            raise ValueError(
+                f'--batch-size {args.batch_size} x --seq-len {args.seq_len} '
+                f'does not split over the {args.data_devices} x '
+                f'{args.seq_devices} grid')
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         ids, self.vocab = kdata.load_corpus(
@@ -104,23 +126,26 @@ class Trainer:
             'transformer_lm', seed=args.seed, vocab_size=self.vocab,
             n_layer=args.n_layer, n_head=args.n_head, d_model=args.d_model,
             max_len=args.seq_len, seq_impl=args.seq_impl,
-            block_impl=args.attn_impl)
+            block_impl=args.attn_impl, seq_group=self.grid.seq)
         self.tx = training.sgd(args.base_lr, momentum=0.9)
         self.precond = None
         if args.kfac_update_freq > 0:
-            self.precond = kfac.get_kfac_module(args.kfac_name)(
-                lr=args.base_lr, damping=args.damping,
-                fac_update_freq=args.kfac_cov_update_freq,
-                kfac_update_freq=args.kfac_update_freq,
-                kl_clip=args.kl_clip, factor_decay=args.stat_decay,
-                capture_impl=args.kfac_capture_impl,
-                exclude_vocabulary_size=self.vocab, **decomp_kwargs(args))
-        sample = np.zeros((args.batch_size, args.seq_len), np.int64)
+            self.precond = kfac_for(args, self.world, self.group,
+                                    exclude_vocabulary_size=self.vocab)
+        # the model is set up from a sample of the local shard's shape
+        sample = np.zeros((args.batch_size // args.data_devices,
+                           args.seq_len // args.seq_devices), np.int64)
         self.state = training.init_train_state(model, self.tx, self.precond,
                                                sample, self.device)
         self.step_fn = training.build_train_step(model, self.tx,
-                                                 self.precond, loss_fn)
+                                                 self.precond, loss_fn,
+                                                 group=self.group)
         self.rng = np.random.RandomState(args.seed)
+
+    def say(self, *args, **kw):
+        """``print`` on rank 0."""
+        if self.rank == 0:
+            print(*args, flush=True, **kw)
 
     def batches(self):
         """One epoch of training batches (host numpy)."""
@@ -129,15 +154,29 @@ class Trainer:
                                        a.batch_size, a.steps_per_epoch,
                                        self.rng)
 
+    def tokens(self, batch):
+        """Tokens of a global host batch (every rank's together)."""
+        return batch['input'].size
+
     def to_device(self, batch):
+        """This rank's block of a global host batch, on the device."""
+        if self.world > 1:
+            batch = kmesh.shard_tokens(batch, self.grid)
         return {k: torch.as_tensor(v).to(self.device, torch.int64)
                 for k, v in batch.items()}
 
+    def kfac_lr(self, step):
+        """The lr the step hands K-FAC (its KL clip): the constant
+        ``--base-lr``."""
+        return self.args.base_lr
+
     def train_step(self, batch):
-        """One step on a host batch; returns the metrics dict."""
-        self.state, m = self.step_fn(self.state, self.to_device(batch),
-                                     lr=self.args.base_lr,
-                                     damping=self.args.damping)
+        """One step on a global host batch; returns the metrics dict (the
+        loss averaged over the ranks)."""
+        self.state, m = self.step_fn(
+            self.state, self.to_device(batch),
+            lr=self.kfac_lr(self.state.step),
+            damping=self.precond.damping if self.precond else 0.0)
         return m
 
     def evaluate(self):
@@ -148,24 +187,31 @@ class Trainer:
             self.val_ids, a.seq_len, a.batch_size,
             min(VAL_BATCHES, a.steps_per_epoch),
             np.random.RandomState(a.seed + 1))
-        return float(np.mean([
-            float(training.eval_step(self.state.model, self.to_device(b),
-                                     loss_fn)[0]) for b in draws]))
+        return float(np.mean([float(coll.pmean(training.eval_step(
+            self.state.model, self.to_device(b), loss_fn)[0], self.group))
+            for b in draws]))
 
 
-def main(argv=None):
+def main(argv=None, group=None):
+    """Run the trainer (in ``group`` if given, as ``launch.spawn`` gives
+    one; else the launcher's group at world>1); returns it."""
     args = parse_args(argv)
-    tr = Trainer(args)
+    tr = Trainer(args, group=group)
+    if args.speed:
+        batch = next(tr.batches())
+        speed(tr, batch, tr.tokens(batch), 'tokens/sec')
+        return tr
     for epoch in range(args.epochs):
         t0 = time.time()
         losses = [float(tr.train_step(b)['loss']) for b in tr.batches()]
         if not np.all(np.isfinite(losses)):
             raise FloatingPointError(f'non-finite training loss: {losses}')
         val = tr.evaluate()
-        print(f'epoch {epoch}: train_ppl '
-              f'{math.exp(min(np.mean(losses), 20)):.2f} val_ppl '
-              f'{math.exp(min(val, 20)):.2f} ({time.time() - t0:.1f}s)',
-              flush=True)
+        tr.say(f'epoch {epoch}: train_ppl '
+               f'{math.exp(min(np.mean(losses), 20)):.2f} val_ppl '
+               f'{math.exp(min(val, 20)):.2f} ({time.time() - t0:.1f}s)')
+    end_world(tr, group)
+    return tr
 
 
 if __name__ == '__main__':

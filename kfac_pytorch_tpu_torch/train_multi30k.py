@@ -1,17 +1,20 @@
 """Multi-30k Transformer trainer of the port (counterpart of
-``examples/multi30k_transformer.py`` at world=1): the JAX trainer's flag
+``examples/multi30k_transformer.py``): the JAX trainer's flag
 names and defaults (Transformer-base: d_model 512, 6 + 6 layers, 8
 heads, d_inner 2048, max length 32, batch 128; SGD with momentum 0.9,
 weight decay 5e-4 and ``warmup_multistep(base_lr, steps_per_epoch, 5,
 lr_decay)``, ``eigen_dp`` K-FAC every 10 steps; or ``--optimizer adam``,
 Adam(0.9, 0.98, 1e-9) under the inverse-sqrt schedule, without K-FAC),
-plus ``--device`` (default ``cuda``), ``--steps-per-epoch`` and the
-decomposition-ladder flags of the port's other trainers.
+plus ``--device`` (default ``cuda``), ``--dist-backend``,
+``--steps-per-epoch`` and the decomposition-ladder flags of the port's
+other trainers.
 
   python -m kfac_pytorch_tpu_torch.train_multi30k --kfac-capture-impl pallas
   python -m kfac_pytorch_tpu_torch.train_multi30k --device cpu \\
       --d-model 32 --d-inner 64 --n-layers 2 --n-head 4 --batch-size 16 \\
       --steps-per-epoch 2 --epochs 1
+  python -m kfac_pytorch_tpu_torch.launch --nproc 2 -- train_multi30k \\
+      --dist-backend gloo --kfac-capture-impl pallas
 
 Reads whitespace-tokenized ``train.de``/``train.en`` (and ``val.*``)
 from ``--dir`` when they exist, else the synthetic reversal task
@@ -22,8 +25,17 @@ label-smoothed cross entropy of ``trg[1:]`` from ``trg[:-1]`` over the
 non-pad tokens; the tied pre-softmax projection is not a K-FAC layer
 (``exclude_vocabulary_size`` would drop an untied one). Each epoch ends
 with a greedy-decoded (``--beam-size`` > 0: beam search) BLEU on 128
-validation sentences. ``--num-devices`` > 1 raises: the sequence
-trainers at world>1 are the next item of ROADMAP queue 1.
+validation sentences.
+
+At ``--num-devices`` > 1 (the JAX trainer's ``'batch'`` mesh axis) each
+rank is one process (started by the launcher, or a ``group`` from
+``launch.spawn``), ``--batch-size`` is the GLOBAL batch and rank r
+trains on its rows ``[r*B/P, (r+1)*B/P)``: the local-mean loss, the
+gradients averaged over the ranks, K-FAC over the world. Dropout draws
+each rank's own masks, from a stream seeded by ``(seed + 2, step,
+rank)`` (the JAX trainer's ``dropout_seed`` folded with the step and the
+axis index). Rank 0 prints; the run ends by checking that the replicas
+are bitwise equal.
 """
 
 import argparse
@@ -36,15 +48,16 @@ import torch
 
 from kfac_pytorch_tpu_torch import training, utils
 from kfac_pytorch_tpu_torch.models import transformer, translator
-from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags, kfac_for,
+from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
+from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
+                                                   add_world_flags, end_world,
+                                                   init_world, kfac_for,
                                                    speed)
 from kfac_pytorch_tpu_torch.utils.losses import label_smoothing_cross_entropy
 
 PAD, BOS, EOS = 1, 2, 3
 #: validation sentences kept, and the ones each epoch's BLEU decodes
 VAL_SIZE, BLEU_SIZE = 256, 128
-WORLD_GT1 = ('the sequence trainers at --num-devices > 1 are not ported '
-             'yet: ROADMAP queue 1, the sequence trainers at world>1')
 
 
 def parse_args(argv=None):
@@ -78,7 +91,7 @@ def parse_args(argv=None):
                    help='>0 uses beam search for the BLEU evaluation')
     p.add_argument('--synthetic-vocab', type=int, default=64)
     p.add_argument('--synthetic-size', type=int, default=2048)
-    p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
+    add_world_flags(p)
     return p.parse_args(argv)
 
 
@@ -173,11 +186,11 @@ class Trainer:
     #: are, and the weights stay fp32
     dtype = torch.float32
 
-    def __init__(self, args):
-        if args.num_devices != 1:
-            raise NotImplementedError(WORLD_GT1)
+    def __init__(self, args, group=None, local_rank=None):
         self.args = args
-        self.device = utils.resolve_device(args.device)
+        self.world = args.num_devices
+        self.group, self.rank, self.device = init_world(args, group,
+                                                        local_rank)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         (self.train_src, self.train_trg, self.val_src, self.val_trg,
@@ -206,17 +219,22 @@ class Trainer:
             self.tx = training.sgd(self.lr_fn, momentum=0.9,
                                    weight_decay=5e-4)
             if args.kfac_update_freq > 0:
-                self.precond = kfac_for(args, exclude_vocabulary_size=n_trg)
-        bs = args.batch_size
+                self.precond = kfac_for(args, self.world, self.group,
+                                        exclude_vocabulary_size=n_trg)
+        # the model is set up from a sample of a rank's rows
+        bs = args.batch_size // self.world
         sample = (self.train_src[:bs].astype(np.int64),
                   self.train_trg[:bs].astype(np.int64))
         self.state = training.init_train_state(model, self.tx, self.precond,
                                                sample, self.device)
-        self.step_fn = training.build_train_step(model, self.tx,
-                                                 self.precond, self.loss_fn)
+        self.step_fn = training.build_train_step(
+            model, self.tx, self.precond, self.loss_fn,
+            dropout_seed=args.seed + 2, group=self.group)
 
     def say(self, *args, **kw):
-        print(*args, flush=True, **kw)
+        """``print`` on rank 0."""
+        if self.rank == 0:
+            print(*args, flush=True, **kw)
 
     def loss_fn(self, outputs, batch):
         return loss_fn(outputs, batch, self.args.label_smoothing)
@@ -237,6 +255,9 @@ class Trainer:
         return batch['label'].shape[0] * self.args.max_len
 
     def to_device(self, batch):
+        """This rank's rows of a global host batch, on the device."""
+        if self.world > 1:
+            batch = kmesh.shard_batch(batch, self.rank, self.world)
         return {'input': training.to_device(
                     tuple(t.astype(np.int64) for t in batch['input']),
                     self.device),
@@ -278,10 +299,11 @@ class Trainer:
         return translator.bleu(hyps, refs)
 
 
-def main(argv=None):
-    """Run the trainer; returns it."""
+def main(argv=None, group=None):
+    """Run the trainer (in ``group`` if given, as ``launch.spawn`` gives
+    one; else the launcher's group at world>1); returns it."""
     args = parse_args(argv)
-    tr = Trainer(args)
+    tr = Trainer(args, group=group)
     if args.speed:
         batch = next(tr.batches())
         speed(tr, batch, tr.tokens(batch), 'tokens/sec')
@@ -298,6 +320,7 @@ def main(argv=None):
         tr.say(f'epoch {epoch}: train_loss {np.mean(losses):.4f} BLEU '
                f'{score:.2f} ({time.time() - t0:.1f}s)'
                f'{utils.health_suffix(monitor.epoch_flush())}')
+    end_world(tr, group)
     return tr
 
 

@@ -1,10 +1,11 @@
-"""SQuAD BERT trainer of the port (counterpart of ``examples/squad_bert.py``
-at world=1): the JAX trainer's flag names and defaults (BERT tiny, batch
-4, sequence 64, SGD with momentum 0.9 under ``polynomial_decay(base_lr,
-total, power=1, warmup_steps=total * warmup_frac)``, ``eigen_dp`` K-FAC
-every 10 steps with the wordpiece vocabulary excluded), plus ``--device``
-(default ``cuda``), ``--steps-per-epoch`` and the decomposition-ladder
-flags of the port's other trainers.
+"""SQuAD BERT trainer of the port (counterpart of
+``examples/squad_bert.py``): the JAX trainer's flag names and defaults
+(BERT tiny, batch 4, sequence 64, SGD with momentum 0.9 under
+``polynomial_decay(base_lr, total, power=1, warmup_steps=total *
+warmup_frac)``, ``eigen_dp`` K-FAC every 10 steps with the wordpiece
+vocabulary excluded), plus ``--device``
+(default ``cuda``), ``--dist-backend``, ``--steps-per-epoch`` and the
+decomposition-ladder flags of the port's other trainers.
 
   python -m kfac_pytorch_tpu_torch.train_squad --model-size base \\
       --kfac-capture-impl pallas
@@ -16,8 +17,9 @@ The data is the synthetic span task (:func:`synthetic_squad`), or with
 (:func:`load_squad`; the JAX trainer names the flag but reads only the
 synthetic task). The loss is the mean of the start and end cross
 entropies; each epoch ends with token-level F1 and exact match on 256
-held-out examples. ``--num-devices`` > 1 raises: the sequence trainers
-at world>1 are the next item of ROADMAP queue 1.
+held-out examples. ``--num-devices`` > 1 runs as the Multi-30k trainer
+does (``train_multi30k``: each rank its rows of the global batch, its
+own dropout masks, the replicas checked at the end).
 """
 
 import argparse
@@ -31,9 +33,11 @@ import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch import training, utils
 from kfac_pytorch_tpu_torch.models import bert
-from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags, kfac_for,
+from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
+from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
+                                                   add_world_flags, end_world,
+                                                   init_world, kfac_for,
                                                    speed)
-from kfac_pytorch_tpu_torch.train_multi30k import WORLD_GT1
 
 PAD, CLS, SEP, MARK = 0, 1, 2, 3
 #: the id of a word outside a SQuAD file's vocabulary
@@ -63,7 +67,7 @@ def parse_args(argv=None):
     p.add_argument('--speed', action='store_true',
                    help='print tokens/s of warm, synchronized steps and '
                         'exit')
-    p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
+    add_world_flags(p)
     return p.parse_args(argv)
 
 
@@ -172,11 +176,11 @@ class Trainer:
     #: are, and the weights stay fp32
     dtype = torch.float32
 
-    def __init__(self, args):
-        if args.num_devices != 1:
-            raise NotImplementedError(WORLD_GT1)
+    def __init__(self, args, group=None, local_rank=None):
         self.args = args
-        self.device = utils.resolve_device(args.device)
+        self.world = args.num_devices
+        self.group, self.rank, self.device = init_world(args, group,
+                                                        local_rank)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         cfg = {'tiny': bert.BertConfig.tiny, 'base': bert.BertConfig.base,
@@ -208,18 +212,23 @@ class Trainer:
         self.precond = None
         if args.kfac_update_freq > 0:
             self.precond = kfac_for(
-                args, exclude_vocabulary_size=cfg.vocab_size)
-        bs = args.batch_size
+                args, self.world, self.group,
+                exclude_vocabulary_size=cfg.vocab_size)
+        # the model is set up from a sample of a rank's rows
+        bs = args.batch_size // self.world
         self.state = training.init_train_state(
             model, self.tx, self.precond,
             self.batch(np.arange(bs))['input'], self.device)
         self.loss_fn = loss_fn
-        self.step_fn = training.build_train_step(model, self.tx,
-                                                 self.precond, loss_fn)
+        self.step_fn = training.build_train_step(
+            model, self.tx, self.precond, loss_fn,
+            dropout_seed=args.seed + 2, group=self.group)
         self.rng = np.random.RandomState(args.seed)
 
     def say(self, *args, **kw):
-        print(*args, flush=True, **kw)
+        """``print`` on rank 0."""
+        if self.rank == 0:
+            print(*args, flush=True, **kw)
 
     def batch(self, sel, data=None):
         """The host batch of examples ``sel``: ``input`` the ``(ids,
@@ -242,6 +251,9 @@ class Trainer:
         return batch['input'][0].size
 
     def to_device(self, batch):
+        """This rank's rows of a global host batch, on the device."""
+        if self.world > 1:
+            batch = kmesh.shard_batch(batch, self.rank, self.world)
         return {'input': training.to_device(batch['input'], self.device),
                 'label': torch.as_tensor(batch['label'], device=self.device)}
 
@@ -273,10 +285,11 @@ class Trainer:
             list(zip(starts, ends)), ids)
 
 
-def main(argv=None):
-    """Run the trainer; returns it."""
+def main(argv=None, group=None):
+    """Run the trainer (in ``group`` if given, as ``launch.spawn`` gives
+    one; else the launcher's group at world>1); returns it."""
     args = parse_args(argv)
-    tr = Trainer(args)
+    tr = Trainer(args, group=group)
     if args.speed:
         batch = tr.batch(np.arange(min(args.batch_size, len(tr.train[0]))))
         speed(tr, batch, tr.tokens(batch), 'tokens/sec')
@@ -293,6 +306,7 @@ def main(argv=None):
         tr.say(f'epoch {epoch}: loss {np.mean(losses):.4f} F1 {f1:.2f} EM '
                f'{em:.2f} ({time.time() - t0:.1f}s)'
                f'{utils.health_suffix(monitor.epoch_flush())}')
+    end_world(tr, group)
     return tr
 
 

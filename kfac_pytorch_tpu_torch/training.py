@@ -20,6 +20,7 @@ the K-FAC state come out bit for bit as they went in. Faults and tracing
 are not ported yet (ROADMAP queue 1, slices F and G).
 """
 
+import contextlib
 import dataclasses
 import hashlib
 from typing import Any, Dict, NamedTuple
@@ -447,6 +448,17 @@ def replica_digest(model):
     return h.hexdigest()
 
 
+def replicas_agree(model, group):
+    """Whether every rank of ``group`` holds ``model``'s parameters and
+    buffers bit for bit as this rank does (:func:`replica_digest`)."""
+    if group is None:
+        return True
+    digests = [None] * coll.axis_size(group)
+    torch.distributed.all_gather_object(digests, replica_digest(model),
+                                        group=group)
+    return len(set(digests)) == 1
+
+
 def _warm_basis_gate(precond, seen, step, ui, ub):
     """Warm or cold, for a full decomposition, updating the run's ``seen``
     record: warm only once a full one exists in this process (the stored
@@ -498,31 +510,57 @@ def softmax_cross_entropy(outputs, labels):
     return -logp.gather(-1, labels.unsqueeze(-1)).mean()
 
 
+def _fold(seed, parts):
+    """A 63-bit seed from ``seed`` with ``parts`` folded in, in order (the
+    counterpart of ``jax.random.fold_in``)."""
+    key = seed
+    for part in parts:
+        digest = hashlib.blake2b(f'{key}:{part}'.encode(),
+                                 digest_size=8).digest()
+        key = int.from_bytes(digest, 'little') >> 1
+    return key
+
+
 def fisher_generator(seed, step, rank, device):
     """The F1mc pseudo-label stream of one step: a ``torch.Generator`` on
     ``device`` seeded from ``seed``, the domain tag ``0xF15C``, ``step``
     and (under data parallelism) ``rank``, folded in that order as the
     JAX trainer folds its key. A host-side seed: no device round trip."""
-    key = seed
-    for part in (0xF15C, step) + (() if rank is None else (rank,)):
-        digest = hashlib.blake2b(f'{key}:{part}'.encode(),
-                                 digest_size=8).digest()
-        key = int.from_bytes(digest, 'little') >> 1
     gen = torch.Generator(device=device)
-    gen.manual_seed(key)
+    gen.manual_seed(_fold(seed, (0xF15C, step)
+                          + (() if rank is None else (rank,))))
     return gen
+
+
+@contextlib.contextmanager
+def dropout_rng(seed, step, rank, device):
+    """The forward's dropout stream of one step: the default generators
+    (this host's and ``device``'s) seeded from ``seed``, ``step`` and,
+    under data parallelism, ``rank`` (each rank draws its own masks, the
+    JAX trainer's ``fold_in(axis_index)``), and put back as they were on
+    exit. ``seed=None`` leaves them alone."""
+    if seed is None:
+        yield
+        return
+    cuda = [device.index or 0] if device.type == 'cuda' else []
+    with torch.random.fork_rng(devices=cuda):
+        torch.manual_seed(_fold(seed, (step,) + (() if rank is None
+                                                  else (rank,))))
+        yield
 
 
 def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
                      health='auto', fisher_type='Femp', fisher_loss_fn=None,
-                     fisher_sample_fn=None, fisher_seed=0):
+                     fisher_sample_fn=None, fisher_seed=0,
+                     dropout_seed=None, group=None):
     """Return ``step_fn(state, batch, lr=None, damping=None) -> (state,
     metrics)``. ``batch`` holds this rank's shard as tensors on the
     model's device: ``'input'`` (see :func:`model_input`; cast to
     ``input_dtype`` if given) and whatever ``loss_fn(outputs, batch)``
     reads; ``loss_fn`` is the local-mean loss.
-    The data-parallel process group is the preconditioner's (``group``;
-    None at world=1). ``lr``/``damping`` feed the preconditioner (KL clip
+    The data-parallel process group is the preconditioner's (its
+    ``group``; None at world=1), or ``group`` without a preconditioner
+    (plain SGD or Adam at world>1). ``lr``/``damping`` feed the preconditioner (KL clip
     and damping). ``step_fn.last_phases`` names the K-FAC phases of the
     last call ('pred', 'stats', 'decomp', 'gather'), as the JAX trainer
     does; ``step_fn.last_decomp`` says which decomposition it ran (None,
@@ -560,6 +598,11 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
     BatchNorm statistics move once (the forward is shared, as XLA shares
     it in the JAX trainer).
 
+    ``dropout_seed``: when given, the forward draws its dropout masks
+    from a stream seeded by ``(dropout_seed, step, rank)``
+    (:func:`dropout_rng`; the rank only under a group), the JAX trainer's
+    ``dropout_seed``; else from the default generators as they stand.
+
     ``step_fn.warm_tracking`` is the process's record of the
     decomposition cadence (the JAX trainer's): ``'yes'`` (a decomposition
     exists: ``state.decomposed``), ``'last_full'`` (the step of the last
@@ -586,6 +629,7 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
     if fisher_sample_fn is None:
         fisher_sample_fn = sample_pseudo_labels
     seen = {}
+    sgd_group = group
     if precond is not None:
         # after a replan that changes the step, the next step re-derives
         # from the state whether a decomposition exists (a cross-method
@@ -615,7 +659,7 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
             # the factor statistics accumulate
             factors_only = not seen['yes']
         # read at every step: a replan may have moved the world
-        group = None if precond is None else precond.group
+        group = sgd_group if precond is None else precond.group
         params = dict(model.named_parameters())
         hstate = state.health
         guard = health_cfg is not None
@@ -637,13 +681,15 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
         cap = capture.Capture(model, precond.plan.metas if uf else ())
         f1mc = fisher_type == 'F1mc' and uf
         model.zero_grad(set_to_none=True)
+        rank = None if group is None else coll.axis_index(group)
         with cap:
-            out = model(x)
+            with dropout_rng(dropout_seed, step, rank,
+                             next(iter(params.values())).device):
+                out = model(x)
             loss = loss_fn(out, batch)
             capture.check_local_mean_loss(loss, batch, group)
             loss.backward(retain_graph=f1mc)
             if f1mc:
-                rank = None if group is None else coll.axis_index(group)
                 pseudo = fisher_sample_fn(
                     fisher_generator(fisher_seed, step, rank, out.device),
                     out.detach())

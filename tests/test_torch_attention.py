@@ -222,8 +222,22 @@ def test_wrappers_take_contiguous_float32_only():
         ak.flash_fwd(q.transpose(1, 2), k, v, mask, (0, 0), SCALE, True)
     with pytest.raises(ValueError, match='block_impl'):
         tring.ring_attention(q[None], k[None], v[None], block_impl='flash')
-    with pytest.raises(NotImplementedError, match='process group'):
-        tring.ring_attention(q[None], k[None], v[None], axis_name='seq')
+    # a process group of one rank runs the one-block path: the same bits
+    # as no group, and no collective (several ranks: test_torch_ring.py)
+    import torch.distributed as dist
+    from kfac_pytorch_tpu_torch.parallel import collectives as coll
+    dist.init_process_group('gloo', store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.new_group([0])
+        for fn in (tring.ring_attention, tring.ulysses_attention):
+            with coll.ledger() as led:
+                got = fn(q[None], k[None], v[None], group, causal=True)
+            assert led == []
+            assert torch.equal(got, fn(q[None], k[None], v[None],
+                                       causal=True))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_ulysses_is_ring_at_world_1():

@@ -4,8 +4,10 @@ trainers' ``--exclude-parts``) against the JAX package, held to
 damping 0.003, SGD with momentum 0.9, cross-entropy, two steps, here on
 a 15 x 15 batch (an odd size: the port's TinyCNN pads symmetrically).
 
-- World 1: the full run, ComputeInverse and all four together equal the
-  JAX run from the same weights and batch (losses rtol 1e-5; the first
+- World 1 (``tests/test_torch_exclude_parts_runs.py``, a file of its own
+  so the suite's scheduler runs its JAX steps beside the longest files,
+  with this file's helpers): the full run, ComputeInverse and all four
+  together equal the JAX run from the same weights and batch (losses rtol 1e-5; the first
   step's factors 1e-5 relative plus 1e-6 of sqrt(F_ii F_jj); each
   K-FAC layer's parameters, weight and bias as the one matrix K-FAC
   updates, within 5e-4 of its largest entry; decompositions compared as
@@ -17,7 +19,8 @@ a 15 x 15 batch (an odd size: the port's TinyCNN pads symmetrically).
   (and, through the kernels' plain versions, launches no K1/K2),
   ComputeInverse leaves the decomposition zero while the factors
   accumulate and passes the gradients through, CommunicateInverse skips
-  the KL clip, and every ablated run stays finite.
+  the KL clip, and every ablated run stays finite. Here: without
+  ComputeFactor the kernels' plain versions are never called.
 - World 2: ``tests/test_torch_exclude_parts_world2.py``.
 - ``decomp_shard`` with CommunicateInverse raises JAX's ValueError, and
   both trainers take ``--exclude-parts``.
@@ -67,6 +70,18 @@ def _batch():
 
 def _np(tree):
     return jax.tree.map(lambda v: np.array(v, copy=True), tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init():
+    """JAX's TinyCNN parameters from the runs' seed, the init compiled
+    whole (no step: for the tests that need weights only)."""
+    model = JTinyCNN()
+    pre = jkfac.KFAC(variant='eigen_dp', health=False, **HP)
+    tx = jtraining.sgd(HP['lr'], momentum=0.9)
+    x = jnp.asarray(_batch()['input'])
+    return _np(jax.jit(lambda k: jtraining.init_train_state(
+        model, tx, pre, k, x))(jax.random.PRNGKey(0)).params)
 
 
 @functools.lru_cache(maxsize=None)
@@ -188,51 +203,6 @@ def _check_oracle(parts, got):
         assert not decomp_zero and got['decomp_ran'] == 'full'
 
 
-@pytest.mark.parametrize('parts', ['', 'ComputeInverse', ALL_PARTS],
-                         ids=['none', 'ComputeInverse', 'all'])
-def test_world1_matches_jax(parts):
-    want = _jax_run(parts)
-    got = _port_run(parts, want['init'])
-    st = got['state']
-    np.testing.assert_allclose(got['losses'], want['losses'], rtol=LOSS_RTOL)
-    # the step before the first parameter update (a later statistic
-    # inherits the update's rounding, amplified by the damped eigenbasis)
-    _assert_factors_close(got['factors'][0], want['factors'][0])
-    for key, w in _rebuilt(want['decomp']).items():
-        g = _rebuilt({p: {k: v.numpy() for k, v in t.items()}
-                      for p, t in st.kfac_state.decomp.items()})[key]
-        assert np.abs(g - w).max() <= 1e-4 * max(np.abs(w).max(), 1.0), key
-    ref = _layer_matrices(weights.params_from_jax(want['params']))
-    mine = _layer_matrices(st.model.state_dict())
-    for key, w in ref.items():
-        err = _rel_to_max(mine[key].numpy(), w.numpy())
-        assert err <= PARAM_RTOL, (key, err)
-    _check_oracle(parts, got)
-
-
-@pytest.mark.parametrize('parts', list(EQUIVALENT))
-def test_world1_equals_its_equivalent_run(parts):
-    """Each ablation bitwise equals the port run of :data:`EQUIVALENT`
-    (that path is held against JAX by ``test_world1_matches_jax``), and
-    keeps the oracle's properties; without CommunicateInverse the skipped
-    clip parts the parameters from the full run's."""
-    init = _jax_run('')['init']
-    got = _port_run(parts, init)
-    want = _port_run('', init, **EQUIVALENT[parts])
-    for a, b in ((want['state'].model.state_dict(),
-                  got['state'].model.state_dict()),
-                 (want['state'].kfac_state.factors,
-                  got['state'].kfac_state.factors)):
-        assert all(torch.equal(a[k], b[k]) for k in a)
-    _check_oracle(parts, got)
-    if parts == 'CommunicateInverse':
-        full = _layer_matrices(_port_run('', init)['state'].model
-                               .state_dict())
-        mine = _layer_matrices(got['state'].model.state_dict())
-        assert any(_rel_to_max(mine[k].numpy(), full[k].numpy())
-                   > 100 * PARAM_RTOL for k in full)
-
-
 @pytest.mark.parametrize('parts', ['', 'ComputeFactor'])
 def test_compute_factor_launches_no_capture_kernel(monkeypatch, parts):
     """The kernels' plain versions stand in for K1/K2 on the CPU: the
@@ -242,7 +212,7 @@ def test_compute_factor_launches_no_capture_kernel(monkeypatch, parts):
         fn = getattr(ck, name)
         monkeypatch.setattr(ck, name, lambda *a, fn=fn, name=name, **k: (
             calls.append(name), fn(*a, **k))[1])
-    _port_run(parts, _jax_run('')['init'], capture_impl='auto')
+    _port_run(parts, _jax_init(), capture_impl='auto')
     if parts:
         assert calls == []
     else:

@@ -7,8 +7,9 @@
    raise instead of running on the CPU.
 3. The capture- and attention-kernel wrappers run their plain versions
    only for CPU tensors; any other device launches the kernel or raises.
-4. The world>1 entry points (the launcher, the trainer at
-   ``--num-devices`` > 1) raise without a GPU unless ``--device cpu``.
+4. The world>1 entry points (the launcher, the trainers at
+   ``--num-devices`` > 1, the LM on a data x seq grid) raise without a
+   GPU unless ``--device cpu``.
 5. The ImageNet trainer raises NotImplementedError, naming its ROADMAP
    item, for every flag of the JAX trainer whose feature is not ported
    (``--io-retries`` and ``--num-devices`` are ported since the elastic
@@ -51,11 +52,13 @@ def test_port_imports_without_jax_or_the_jax_package():
         bad = [m for m in sys.modules
                if re.match(r'kfac_pytorch_tpu(?!_torch)', m)]
         assert not bad, bad
-        # the sequence slice: its three trainers and four model modules
+        # the sequence slices: the trainers, the models, and the ring,
+        # Ulysses and grid modules of sequence parallelism
         seq = {pkg.__name__ + '.' + m for m in (
-            'train_multi30k', 'train_squad', 'train_wikitext',
+            'train_multi30k', 'train_squad', 'train_wikitext', 'train_lm',
             'models.transformer', 'models.translator', 'models.bert',
-            'models.rnn')}
+            'models.rnn', 'models.gpt', 'parallel.ring_attention',
+            'parallel.collectives', 'parallel.mesh')}
         assert seq <= set(mods) and seq <= set(sys.modules), seq
         print(len(mods))
     ''')
@@ -224,7 +227,20 @@ def test_world_gt1_entry_points_raise_without_gpu(no_gpu, monkeypatch):
             launch.main(['--nproc', '2', '--', 'train_cifar', *args])
     with pytest.raises(RuntimeError, match='no CUDA device'):
         train_cifar.main(['--num-devices', '2', '--epochs', '1'])
+    # the LM's grid, the sequence trainers at world>1
+    from kfac_pytorch_tpu_torch import train_lm, train_multi30k
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        train_lm.main(['--seq-devices', '2', '--epochs', '1'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        train_multi30k.main(['--num-devices', '2', '--epochs', '1'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        launch.main(['--nproc', '2', '--', 'train_lm', '--seq-devices', '2'])
     assert not started
+    # the CPU, asked for: the LM's grid is its world, no --num-devices
+    assert launch.main(['--nproc', '4', '--', 'train_lm', '--device', 'cpu',
+                        '--data-devices', '2', '--seq-devices', '2']) == 0
+    cmd = started.pop()
+    assert '--num-devices' not in cmd and cmd[-1] == '2'
     # the CPU, asked for, launches torchrun with the world set
     assert launch.main(['--nproc', '2', '--', 'train_cifar', '--device',
                         'cpu']) == 0

@@ -49,6 +49,7 @@ from kfac_pytorch_tpu.models import bert as jbert
 from kfac_pytorch_tpu.models import rnn as jrnn
 from kfac_pytorch_tpu.models import transformer as jtr
 from kfac_pytorch_tpu_torch import data as tdata
+from kfac_pytorch_tpu_torch import launch
 from kfac_pytorch_tpu_torch import train_imagenet
 from kfac_pytorch_tpu_torch import train_multi30k
 from kfac_pytorch_tpu_torch import train_squad
@@ -56,6 +57,8 @@ from kfac_pytorch_tpu_torch import train_wikitext
 from kfac_pytorch_tpu_torch import training as ttraining
 from kfac_pytorch_tpu_torch import weights
 from kfac_pytorch_tpu_torch.utils import lr as tlr
+
+import torch_dist_workers as workers
 
 torch.set_num_threads(2)
 
@@ -490,11 +493,30 @@ def test_speed_reports_tokens(monkeypatch, capsys, trainer):
     assert 'tokens/sec' in capsys.readouterr().out
 
 
+@pytest.fixture(scope='module')
+def world2_mains():
+    """Each trainer's ``main`` at ``--num-devices 2`` on two gloo ranks
+    (one spawn for both)."""
+    runs = {t: (f'train_{t}', {'multi30k': M30K, 'squad': SQUAD}[t] + [
+        '--steps-per-epoch', '2', '--epochs', '1', '--num-devices', '2'])
+        for t in ('multi30k', 'squad')}
+    ranks = launch.spawn(workers.trainer_main_runs, 2, args=(runs,),
+                         timeout=300)
+    return {t: [r[t] for r in ranks] for t in runs}
+
+
 @pytest.mark.parametrize('trainer', ['multi30k', 'squad'])
-def test_world_gt1_raises_naming_the_roadmap_item(trainer):
-    mod = {'multi30k': train_multi30k, 'squad': train_squad}[trainer]
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1'):
-        mod.main(CPU + ['--num-devices', '2'])
+def test_world_gt1_raises_naming_the_roadmap_item(world2_mains, trainer):
+    """Once raising (the item was not ported), now the item itself:
+    ``main`` at ``--num-devices 2`` on two gloo ranks trains an epoch,
+    rank 0 prints, and the replicas end bitwise equal (parity against
+    JAX's mesh: test_torch_seq_world.py)."""
+    ranks = world2_mains[trainer]
+    assert ranks[0]['digest'] == ranks[1]['digest']
+    lines = ranks[0]['stdout'].splitlines()
+    assert lines[0].startswith('epoch 0: ')
+    assert lines[-1] == 'replicas: 2 ranks bitwise identical'
+    assert ranks[1]['stdout'] == '' and ranks[0]['step'] == 2
 
 
 @pytest.mark.parametrize('shard', [(0, 2), (1, 2), (2, 3)])

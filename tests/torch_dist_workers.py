@@ -385,3 +385,210 @@ def exclude_parts_runs(rank, world, group, cfgs):
         return out
     finally:
         ck._ef_quantize_plain = plain
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism: ring and Ulysses attention, the LM on the grid, the
+# sequence trainers at world>1
+# ---------------------------------------------------------------------------
+
+def _seq_shard(x, rank, world, axis):
+    """Rank ``rank``'s slice of axis ``axis`` of ``x`` (numpy), split in
+    ``world`` equal blocks."""
+    per = x.shape[axis] // world
+    return np.take(x, np.arange(rank * per, (rank + 1) * per), axis=axis)
+
+
+def ring_cases(rank, world, group, cfg):
+    """Ring and Ulysses attention over ``group`` on this rank's sequence
+    shard of ``cfg``'s ``[B, H, L, D]`` q/k/v and ``[B, L]`` key mask, one
+    run per entry of ``cfg['cases']`` (``name: (impl, causal, masked,
+    block_impl)``): the output and the q/k/v gradients of ``sum(out**2)``
+    over every rank (numpy, this rank's shards). Also: ``'rank0_loss'``,
+    the causal ring with only rank 0's ``sum(out**2)`` as the loss (every
+    gradient on the other ranks comes from blocks the causal mask skips
+    entirely), ``'all_masked'``, the ring with every key masked, and
+    ``'indivisible'``, Ulysses' error on ``H + 1`` heads."""
+    from kfac_pytorch_tpu_torch.parallel import ring_attention as ra
+    torch.set_num_threads(1)
+
+    def leaves(key, axis=2):
+        return torch.tensor(_seq_shard(cfg[key], rank, world, axis),
+                            requires_grad=True)
+
+    def run(impl, causal, mask, block, weight=1.0):
+        q, k, v = leaves('q'), leaves('k'), leaves('v')
+        fn = ra.ring_attention if impl == 'ring' else ra.ulysses_attention
+        out = fn(q, k, v, group, causal=causal, kv_mask=mask,
+                 block_impl=block)
+        ((out ** 2).sum() * weight).backward()
+        return [t.detach().numpy() for t in (out, q.grad, k.grad, v.grad)]
+
+    mask = torch.from_numpy(_seq_shard(cfg['mask'], rank, world, 1))
+    res = {name: run(impl, causal, mask if masked else None, block)
+           for name, (impl, causal, masked, block)
+           in cfg['cases'].items()}
+    res['rank0_loss'] = run('ring', True, None, 'pallas',
+                            1.0 if rank == 0 else 0.0)
+    res['all_masked'] = run('ring', True, torch.zeros_like(mask), 'auto')
+    q = leaves('q')
+    heads = torch.cat([q, q[:, :1]], dim=1)
+    try:
+        ra.ulysses_attention(heads, heads, heads, group)
+        res['indivisible'] = None
+    except ValueError as exc:
+        res['indivisible'] = str(exc)
+    return res
+
+
+def ring_cases_of(rank, world, group, cfgs):
+    """:func:`ring_cases` of each config of ``cfgs`` in turn."""
+    return [ring_cases(rank, world, group, cfg) for cfg in cfgs]
+
+
+def lm_grid_runs(rank, world, group, cfgs):
+    """``train_lm``'s step on the grid of each config (``cfg['argv']``:
+    its ``--data-devices``/``--seq-devices`` multiply to ``world``), from
+    the weights ``cfg['state_dict']`` on the global batches
+    ``cfg['batches']``: per config the losses, this rank's replica digest,
+    the norm of its error-feedback residual (0 without one), its factor
+    rows and, on rank 0, the final state dict (numpy). With
+    ``cfg['dense']`` also the sequence-sharded gradients of the first
+    batch, averaged over the group, beside the dense model's (world=1, no
+    group), both from the same weights, and the loss guard's verdicts."""
+    from kfac_pytorch_tpu_torch import train_lm, training
+    torch.set_num_threads(1)
+    out = {}
+    for name, cfg in cfgs.items():
+        tr = train_lm.Trainer(train_lm.parse_args(cfg['argv']), group=group)
+        sd = {k: torch.from_numpy(v) for k, v in cfg['state_dict'].items()}
+        tr.state.model.load_state_dict(sd)
+        losses = [float(tr.train_step(b)['loss']) for b in cfg['batches']]
+        err = tr.state.kfac_state.comm_err
+        out[name] = {
+            'losses': losses,
+            'digest': training.replica_digest(tr.state.model),
+            'residual': 0.0 if err is None else float(sum(
+                v.norm() for v in err.values())),
+            'factors': {k: v.numpy().copy() for k, v in
+                        tr.state.kfac_state.factors.items()},
+            'state_dict': ({k: v.numpy().copy() for k, v
+                            in tr.state.model.state_dict().items()}
+                           if rank == 0 else None)}
+        if cfg.get('dense'):
+            out[name].update(_dense_vs_sharded(tr, sd, cfg, group))
+    return out
+
+
+def _dense_vs_sharded(tr, sd, cfg, group):
+    """The grid trainer's model (from ``sd``) and its dense twin on the
+    first batch: the group-averaged sequence-sharded gradients and the
+    dense ones; whether ``capture.check_local_mean_loss`` passed the
+    sharded local loss (through the ring's own nodes) and a loss straight
+    out of Ulysses' swap, and refused one reduced over the world."""
+    import torch.distributed.nn.functional as dnn
+    from kfac_pytorch_tpu_torch import models, train_lm
+    from kfac_pytorch_tpu_torch.parallel import ring_attention as ra
+    a = tr.args
+    model = tr.state.model
+    model.load_state_dict(sd)
+    batch = tr.to_device(cfg['batches'][0])
+    model.zero_grad(set_to_none=True)
+    loss = train_lm.loss_fn(model(batch['input']), batch)
+    verdicts = {}
+
+    def passes(what, value):
+        try:
+            capture.check_local_mean_loss(value, None, group)
+            verdicts[what] = True
+        except ValueError:
+            verdicts[what] = False
+
+    passes('local', loss)
+    loss.backward()
+    sharded = coll.average_grads({k: p.grad for k, p in
+                                  model.named_parameters()}, group)
+    x = torch.randn(1, a.n_head, 4, 8, generator=torch.Generator()
+                    .manual_seed(coll.axis_index(group)), requires_grad=True)
+    passes('ulysses', ra.ulysses_attention(x, x, x, group).mean())
+    passes('world_reduced', dnn.all_reduce(loss.detach().requires_grad_()
+                                           * 1.0) / coll.axis_size(group))
+    dense = models.get_model(
+        'transformer_lm', vocab_size=tr.vocab, n_layer=a.n_layer,
+        n_head=a.n_head, d_model=a.d_model, max_len=a.seq_len)
+    dense.load_state_dict(sd)
+    full = {k: torch.as_tensor(v) for k, v in cfg['batches'][0].items()}
+    train_lm.loss_fn(dense(full['input']), full).backward()
+    return {'sharded_grads': {k: g.numpy() for k, g in sharded.items()},
+            'dense_grads': {k: p.grad.numpy() for k, p in
+                            dense.named_parameters()},
+            'guard': verdicts}
+
+
+def seq_world_runs(rank, world, group, cfgs):
+    """Each config's sequence trainer (``cfg['module']``, ``cfg['argv']``
+    at ``--num-devices world``) from the weights ``cfg['state_dict']`` if
+    given (with ``cfg['no_dropout']`` BERT's dropout set to 0), stepped on
+    ``cfg['batches']``: losses, replica digest, rank 0's final state dict.
+    With ``cfg['dropout_probe']``, the model's train-mode output on the
+    probe input twice under step 0's dropout stream and once under step
+    1's (it must differ between the ranks and repeat within one)."""
+    import importlib
+    from kfac_pytorch_tpu_torch import training
+    torch.set_num_threads(1)
+    out = {}
+    for name, cfg in cfgs.items():
+        mod = importlib.import_module(
+            f'kfac_pytorch_tpu_torch.{cfg["module"]}')
+        args = mod.parse_args(cfg['argv'] + ['--device', 'cpu',
+                                             '--num-devices', str(world)])
+        tr = mod.Trainer(args, group=group)
+        model = tr.state.model
+        if cfg.get('no_dropout'):
+            model.config.hidden_dropout_prob = 0.0
+            model.config.attention_probs_dropout_prob = 0.0
+        if cfg.get('state_dict') is not None:
+            model.load_state_dict({k: torch.from_numpy(v)
+                                   for k, v in cfg['state_dict'].items()})
+        res = {}
+        if cfg.get('dropout_probe') is not None:
+            x = training.model_input(model, training.to_device(
+                cfg['dropout_probe'], tr.device))
+            model.train()
+            probes = []
+            for step in (0, 0, 1):
+                with torch.no_grad(), training.dropout_rng(
+                        args.seed + 2, step, tr.rank, tr.device):
+                    probes.append(model(x).numpy())
+            res['probes'] = probes
+        res['losses'] = [float(tr.train_step(b)['loss'])
+                         for b in cfg['batches']]
+        res['digest'] = training.replica_digest(model)
+        res['state_dict'] = ({k: v.numpy().copy() for k, v in
+                              model.state_dict().items()}
+                             if rank == 0 else None)
+        out[name] = res
+    return out
+
+
+def trainer_main_run(rank, world, group, module, argv):
+    """``main`` of the trainer ``module`` with ``argv`` in ``group`` (on the
+    CPU): what it printed, its steps and its replica digest."""
+    import contextlib
+    import importlib
+    import io
+    from kfac_pytorch_tpu_torch import training
+    torch.set_num_threads(1)
+    mod = importlib.import_module(f'kfac_pytorch_tpu_torch.{module}')
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        tr = mod.main(argv + ['--device', 'cpu'], group=group)
+    return {'stdout': text.getvalue(), 'step': tr.state.step,
+            'digest': training.replica_digest(tr.state.model)}
+
+
+def trainer_main_runs(rank, world, group, runs):
+    """:func:`trainer_main_run` of each ``name: (module, argv)`` of
+    ``runs``, one after the other in the same group."""
+    return {name: trainer_main_run(rank, world, group, module, argv)
+            for name, (module, argv) in runs.items()}
