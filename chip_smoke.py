@@ -152,7 +152,24 @@ launches:
   grids (the ring's diagonal, full and skipped blocks at their offsets,
   Ulysses' whole-sequence block on half the heads), the skipped block's
   outputs exactly (-1e30, 0, 0) and zero gradients, bitwise over two
-  runs, timed beside ``scaled_dot_product_attention`` and the bound.
+  runs, timed beside ``scaled_dot_product_attention`` and the bound;
+- slice 17, last: observability through the trainers' ``main``. The
+  ImageNet trainer at full width (ResNet-50, bs32, 224 x 224, bf16, the
+  capture kernels; 9 steps, a decomposition every 4th) with ``--trace``,
+  ``--prom-file``, ``--log-dir`` and ``--tb-dir``: the run log's epoch
+  line carries a ``kfac_phase_ms=`` decomposition marginal with
+  ``step_mean``/``step_max``, the trace one ``kfac.step`` and one
+  ``kfac.dispatch`` span a step with that step's phases, the JSONL and
+  Prometheus exports a ``step_seconds`` histogram of one observation a
+  step, and the TensorBoard records pass their crc32c; the LM (K4/K5,
+  4 steps) with one ``kfac.dispatch`` span a step and the registry's
+  suffixes on its epoch line. Then the step split by the ``kfac.*``
+  profiler ranges (``torch.profiler``, host and device): ResNet-32 at a
+  decomposition step and a plain one, ResNet-50 at a plain one (its
+  decomposition marginal is the phase timers'), the LM at both; every K1
+  and K2 device kernel must lie inside a ``kfac.ComputeFactor`` range.
+  Last, ResNet-32's step median with no ranges, with the ranges, and
+  with the tracer and registry on, interleaved.
 
 After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
 fp32 and bf16 inputs, K4, K5a and K5b at every head dim), the tensor-core
@@ -655,12 +672,12 @@ def kernel_summary(rows, launches, names=tuple(KERNELS), suffix=''):
 # phases 4 and 5: the trainer, fused and against the unfused path
 # ---------------------------------------------------------------------------
 
-def make_trainer(capture_impl, extra=()):
+def make_trainer(capture_impl, extra=(), tracer=None):
     from kfac_pytorch_tpu_torch import train_cifar
     argv = ['--device', 'cuda'] + list(extra)
     if capture_impl is not None:
         argv += ['--kfac-capture-impl', capture_impl]
-    return train_cifar.Trainer(train_cifar.parse_args(argv))
+    return train_cifar.Trainer(train_cifar.parse_args(argv), tracer=tracer)
 
 
 def run_trainer():
@@ -4709,6 +4726,409 @@ def build_kernels():
           f'{time.perf_counter() - t0:.1f} s', flush=True)
 
 
+# ---------------------------------------------------------------------------
+# slice 17: observability (the run log, trace spans, the metrics registry,
+# the phase timers, profiler ranges and summaries) in the trainers
+# ---------------------------------------------------------------------------
+
+S17_DIR = os.path.join(OUT_DIR, 'slice17')
+#: the ImageNet trainer at full width (ResNet-50, bs32, 224 x 224, bf16,
+#: the capture kernels), one epoch of 9 steps with a decomposition every
+#: 4th, every observability flag on
+S17_R50 = ['--device', 'cuda', '--kfac-capture-impl', 'pallas',
+           '--synthetic-size', '288', '--epochs', '1', '--kfac-update-freq',
+           '4']
+S17_R50_STEPS = 9
+#: the LM at full width with every kernel on, a few steps
+S17_LM = ['--kfac-capture-impl', 'pallas', '--attn-impl', 'pallas',
+          '--epochs', '1', '--steps-per-epoch', '4']
+S17_LM_STEPS = 4
+#: the device kernels of K1 and K2 (``kernel_group``'s names)
+S17_CAPTURE = ('K1 conv_a_kernel', 'K1 split_reduce_kernel',
+               'K2 stat_tall_kernel', 'K2 stat_wide_kernel')
+#: ResNet-32 steps a round of the observability cost takes a setting
+S17_COST_STEPS = 10
+S17_COST_ROUNDS = 5
+
+
+class _Recorded:
+    """A trainer's step function that records ``last_phases`` after each
+    call (every other attribute is the step function's)."""
+
+    def __init__(self, fn, seen):
+        self._fn, self._seen = fn, seen
+
+    def __call__(self, *args, **kw):
+        out = self._fn(*args, **kw)
+        self._seen.append(tuple(self._fn.last_phases))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+
+@contextlib.contextmanager
+def recording_phases():
+    """Each step function the trainers build inside records its steps'
+    phases into the yielded list."""
+    from kfac_pytorch_tpu_torch import training
+    seen = []
+    build = training.build_train_step
+
+    def recorded(*args, **kw):
+        return _Recorded(build(*args, **kw), seen)
+    training.build_train_step = recorded
+    try:
+        yield seen
+    finally:
+        training.build_train_step = build
+
+
+def obs_flags(d):
+    """Every observability flag, writing under ``d``."""
+    return ['--log-dir', os.path.join(d, 'logs'),
+            '--trace', os.path.join(d, 'trace'),
+            '--prom-file', os.path.join(d, 'metrics.prom'),
+            '--tb-dir', os.path.join(d, 'tb')]
+
+
+def epoch_line(d, label):
+    """The run log's one file under ``d`` and its epoch line."""
+    import glob
+    logs = glob.glob(os.path.join(d, 'logs', '*.log'))
+    if len(logs) != 1:
+        fail(f'slice 17 {label}: run logs {logs}, expected one')
+    lines = [ln for ln in open(logs[0]).read().splitlines()
+             if ' epoch 0: ' in ln]
+    if len(lines) != 1:
+        fail(f'slice 17 {label}: {len(lines)} epoch lines in {logs[0]}')
+    return lines[0]
+
+
+def phase_ms(line):
+    """The ``kfac_phase_ms=`` suffix of an epoch line as a dict."""
+    import re
+    m = re.search(r' kfac_phase_ms=(\S+)', line)
+    if m is None:
+        return {}
+    return {k: float(v) for k, v in
+            (kv.rsplit(':', 1) for kv in m.group(1).split(','))}
+
+
+def trace_spans(d, name):
+    events = [json.loads(ln) for ln in
+              open(os.path.join(d, 'trace', 'trace-host0.jsonl'))]
+    return [e for e in events if e['name'] == name]
+
+
+def check_spans(d, name, seen, label):
+    """One ``name`` span a step, its phases the step's ``last_phases``."""
+    from kfac_pytorch_tpu_torch.obs.trace import taxonomy_phases
+    got = [e['args']['phases'] for e in trace_spans(d, name)]
+    want = [taxonomy_phases(p) for p in seen]
+    if got != want:
+        fail(f'slice 17 {label}: {name} spans carry phases {got}, the '
+             f'steps ran {want}')
+
+
+def prometheus(path):
+    """``{sample: value}`` of a Prometheus textfile."""
+    out = {}
+    for line in open(path).read().splitlines():
+        if not line.startswith('#'):
+            name, value = line.rsplit(' ', 1)
+            out[name] = float(value)
+    return out
+
+
+def tensorboard_records(d):
+    """The records of the one event file under ``d``; fails unless every
+    length and payload passes its crc32c."""
+    import struct
+    from kfac_pytorch_tpu_torch.utils import summary
+    names = os.listdir(d)
+    if len(names) != 1:
+        fail(f'slice 17: TensorBoard files {names}, expected one')
+    data = open(os.path.join(d, names[0]), 'rb').read()
+    i = n = 0
+    while i < len(data):
+        (ln,) = struct.unpack('<Q', data[i:i + 8])
+        (crc_len,) = struct.unpack('<I', data[i + 8:i + 12])
+        payload = data[i + 12:i + 12 + ln]
+        (crc,) = struct.unpack('<I', data[i + 12 + ln:i + 16 + ln])
+        if (crc_len != summary._masked_crc(data[i:i + 8])
+                or crc != summary._masked_crc(payload)):
+            fail(f'slice 17: TensorBoard record {n} fails its crc32c')
+        i += 16 + ln
+        n += 1
+    return n
+
+
+def s17_resnet50():
+    """``train_imagenet.main`` at full width with every observability flag:
+    the checks of the slice-17 phase on the ImageNet path. Returns the
+    trainer, its launches and the numbers."""
+    from kfac_pytorch_tpu_torch import train_imagenet
+    d = os.path.join(S17_DIR, 'resnet50')
+    shutil.rmtree(d, ignore_errors=True)
+    argv = S17_R50 + obs_flags(d) + ['--checkpoint-format',
+                                     os.path.join(d, 'ckpt')]
+    t0 = time.perf_counter()
+    with recording_phases() as seen:
+        reset_counts()
+        tr = train_imagenet.main(argv)
+        launches = read_counts()
+    seconds = time.perf_counter() - t0
+    label = 'resnet50'
+    if tr.state.step != S17_R50_STEPS or len(seen) != S17_R50_STEPS:
+        fail(f'slice 17 {label}: {tr.state.step} steps ({len(seen)} '
+             f'recorded), expected {S17_R50_STEPS}')
+    if not (launches['K1 conv_a'] and launches['K2 stat_rows']):
+        fail(f'slice 17 {label}: K1/K2 not launched: {launches}')
+    decomps = [i for i, p in enumerate(seen) if 'decomp' in p]
+    if decomps != list(range(0, S17_R50_STEPS, 4)):
+        fail(f'slice 17 {label}: decompositions on steps {decomps}')
+    line = epoch_line(d, label)
+    phases = phase_ms(line)
+    marginal = [k for k in phases if 'decomp' in k]
+    if not (marginal and {'step_mean', 'step_max'} <= set(phases)):
+        fail(f'slice 17 {label}: the epoch line has no decomposition '
+             f'marginal with step_mean/step_max: {line}')
+    check_spans(d, 'kfac.step', seen, label)
+    check_spans(d, 'kfac.dispatch', seen, label)
+    prom = prometheus(os.path.join(d, 'metrics.prom'))
+    rows = [json.loads(ln) for ln in
+            open(os.path.join(d, 'trace', 'metrics.jsonl'))]
+    counts = (prom.get('kfac_step_seconds_count'),
+              rows[-1]['metrics']['step_seconds']['count'])
+    if counts != (S17_R50_STEPS, S17_R50_STEPS):
+        fail(f'slice 17 {label}: step_seconds counts {counts} (textfile, '
+             f'JSONL), expected {S17_R50_STEPS}')
+    records = tensorboard_records(os.path.join(d, 'tb'))
+    shutil.rmtree(os.path.join(d, 'ckpt'), ignore_errors=True)
+    out = {'seconds': seconds, 'epoch_line': line, 'kfac_phase_ms': phases,
+           'decomposition_marginal': {k: phases[k] for k in marginal},
+           'phases': [list(p) for p in seen], 'launches': launches,
+           'tensorboard_records': records}
+    print(f'slice 17 resnet50 (train_imagenet.main, bs32 224 bf16, '
+          f'{S17_R50_STEPS} steps, --kfac-update-freq 4, every flag): '
+          f'{seconds:.1f} s, kfac_phase_ms {json.dumps(phases)}, launches '
+          f'{launches}, {records} TensorBoard records', flush=True)
+    return tr, launches, out
+
+
+def s17_lm():
+    """``train_lm.main`` at full width with K4/K5 and ``--trace``: one
+    ``kfac.dispatch`` span a step with its phases, and the registry's
+    suffixes on the epoch line."""
+    from kfac_pytorch_tpu_torch import train_lm
+    d = os.path.join(S17_DIR, 'lm')
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    with recording_phases() as seen:
+        reset_counts()
+        tr = train_lm.main(S17_LM + obs_flags(d))
+        launches = read_counts()
+    seconds = time.perf_counter() - t0
+    label = 'transformer_lm'
+    if tr.state.step != S17_LM_STEPS or len(seen) != S17_LM_STEPS:
+        fail(f'slice 17 {label}: {tr.state.step} steps, expected '
+             f'{S17_LM_STEPS}')
+    missing = [k for k in ('K2 stat_rows', 'K4 flash_fwd',
+                           'K5a flash_bwd_dq', 'K5b flash_bwd_dkv')
+               if not launches[k]]
+    if missing:
+        fail(f'slice 17 {label}: {missing} not launched: {launches}')
+    check_spans(d, 'kfac.dispatch', seen, label)
+    line = epoch_line(d, label)
+    # the registry renders the suffixes: '' for a clean epoch, and the
+    # line ends right after its time
+    from kfac_pytorch_tpu_torch import obs
+    reg = obs.metrics.Registry(process_id=0)
+    reg.counter('health/skipped')
+    if not line.endswith('s)' + reg.epoch_suffixes()):
+        fail(f'slice 17 {label}: epoch line {line!r}')
+    prom = prometheus(os.path.join(d, 'metrics.prom'))
+    if prom.get('kfac_health_skipped') != 0:
+        fail(f'slice 17 {label}: the registry export {prom}')
+    print(f'slice 17 transformer_lm (train_lm.main, K4/K5, {S17_LM_STEPS} '
+          f'steps, every flag): {seconds:.1f} s, launches {launches}',
+          flush=True)
+    return tr, launches, {'seconds': seconds, 'epoch_line': line,
+                          'phases': [list(p) for p in seen],
+                          'launches': launches}
+
+
+def range_profile(step, label):
+    """One ``step()`` under ``torch.profiler`` (host and device): the device
+    ms under each ``kfac.*`` range and its share of the step's device time
+    (``utils.profiling.range_device_ms``). Fails unless every K1 and K2
+    device kernel lies inside a ``kfac.ComputeFactor`` range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kfac_pytorch_tpu_torch.utils import profiling
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    path = os.path.join(S17_DIR, f'profile_{label.replace(" ", "_")}.json')
+    prof.export_chrome_trace(path)
+    ranges, total, kernels = profiling.range_device_ms(path)
+    os.remove(path)
+    outside = [(n, r) for n, _, r in kernels
+               if kernel_group(n) in S17_CAPTURE
+               and 'kfac.ComputeFactor' not in r]
+    n_capture = sum(kernel_group(n) in S17_CAPTURE for n, _, _ in kernels)
+    if DEVICE == 'cuda' and not n_capture:
+        fail(f'slice 17 profile ({label}): the trace holds no K1/K2 device '
+             f'kernel ({len(kernels)} device events, {total:.3f} ms)')
+    if outside:
+        fail(f'slice 17 profile ({label}): {len(outside)} of {n_capture} '
+             f'K1/K2 device kernels outside kfac.ComputeFactor, e.g. '
+             f'{outside[:3]}')
+    out = {'device_ms': total, 'ranges_ms': ranges,
+           'share': {k: v / total for k, v in ranges.items()} if total
+           else {}, 'capture_kernels': n_capture}
+    body = ', '.join(f'{k} {v:.3f} ms ({100 * out["share"][k]:.1f}%)'
+                     for k, v in sorted(ranges.items(), key=lambda kv:
+                                        -kv[1]))
+    print(f'slice 17 profile ({label}): device {total:.3f} ms, {body}; '
+          f'{n_capture} K1/K2 kernels, all in kfac.ComputeFactor',
+          flush=True)
+    return out
+
+
+def trainer_step(tr, batch):
+    """One step of trainer ``tr`` on a host batch, the loss read."""
+    def step():
+        float(tr.train_step(batch)['loss'])
+    return step
+
+
+def s17_profiles(r50, lm):
+    """The step split by ``kfac.*`` range on the card: ResNet-32 (CIFAR's
+    main path, ``eigen_dp``) at a decomposition step and a plain one, the
+    ResNet-50 ``r50`` at a plain step, the LM ``lm`` at a plain step and a
+    decomposition step."""
+    out = {}
+    tr = make_trainer('auto')
+    batches = iter(tr.train_loader.epoch())
+    freq = tr.precond.kfac_update_freq
+    for _ in range(freq):     # warm: the next step decomposes
+        tr.train_step(next(batches))
+    for name in ('decomposition', 'plain'):
+        out[f'resnet32 {name}'] = range_profile(
+            trainer_step(tr, next(batches)), f'resnet32 {name} step')
+        out[f'resnet32 {name}']['phases'] = list(tr.step_fn.last_phases)
+    del tr
+    release_memory()
+    batch = next(iter(r50.train_loader.epoch()))
+    while r50.state.step % r50.precond.kfac_update_freq == 0:
+        r50.train_step(batch)
+    out['resnet50 plain'] = range_profile(trainer_step(r50, batch),
+                                          'resnet50 plain step')
+    out['resnet50 plain']['phases'] = list(r50.step_fn.last_phases)
+    def lm_batches():
+        while True:
+            yield from lm.batches()
+    batches = lm_batches()
+    freq = lm.precond.kfac_update_freq
+    out['transformer_lm plain'] = range_profile(
+        trainer_step(lm, next(batches)), 'transformer_lm plain step')
+    out['transformer_lm plain']['phases'] = list(lm.step_fn.last_phases)
+    while lm.state.step % freq:
+        lm.train_step(next(batches))
+    out['transformer_lm decomposition'] = range_profile(
+        trainer_step(lm, next(batches)), 'transformer_lm decomposition step')
+    out['transformer_lm decomposition']['phases'] = list(
+        lm.step_fn.last_phases)
+    for key, prof in out.items():
+        want = 'decomp' in key.split()[1]
+        if ('decomp' in prof['phases']) != want:
+            fail(f'slice 17 profile ({key}): the step ran {prof["phases"]}')
+    return out
+
+
+def s17_obs_cost():
+    """The host cost of the observability on ResNet-32's step: the median
+    step ms with no profiler ranges and no tracer or registry ('bare'),
+    with the ranges ('ranges': the default), and with the ranges, the
+    trace spans, the phase timers, the health monitor's registry and the
+    step histogram ('obs': ``--trace``/``--prom-file`` on). Rounds of
+    bare, ranges, obs, obs, ranges, bare, each S17_COST_STEPS steps
+    starting at the same step of the decomposition cycle."""
+    from kfac_pytorch_tpu_torch import obs, preconditioner, utils
+    d = os.path.join(S17_DIR, 'cost')
+    shutil.rmtree(d, ignore_errors=True)
+    tracer, reg = obs.setup_trainer(trace_dir=os.path.join(d, 'trace'),
+                                    prom_file=os.path.join(d, 'm.prom'))
+    on = make_trainer('auto', tracer=tracer)
+    off = make_trainer('auto')
+    timers = utils.PhaseTimers(tracer=tracer, registry=reg, histogram=True)
+    monitor = utils.HealthMonitor(state=on.state, registry=reg)
+    batches = take_batches(on.train_loader, S17_COST_STEPS)
+    ranges = preconditioner._range
+    times = {'bare': [], 'ranges': [], 'obs': []}
+
+    def window(name):
+        tr = on if name == 'obs' else off
+        preconditioner._range = (contextlib.nullcontext if name == 'bare'
+                                 else ranges)
+        try:
+            for b in batches:
+                t0 = time.perf_counter()
+                m = tr.train_step(b)
+                float(m['loss'])
+                if name == 'obs':
+                    timers.record(tr.step_fn.last_phases,
+                                  time.perf_counter() - t0)
+                    monitor.update(m, step=tr.state.step - 1)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            preconditioner._range = ranges
+    for tr in (on, off):     # warm, and at a multiple of the cadence
+        for b in batches:
+            tr.train_step(b)
+    for _ in range(S17_COST_ROUNDS):
+        for name in ('bare', 'ranges', 'obs', 'obs', 'ranges', 'bare'):
+            window(name)
+    reg.epoch_suffixes()
+    reg.export(step=0)
+    tracer.flush()
+    reg.close()
+    obs.trace.uninstall()
+    out = {k: float(np.median(v)) for k, v in times.items()}
+    out['steps_each'] = len(times['obs'])
+    print(f'slice 17 observability cost (resnet32 bs128 eigen_dp, median '
+          f'step ms over {out["steps_each"]} steps each, interleaved): '
+          f'bare {out["bare"]:.3f}, ranges {out["ranges"]:.3f}, obs '
+          f'{out["obs"]:.3f}', flush=True)
+    del on, off
+    release_memory()
+    return out
+
+
+def run_slice17():
+    """The slice-17 phase: the ImageNet and LM trainers' main paths with
+    every observability flag (:func:`s17_resnet50`, :func:`s17_lm`), the
+    step split by profiler range (:func:`s17_profiles`) and the
+    observability's host cost (:func:`s17_obs_cost`). Returns the
+    launches by path and the numbers."""
+    t0 = time.perf_counter()
+    out = {}
+    r50, r50_launches, out['resnet50'] = s17_resnet50()
+    lm, lm_launches, out['transformer_lm'] = s17_lm()
+    out['profiles'] = s17_profiles(r50, lm)
+    del r50, lm
+    release_memory()
+    out['obs_cost'] = s17_obs_cost()
+    out['seconds'] = time.perf_counter() - t0
+    print(f'slice 17 phase: {out["seconds"]:.1f} s', flush=True)
+    return {'resnet50_slice17': r50_launches,
+            'transformer_lm_slice17': lm_launches}, out
+
+
 def main():
     if not torch.cuda.is_available():
         fail('no CUDA device')
@@ -4802,12 +5222,19 @@ def main():
 
     # slice 15: the LM on data x seq grids, the sequence trainers at world 2
     s15_kernels, slice15 = run_slice15()
+    release_memory()
 
-    kernels = kernel_summary(rows, {'resnet32': launches,
-                                    'transformer_lm': lm_launches,
-                                    **w2_launches, **s12_launches})
+    # slice 17: the trainers' observability, the step split by range
+    s17_launches, slice17 = run_slice17()
+
+    kernels = kernel_summary(rows, {
+        'resnet32': launches, 'transformer_lm': lm_launches, **w2_launches,
+        **s12_launches, 'transformer_lm_slice17':
+        s17_launches['transformer_lm_slice17']})
     kernels += kernel_summary(r50_rows, {'resnet50': r50_launches,
-                                         'resnet50_slice12_world2': s12_r50},
+                                         'resnet50_slice12_world2': s12_r50,
+                                         'resnet50_slice17':
+                                         s17_launches['resnet50_slice17']},
                               names=('K1 conv_a', 'K2 stat_rows'),
                               suffix=' (resnet50 bf16)')
     for name, (_, _, _, dtype) in S13_NETS.items():
@@ -4838,7 +5265,7 @@ def main():
                    'world2': w2, 'nccl': nccl, 'slice9': slice9,
                    'slice10': slice10, 'slice12': slice12,
                    'slice13': slice13, 'slice14': slice14,
-                   'slice15': slice15,
+                   'slice15': slice15, 'slice17': slice17,
                    'resnet50': {'decomposition': decomp,
                                 'resume': {k: v for k, v in resume.items()
                                            if k != 'differ'},

@@ -161,7 +161,7 @@ def update_factors(plan, factors_local, stats_stacked, factor_decay,
         stats = stats_stacked[key]
         if stats_reduce == 'pmean':
             err_in = None if comm_err is None else comm_err[key]
-            with coll.named_scope('kfac.CommunicateFactor'):
+            with coll.named_scope('kfac.CommunicateFactor', profile=True):
                 local, err = coll.pmean_scatter_ef(
                     stats, group, comm_precision, err_in,
                     fused=(capture_impl == 'pallas'))
@@ -708,7 +708,8 @@ def update_ekfac_scales(plan, decomp, acts, gs, batch_averaged,
                                         batch_averaged, pg, qa, qg))
         s_new = torch.stack(member)
         if stats_reduce == 'pmean':
-            with coll.named_scope('kfac.CommunicateFactor.scales'):
+            with coll.named_scope('kfac.CommunicateFactor.scales',
+                                  profile=True):
                 s_new = coll.pmean_wire(s_new, group, comm_precision)
         new[f'g{gi}'] = ops.update_running_avg(s_new, scales_prev[f'g{gi}'],
                                                factor_decay)

@@ -62,11 +62,18 @@ def axis_index(group):
 
 
 @contextlib.contextmanager
-def named_scope(name):
-    """Tag the collectives run inside with ``name`` in :func:`ledger`."""
+def named_scope(name, profile=False):
+    """Tag the collectives run inside with ``name`` in :func:`ledger`;
+    ``profile=True`` also opens ``torch.profiler.record_function(name)``,
+    the profiler range of the JAX package's ``jax.named_scope`` of that
+    name."""
     _scopes.append(name)
     try:
-        yield
+        if profile:
+            with torch.profiler.record_function(name):
+                yield
+        else:
+            yield
     finally:
         _scopes.pop()
 
@@ -406,5 +413,5 @@ def decomp_exchange_gather(x, group, comm_precision='fp32'):
     under the ``kfac.DecompComm`` scope, so :func:`ledger` counts both legs
     (the damped cohort out, the results back) under that name, as
     ``FactorPlan.comm_volume(decomp_shard=...)`` prices them."""
-    with named_scope('kfac.DecompComm'):
+    with named_scope('kfac.DecompComm', profile=True):
         return all_gather_rows_compressed(x, group, comm_precision)

@@ -57,6 +57,12 @@ from kfac_pytorch_tpu_torch.utils.platform import resolve_device
 
 log = logging.getLogger(__name__)
 
+#: the profiler range of a K-FAC phase: each ``with _range(name)`` in
+#: :meth:`KFAC.step` sits where the JAX package opens ``jax.named_scope``
+#: of that name, so a ``torch.profiler`` trace splits the step as an
+#: xprof trace of the JAX step does
+_range = torch.profiler.record_function
+
 #: capture-kernel ladder, the JAX package's values: 'xla' is the
 #: ops/factors.py path, 'pallas' the fused capture kernels (the name is
 #: kept from the JAX package; in the port it means the hand-written CUDA
@@ -843,29 +849,35 @@ class KFAC:
                     and plan.num_devices == 1):
                 # world=1 local stats: capture -> factor GEMM -> EMA is one
                 # fused kernel per factor row
-                factors = engine.update_factors_fused(
-                    plan, factors, acts, gs, self.batch_averaged,
-                    self.factor_decay)
+                with _range('kfac.ComputeFactor'):
+                    factors = engine.update_factors_fused(
+                        plan, factors, acts, gs, self.batch_averaged,
+                        self.factor_decay)
             else:
-                a_list, g_list = engine.compute_layer_stats(
-                    plan, acts, gs, self.batch_averaged,
-                    capture_impl=cap_impl)
-                stats = engine.stack_stats(plan, a_list, g_list)
-                factors, comm_err = engine.update_factors(
-                    plan, factors, stats, self.factor_decay, reduce, group,
-                    comm_precision=self.comm_precision, comm_err=comm_err,
-                    capture_impl=cap_impl)
+                with _range('kfac.ComputeFactor'):
+                    a_list, g_list = engine.compute_layer_stats(
+                        plan, acts, gs, self.batch_averaged,
+                        capture_impl=cap_impl)
+                    stats = engine.stack_stats(plan, a_list, g_list)
+                # the reduce inside opens its own kfac.CommunicateFactor
+                with _range('kfac.UpdateFactors'):
+                    factors, comm_err = engine.update_factors(
+                        plan, factors, stats, self.factor_decay, reduce,
+                        group, comm_precision=self.comm_precision,
+                        comm_err=comm_err, capture_impl=cap_impl)
             if self.health is not None and comm_err is not None:
                 # a non-finite residual row resets to zero (feedback is a
                 # correction, never load-bearing)
-                comm_err = engine.where_finite_rows(
-                    comm_err, {k: torch.zeros_like(v)
-                               for k, v in comm_err.items()})
+                with _range('kfac.HealthGuard.comm_err'):
+                    comm_err = engine.where_finite_rows(
+                        comm_err, {k: torch.zeros_like(v)
+                                   for k, v in comm_err.items()})
             if self.health is not None:
                 # a non-finite EMA row keeps the last good factor; a row
                 # whose stored value is corrupt too restarts from identity
-                factors = engine.where_finite_rows(factors, state.factors,
-                                                   reinit_identity=True)
+                with _range('kfac.HealthGuard.factors'):
+                    factors = engine.where_finite_rows(
+                        factors, state.factors, reinit_identity=True)
 
         if factors_only or self.exclude_compute_inverse:
             # no decomposition yet, or the ComputeInverse ablation: the
@@ -886,12 +898,15 @@ class KFAC:
                 scales_prev = self._zero_scales(dev)
         if update_inverse and self.method == 'eigh' and not update_basis:
             # the basis is kept, so the stored moments stay as they are
-            refreshed = engine.refresh_decomposition(
-                plan, factors, decomp, self.eps, group, self.comm_mode,
-                communicate=communicate, comm_precision=self.comm_precision)
+            with _range('kfac.ComputeInverse.refresh'):
+                refreshed = engine.refresh_decomposition(
+                    plan, factors, decomp, self.eps, group, self.comm_mode,
+                    communicate=communicate,
+                    comm_precision=self.comm_precision)
             if self.health is not None:
-                refreshed = engine.guard_decomposition(refreshed, decomp,
-                                                       'eigh')
+                with _range('kfac.HealthGuard.decomp'):
+                    refreshed = engine.guard_decomposition(
+                        refreshed, decomp, 'eigh')
             decomp = refreshed
         elif update_inverse:
             basis_local = invs_prev = None
@@ -902,48 +917,57 @@ class KFAC:
                 else:
                     invs_prev = engine.local_invs(plan, decomp, group,
                                                   self.comm_mode)
-            decomp_local = engine.compute_decomposition(
-                plan, factors, damping, self.method, self.eps, group,
-                basis_local=basis_local, warm_sweeps=self.warm_sweeps,
-                invs_prev_local=invs_prev, impl=impl)
+            with _range('kfac.ComputeInverse'):
+                decomp_local = engine.compute_decomposition(
+                    plan, factors, damping, self.method, self.eps, group,
+                    basis_local=basis_local, warm_sweeps=self.warm_sweeps,
+                    invs_prev_local=invs_prev, impl=impl)
             if self.health is not None:
-                decomp_local = engine.guard_decomposition(
-                    decomp_local,
-                    engine.local_decomposition(plan, decomp, group,
-                                               self.comm_mode, self.method),
-                    self.method)
+                with _range('kfac.HealthGuard.decomp'):
+                    decomp_local = engine.guard_decomposition(
+                        decomp_local,
+                        engine.local_decomposition(plan, decomp, group,
+                                                   self.comm_mode,
+                                                   self.method),
+                        self.method)
             if self.comm_mode == 'inverse':
-                new_decomp = engine.gather_decomposition(
-                    plan, decomp_local, group, communicate=communicate,
-                    comm_precision=self.comm_precision)
+                with _range('kfac.CommunicateInverse'):
+                    new_decomp = engine.gather_decomposition(
+                        plan, decomp_local, group, communicate=communicate,
+                        comm_precision=self.comm_precision)
                 if self.ekfac:
                     # the moments live in the old basis: carry them over
-                    scales_prev = engine.rotate_ekfac_scales(
-                        plan, scales_prev, decomp, new_decomp)
+                    with _range('kfac.EkfacScales.rotate'):
+                        scales_prev = engine.rotate_ekfac_scales(
+                            plan, scales_prev, decomp, new_decomp)
                 decomp = new_decomp
             else:
                 if self.ekfac:
-                    scales_prev = engine.rotate_ekfac_scales_local(
-                        plan, scales_prev,
-                        engine.local_evecs(plan, decomp, group, 'pred'),
-                        decomp_local['evecs'], group)
+                    with _range('kfac.EkfacScales.rotate'):
+                        scales_prev = engine.rotate_ekfac_scales_local(
+                            plan, scales_prev,
+                            engine.local_evecs(plan, decomp, group, 'pred'),
+                            decomp_local['evecs'], group)
                 decomp = decomp_local
         if self.ekfac:
             decomp = {**decomp, 'scales': scales_prev}
             if (update_factors and acts is not None
                     and not self.exclude_compute_factor):
-                if self.comm_mode == 'pred':
-                    scales = engine.update_ekfac_scales_local(
-                        plan, decomp, acts, gs, self.batch_averaged,
-                        scales_prev, self.factor_decay, group)
-                else:
-                    scales = engine.update_ekfac_scales(
-                        plan, decomp, acts, gs, self.batch_averaged,
-                        scales_prev, self.factor_decay, reduce, group,
-                        comm_precision=self.comm_precision)
+                with _range('kfac.EkfacScales'):
+                    if self.comm_mode == 'pred':
+                        scales = engine.update_ekfac_scales_local(
+                            plan, decomp, acts, gs, self.batch_averaged,
+                            scales_prev, self.factor_decay, group)
+                    else:
+                        scales = engine.update_ekfac_scales(
+                            plan, decomp, acts, gs, self.batch_averaged,
+                            scales_prev, self.factor_decay, reduce, group,
+                            comm_precision=self.comm_precision)
                 if self.health is not None:
                     # a non-finite moment row keeps the (rotated) previous
-                    scales = engine.where_finite_rows(scales, scales_prev)
+                    with _range('kfac.HealthGuard.scales'):
+                        scales = engine.where_finite_rows(scales,
+                                                          scales_prev)
                 decomp['scales'] = scales
         pred_decomp = decomp
         if prefetch and update_inverse:
@@ -960,38 +984,46 @@ class KFAC:
                 shard = self._shard_plan
                 assert shard is not None, \
                     'decomp_shard requires setup() (rebase_cohorts)'
-                shard_new = engine.compute_shard_decomposition(
-                    plan, cohorts, shard, factors, cohort_idx, damping,
-                    self.method, self.eps, group, impl=impl,
-                    decomp_prev=decomp, comm_mode=self.comm_mode,
-                    warm_sweeps=self.warm_sweeps,
-                    comm_precision=self.comm_precision)
-                decomp = engine.merge_shard_decomposition(
-                    plan, shard, decomp, shard_new, cohort_idx, group,
-                    self.comm_mode, self.method, guard=guard,
-                    comm_precision=self.comm_precision)
+                # the exchange's two gathers open kfac.DecompComm
+                with _range('kfac.ComputeInverse.stagger'):
+                    shard_new = engine.compute_shard_decomposition(
+                        plan, cohorts, shard, factors, cohort_idx, damping,
+                        self.method, self.eps, group, impl=impl,
+                        decomp_prev=decomp, comm_mode=self.comm_mode,
+                        warm_sweeps=self.warm_sweeps,
+                        comm_precision=self.comm_precision)
+                with _range('kfac.CommunicateInverse.stagger'):
+                    decomp = engine.merge_shard_decomposition(
+                        plan, shard, decomp, shard_new, cohort_idx, group,
+                        self.comm_mode, self.method, guard=guard,
+                        comm_precision=self.comm_precision)
             else:
-                cohort_new = engine.compute_cohort_decomposition(
-                    plan, cohorts, factors, cohort_idx, damping,
-                    self.method, self.eps, group, impl=impl,
-                    decomp_prev=decomp if self.warm_impl else None,
-                    comm_mode=self.comm_mode, warm_sweeps=self.warm_sweeps)
-                decomp = engine.merge_cohort_decomposition(
-                    plan, cohorts, decomp, cohort_new, cohort_idx, group,
-                    self.comm_mode, self.method, communicate=communicate,
-                    guard=guard, comm_precision=self.comm_precision)
+                with _range('kfac.ComputeInverse.stagger'):
+                    cohort_new = engine.compute_cohort_decomposition(
+                        plan, cohorts, factors, cohort_idx, damping,
+                        self.method, self.eps, group, impl=impl,
+                        decomp_prev=decomp if self.warm_impl else None,
+                        comm_mode=self.comm_mode,
+                        warm_sweeps=self.warm_sweeps)
+                with _range('kfac.CommunicateInverse.stagger'):
+                    decomp = engine.merge_cohort_decomposition(
+                        plan, cohorts, decomp, cohort_new, cohort_idx,
+                        group, self.comm_mode, self.method,
+                        communicate=communicate, guard=guard,
+                        comm_precision=self.comm_precision)
 
         grad_mats = [engine.layer_grad_matrix(m, grads) for m in plan.metas]
         scales = pred_decomp.get('scales') if self.ekfac else None
-        if self.comm_mode == 'inverse':
-            preds = engine.compute_pred_replicated(
-                plan, pred_decomp, grad_mats, damping, self.method,
-                scales=scales)
-        else:
-            preds = engine.compute_pred_local(
-                plan, pred_decomp, grad_mats, damping, self.method, group,
-                communicate=communicate, comm_precision=self.comm_precision,
-                scales=scales)
+        with _range('kfac.Precondition'):
+            if self.comm_mode == 'inverse':
+                preds = engine.compute_pred_replicated(
+                    plan, pred_decomp, grad_mats, damping, self.method,
+                    scales=scales)
+            else:
+                preds = engine.compute_pred_local(
+                    plan, pred_decomp, grad_mats, damping, self.method,
+                    group, communicate=communicate,
+                    comm_precision=self.comm_precision, scales=scales)
         new_grads = engine.preconditioned_grads(
             plan, grads, grad_mats, preds, lr, self.kl_clip,
             skip_clip=not communicate)

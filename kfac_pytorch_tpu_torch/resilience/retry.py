@@ -19,6 +19,8 @@ import random
 import time
 from typing import Callable, Optional, Tuple
 
+from kfac_pytorch_tpu_torch import resilience as _res
+
 log = logging.getLogger(__name__)
 
 
@@ -78,12 +80,14 @@ class RetryPolicy:
 
 
 def call_with_retry(fn, *, policy=None, clock=None, rng=None,
-                    on_retry: Optional[Callable] = None, label=None):
+                    on_retry: Optional[Callable] = None, label=None,
+                    counter='io_retries'):
     """``fn()`` under ``policy``; once the attempts (or the deadline) are
     spent the last failure is re-raised as it was, so a caller's
     ``except OSError`` still holds. ``on_retry(exc, attempt, delay)``
     runs before each wait; a :class:`RetryError` from it stops the
-    retries (the original failure propagates). Each retry is logged."""
+    retries (the original failure propagates). Each retry is logged and
+    bumps ``resilience.counters`` under ``counter``."""
     policy = policy or RetryPolicy()
     clock = clock or REAL_CLOCK
     rng = rng or random
@@ -98,6 +102,7 @@ def call_with_retry(fn, *, policy=None, clock=None, rng=None,
                     clock.monotonic() + delay - start > policy.deadline)
             if last or over:
                 raise
+            _res.counters.bump(counter)
             log.warning('retry %d/%d%s in %.2fs after: %s',
                         attempt + 1, policy.attempts - 1,
                         f' ({label})' if label else '', delay, e)
@@ -112,13 +117,14 @@ def call_with_retry(fn, *, policy=None, clock=None, rng=None,
 
 
 def resumable_iter(make_iter, *, policy=None, clock=None, rng=None,
-                   label=None):
+                   label=None, counter='data_retries'):
     """A generator over ``make_iter()`` that survives a transient failure
     of its producer: the iterator is rebuilt and fast-forwarded past the
     items already delivered. Correct only when ``make_iter()`` replays the
     same sequence each call (``data.Loader.epoch`` draws its epoch seed
     once, up front, for this). The retry budget is the iterator's whole
-    lifetime's, not an item's."""
+    lifetime's, not an item's. Each retry bumps ``resilience.counters``
+    under ``counter``."""
     policy = policy or RetryPolicy()
     clock = clock or REAL_CLOCK
     rng = rng or random
@@ -146,6 +152,7 @@ def resumable_iter(make_iter, *, policy=None, clock=None, rng=None,
                         clock.monotonic() + delay - start > policy.deadline)
                 if failures >= policy.attempts or over:
                     raise
+                _res.counters.bump(counter)
                 log.warning(
                     'next-batch retry %d/%d%s in %.2fs (rebuilding the '
                     'iterator, skipping %d delivered batches) after: %s',

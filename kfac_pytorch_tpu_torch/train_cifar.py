@@ -31,8 +31,11 @@ one the state took (the JAX trainer replays an interrupted epoch from its
 start). ``--io-retries`` retries checkpoint I/O and the next batch;
 ``--speed`` prints images/s of warm steps and exits.
 ``--exclude-parts`` leaves phases out of every K-FAC step (``KFAC``'s
-``exclude_parts``: the reference's time breakdown by subtraction). A
-world change::
+``exclude_parts``: the reference's time breakdown by subtraction).
+``--log-dir``, ``--trace``, ``--prom-file`` and ``--tb-dir``: the run
+log, trace spans and metric exports of the ImageNet trainer
+(``train_imagenet.observed``), with each step's time split by phase
+set on the epoch line (`` kfac_phase_ms=``). A world change::
 
   python -m kfac_pytorch_tpu_torch.launch --nproc 2 -- train_cifar \\
       --checkpoint-dir D --epochs 2
@@ -51,10 +54,13 @@ from kfac_pytorch_tpu_torch import data as kdata
 from kfac_pytorch_tpu_torch import models, training, utils
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
 from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
-                                                   init_world, io_retry,
-                                                   kfac_for, resume_from,
-                                                   speed, stamp_world)
-from kfac_pytorch_tpu_torch.utils import checkpoint
+                                                   add_obs_flags, end_epoch,
+                                                   init_world,
+                                                   io_retry, kfac_for,
+                                                   resume_from, say,
+                                                   observed, speed,
+                                                   stamp_world)
+from kfac_pytorch_tpu_torch.utils import checkpoint, summary
 
 
 def parse_args(argv=None):
@@ -109,6 +115,7 @@ def parse_args(argv=None):
                    help='retry budget for checkpoint I/O and next-batch '
                         'transients (0 = fail fast)')
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
+    add_obs_flags(p)
     return p.parse_args(argv)
 
 
@@ -127,8 +134,11 @@ class Trainer:
     from the launcher's environment; the rank runs on ``cuda:local_rank``
     (``LOCAL_RANK`` unless given)."""
 
-    def __init__(self, args, group=None, local_rank=None):
+    log = None
+
+    def __init__(self, args, group=None, local_rank=None, tracer=None):
         self.args = args
+        self.tracer = tracer
         world = args.num_devices
         self.group, self.rank, self.device = init_world(args, group,
                                                         local_rank)
@@ -172,12 +182,10 @@ class Trainer:
         self.step_fn = training.build_train_step(
             model, self.tx, self.precond, loss_fn,
             fisher_type=args.kfac_type, fisher_seed=args.seed,
-            group=self.group)
+            group=self.group, tracer=tracer)
 
     def say(self, *args, **kw):
-        """``print`` on rank 0."""
-        if self.rank == 0:
-            print(*args, flush=True, **kw)
+        say(self, *args, **kw)
 
     def resume(self):
         """Resume from ``--checkpoint-dir`` when ``--resume`` is given
@@ -242,83 +250,105 @@ def main(argv=None, group=None):
     one; else the launcher's group at world>1); returns it, its final
     state in ``.state``."""
     args = parse_args(argv)
-    tr = Trainer(args, group=group)
-    start_epoch, done = tr.resume()
-    if args.speed:
-        speed(tr)
-        return tr
-    ckdir = args.checkpoint_dir
-    if ckdir:
-        # the world stamp routes a relaunch at another world through the
-        # reshard; the lineage fences a fork's straggler out
-        stamp_world(tr, ckdir)
-    guard = checkpoint.PreemptionGuard(group=tr.group)
-    # skipped batches and ladder climbs as WARNINGs at their step, and a
-    # per-epoch suffix
-    monitor = utils.HealthMonitor(state=tr.state)
-    try:
-        for epoch in range(start_epoch, args.epochs):
-            t0 = time.time()
-            total = count = 0.0
-            with tr.train_loader.epoch(retry=tr.io_retry) as batches:
-                for batch in batches:
-                    if done:    # taken before the resumed checkpoint
-                        done -= 1
-                        continue
-                    if guard.should_stop(tr.state.step):
-                        break
-                    m = tr.train_step(batch)
-                    total += float(m['loss']) * len(batch['label'])
-                    count += len(batch['label'])
-                    monitor.update(m, step=tr.state.step - 1)
-            if guard.should_stop():
-                # tagged with the last completed epoch; the resume goes on
-                # from the step the state holds
-                tag = max(epoch - 1, 0)
-                if ckdir:
-                    tr.save(tag)
-                    tr.say(f'preempted in epoch {epoch} (step '
-                           f'{tr.state.step}): state saved as '
-                           f'checkpoint-{tag}, exiting')
-                else:
-                    tr.say(f'preempted in epoch {epoch} (step '
-                           f'{tr.state.step}): no --checkpoint-dir '
-                           'configured, state lost')
-                return tr
-            vl, va = tr.evaluate()
-            tr.say(f'epoch {epoch}: train_loss {total / max(count, 1):.4f} '
-                   f'val_loss {vl:.4f} val_acc {va:.4f} '
-                   f'({time.time() - t0:.1f}s)'
-                   f'{utils.health_suffix(monitor.epoch_flush())}')
-            if tr.scheduler is not None:
-                tr.scheduler.step(epoch + 1)
-            if ckdir:
-                # the write hides behind the next epoch's compute
-                tr.save(epoch, block=False)
-                checkpoint.prune_checkpoints(ckdir, args.keep_checkpoints)
-            if guard.should_stop():
-                checkpoint.wait_for_checkpoints()
-                tr.say(f'preempted after epoch {epoch}: exiting')
-                return tr
-        checkpoint.wait_for_checkpoints()
+    with observed(
+            args, args.dataset, args.model, f'kfac{args.kfac_update_freq}',
+            args.kfac_name,
+            args.kfac_type if args.kfac_type != 'Femp' else None,
+            f'basis{args.kfac_basis_update_freq}'
+            if args.kfac_basis_update_freq else None,
+            'warm' if args.kfac_warm_start else None,
+            'stagger' if args.kfac_stagger else None,
+            f'bs{args.batch_size}', f'nd{args.num_devices}') as (
+                log, tracer, reg, tb):
+        tr = Trainer(args, group=group, tracer=tracer)
+        tr.log = log
+        start_epoch, done = tr.resume()
+        if args.speed:
+            speed(tr)
+            return tr
+        ckdir = args.checkpoint_dir
         if ckdir:
-            checkpoint.prune_checkpoints(ckdir, args.keep_checkpoints)
-        if tr.world > 1:
-            if tr.precond is not None and \
-                    tr.precond.exclude_communicate_inverse:
-                # each rank preconditions only the layers it owns
-                tr.say('replicas: not compared (the CommunicateInverse '
-                       'ablation updates each rank\'s own layers)')
-            elif not tr.replicas_agree():
-                raise RuntimeError('the ranks\' parameters and buffers '
-                                   'differ')
-            else:
-                tr.say(f'replicas: {tr.world} ranks bitwise identical')
-            if group is None:
-                torch.distributed.destroy_process_group()
-    finally:
-        guard.uninstall()
-    return tr
+            # the world stamp routes a relaunch at another world through the
+            # reshard; the lineage fences a fork's straggler out
+            stamp_world(tr, ckdir)
+        guard = checkpoint.PreemptionGuard(group=tr.group)
+        # skipped batches and ladder climbs as WARNINGs at their step, and a
+        # per-epoch suffix
+        monitor = utils.HealthMonitor(log, state=tr.state, registry=reg)
+        # each step's wall time by phase set (the epoch line's kfac_phase_ms=);
+        # with a tracer every step is also a kfac.step span
+        timers = utils.PhaseTimers(tracer=tracer, registry=reg, histogram=True)
+        lr_now = args.base_lr
+        try:
+            for epoch in range(start_epoch, args.epochs):
+                t0 = time.time()
+                tm = utils.Metric('train_loss', group=tr.group)
+                with tr.train_loader.epoch(retry=tr.io_retry) as batches:
+                    for batch in batches:
+                        if done:    # taken before the resumed checkpoint
+                            done -= 1
+                            continue
+                        if guard.should_stop(tr.state.step):
+                            break
+                        lr_now = tr.lr_fn(tr.state.step)
+                        t_step = time.perf_counter()
+                        m = tr.train_step(batch)
+                        # the loss read waits for the step: the wall time
+                        # covers its dispatch and its device work
+                        tm.update(m['loss'], len(batch['label']))
+                        timers.record(tr.step_fn.last_phases,
+                                      time.perf_counter() - t_step)
+                        monitor.update(m, step=tr.state.step - 1)
+                if guard.should_stop():
+                    # tagged with the last completed epoch; the resume goes on
+                    # from the step the state holds
+                    tag = max(epoch - 1, 0)
+                    if ckdir:
+                        tr.save(tag)
+                        tr.say(f'preempted in epoch {epoch} (step '
+                               f'{tr.state.step}): state saved as '
+                               f'checkpoint-{tag}, exiting')
+                    else:
+                        tr.say(f'preempted in epoch {epoch} (step '
+                               f'{tr.state.step}): no --checkpoint-dir '
+                               'configured, state lost')
+                    return tr
+                vl, va = tr.evaluate()
+                tl = tm.sync().avg
+                end_epoch(tr, f'epoch {epoch}: train_loss {tl:.4f} val_loss '
+                              f'{vl:.4f} val_acc {va:.4f} '
+                              f'({time.time() - t0:.1f}s)',
+                          epoch, monitor, reg, tracer)
+                summary.log_epoch_scalars(tb, epoch, tl, lr_now, vl, va)
+                if tr.scheduler is not None:
+                    tr.scheduler.step(epoch + 1)
+                if ckdir:
+                    # the write hides behind the next epoch's compute
+                    tr.save(epoch, block=False)
+                    checkpoint.prune_checkpoints(ckdir, args.keep_checkpoints)
+                if guard.should_stop():
+                    checkpoint.wait_for_checkpoints()
+                    tr.say(f'preempted after epoch {epoch}: exiting')
+                    return tr
+            checkpoint.wait_for_checkpoints()
+            if ckdir:
+                checkpoint.prune_checkpoints(ckdir, args.keep_checkpoints)
+            if tr.world > 1:
+                if tr.precond is not None and \
+                        tr.precond.exclude_communicate_inverse:
+                    # each rank preconditions only the layers it owns
+                    tr.say('replicas: not compared (the CommunicateInverse '
+                           'ablation updates each rank\'s own layers)')
+                elif not tr.replicas_agree():
+                    raise RuntimeError('the ranks\' parameters and buffers '
+                                       'differ')
+                else:
+                    tr.say(f'replicas: {tr.world} ranks bitwise identical')
+                if group is None:
+                    torch.distributed.destroy_process_group()
+        finally:
+            guard.uninstall()
+        return tr
 
 
 if __name__ == '__main__':

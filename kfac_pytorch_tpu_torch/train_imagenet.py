@@ -30,30 +30,37 @@ batch. ``--exclude-parts`` leaves phases out of every K-FAC step
 (``KFAC``'s ``exclude_parts``). Flags of the JAX trainer whose features
 the port does not have yet raise NotImplementedError naming their
 ROADMAP item.
+
+Observability, as in the JAX trainer (:func:`add_obs_flags`,
+:func:`observed`): every line the trainer prints also lands in a per-run
+log file under ``--log-dir``; each step's wall time is split by K-FAC
+phase set (``utils.PhaseTimers``: the epoch line's `` kfac_phase_ms=``
+suffix); ``--trace DIR`` writes Chrome-trace spans (``kfac.step``,
+``kfac.dispatch``) to ``DIR/trace-host<rank>.jsonl`` and the metrics
+registry to ``DIR/metrics.jsonl``; ``--prom-file`` exports the registry
+as a Prometheus textfile, ``--tb-dir`` as TensorBoard scalars beside the
+epoch's loss, lr and validation scalars.
 """
 
 import argparse
+import contextlib
 import os
 import time
 
-import numpy as np
 import torch
 
 import kfac_pytorch_tpu_torch as kfac
 from kfac_pytorch_tpu_torch import data as kdata
-from kfac_pytorch_tpu_torch import models, resilience, training, utils
+from kfac_pytorch_tpu_torch import models, obs, resilience, training, utils
 from kfac_pytorch_tpu_torch.parallel import collectives as coll
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
-from kfac_pytorch_tpu_torch.utils import checkpoint
+from kfac_pytorch_tpu_torch.utils import checkpoint, profiling, runlog, summary
 from kfac_pytorch_tpu_torch.utils.losses import label_smoothing_cross_entropy
 
 #: flags of the JAX trainer the port does not honour yet: (flag, the value
 #: that leaves the feature off, the ROADMAP item that brings it)
 UNPORTED = [
-    ('kfac_autotune', False, 'queue 1, slice F item 22 (autotune)'),
-    ('trace', None, 'queue 1, slice F item 22 (obs)'),
-    ('prom_file', None, 'queue 1, slice F item 22 (obs)'),
-    ('tb_dir', None, 'queue 1, slice F item 22 (summaries)'),
+    ('kfac_autotune', False, 'queue 1, slice F2 (autotune)'),
     ('step_deadline', 0, 'queue 1, slice G item 23 (resilience: the step '
                          'watchdog)'),
     ('straggler_budget', 0, 'queue 1, slice G item 23 (resilience: the '
@@ -109,14 +116,79 @@ def parse_args(argv=None):
                    help='cut each epoch to this many steps (default: the '
                         'whole training set)')
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
+    add_obs_flags(p)
     # the JAX trainer's flags whose features are not ported (UNPORTED)
     p.add_argument('--kfac-autotune', action='store_true')
-    p.add_argument('--tb-dir', default=None)
     p.add_argument('--step-deadline', type=float, default=0)
     p.add_argument('--straggler-budget', type=float, default=0)
-    p.add_argument('--trace', default=None)
-    p.add_argument('--prom-file', default=None)
     return p.parse_args(argv)
+
+
+def add_obs_flags(p):
+    """The JAX trainers' observability flags (their names, defaults and
+    help): ``--log-dir``, ``--tb-dir``, ``--trace`` and ``--prom-file``."""
+    p.add_argument('--log-dir', default='./logs',
+                   help='per-run log files land here (rank 0)')
+    p.add_argument('--tb-dir', default=None,
+                   help='write TensorBoard scalar summaries here (rank 0)')
+    p.add_argument('--trace', default=None, metavar='DIR',
+                   help='write Chrome-trace spans (per-step phase spans) '
+                        'to DIR/trace-host<rank>.jsonl and epoch metric '
+                        'snapshots to DIR/metrics.jsonl (defaults to '
+                        '$KFAC_TRACE_DIR when set)')
+    p.add_argument('--prom-file', default=os.environ.get('KFAC_PROM_FILE'),
+                   metavar='PATH',
+                   help='export the metrics registry as a Prometheus '
+                        'textfile at PATH after every epoch (rank 0; '
+                        'defaults to $KFAC_PROM_FILE; the path is '
+                        'namespaced by $KFAC_TENANT/$KFAC_JOB_ID when set)')
+
+
+@contextlib.contextmanager
+def observed(args, *parts):
+    """The JAX trainers' observability around a run, from
+    :func:`add_obs_flags`' flags. Yields ``(log, tracer, registry, tb)``:
+    the run log (``runlog.setup_run_logging``: its file under
+    ``--log-dir`` named by ``parts``, on rank 0) with the flags logged,
+    the trace recorder and the metrics registry (``obs.setup_trainer``;
+    ``tracer`` None without ``--trace``), and on rank 0 with ``--tb-dir`` a
+    TensorBoard writer exporting the registry (else None). On the way out,
+    however the run ends, the trace is flushed, the exporters closed and
+    the run log's flush hooks removed (SIGTERM's handler as it was)."""
+    log, _ = runlog.setup_run_logging(args.log_dir, *parts)
+    log.info('args: %s', vars(args))
+    tracer, reg = obs.setup_trainer(trace_dir=args.trace,
+                                    prom_file=args.prom_file)
+    tb = summary.maybe_writer(args.tb_dir)
+    if tb is not None:
+        reg.add_exporter(obs.metrics.TensorBoardExporter(tb))
+    try:
+        yield log, tracer, reg, tb
+    finally:
+        if tracer is not None:
+            tracer.flush()
+        reg.close()
+        runlog.uninstall_flush_hooks()
+
+
+def end_epoch(tr, line, epoch, monitor, reg, tracer):
+    """The JAX trainers' epoch end: ``line`` with the registry's suffixes
+    (health, resilience, the phase timers') said, the monitor's window
+    reset, the registry exported and the trace flushed."""
+    tr.say(line + reg.epoch_suffixes())
+    monitor.epoch_flush()
+    reg.export(step=epoch)
+    if tracer is not None:
+        tracer.flush()
+
+
+def say(tr, *args, **kw):
+    """``print`` on rank 0 of trainer ``tr``, the line also written to its
+    run log's file (``tr.log``, when :func:`observed` gave it one)."""
+    if tr.rank == 0:
+        print(*args, flush=True, **kw)
+        if tr.log is not None:
+            tr.log.info(' '.join(map(str, args)), extra=runlog.PRINTED)
 
 
 def add_kfac_flags(p, update_freq, damping, assignment='round_robin'):
@@ -342,9 +414,12 @@ class Trainer:
     scheduler, state and step. Matmuls and convolutions in fp32 run with
     TF32 off, the reference's precision."""
 
-    def __init__(self, args, group=None, local_rank=None):
+    log = None
+
+    def __init__(self, args, group=None, local_rank=None, tracer=None):
         check_ported(args)
         self.args = args
+        self.tracer = tracer
         self.group, self.rank, self.device = init_world(args, group,
                                                         local_rank)
         self.world = args.num_devices
@@ -388,12 +463,10 @@ class Trainer:
                                                sample, self.device)
         self.step_fn = training.build_train_step(
             model, self.tx, self.precond, self.loss_fn,
-            input_dtype=self.dtype, group=self.group)
+            input_dtype=self.dtype, group=self.group, tracer=tracer)
 
     def say(self, *args, **kw):
-        """``print`` on rank 0."""
-        if self.rank == 0:
-            print(*args, flush=True, **kw)
+        say(self, *args, **kw)
 
     def loss_fn(self, outputs, batch):
         """Label-smoothed CE on the model's (bf16) logits."""
@@ -455,85 +528,113 @@ class Trainer:
                                    retry=self.io_retry, group=self.group)
 
 
+class _SayLog:
+    """``log.info`` onto a trainer's :func:`say`."""
+
+    def __init__(self, tr):
+        self.tr = tr
+
+    def info(self, fmt, *args):
+        self.tr.say(fmt % args)
+
+
 def speed(tr, batch=None, units=None, unit='imgs/sec'):
     """``unit`` a second over SPEED_ITERS synchronized steps on one host
     batch (default the loader's first) of ``units`` items (default its
-    labels), after SPEED_WARMUP steps (the JAX ``speed_report``'s counts
-    and line)."""
+    labels), after SPEED_WARMUP steps: ``utils.profiling.speed_report``
+    (the JAX trainers' counts and line), each timed step a ``bench.iter``
+    span of ``tr.tracer``."""
     if batch is None:
         batch = next(tr.train_loader.epoch())
     if units is None:
         units = len(batch['label'])
-    sync = (torch.cuda.synchronize if tr.device.type == 'cuda'
-            else (lambda: None))
-    for _ in range(SPEED_WARMUP):
-        tr.train_step(batch)
-    times = []
-    for _ in range(SPEED_ITERS):
-        sync()
-        t0 = time.perf_counter()
-        tr.train_step(batch)
-        sync()
-        times.append(time.perf_counter() - t0)
-    mean, std = float(np.mean(times)), float(np.std(times))
-    tr.say(f'SPEED: iter time {mean:.4f} +- {std:.4f} s ({unit} '
-           f'{units / mean:.1f})')
+
+    def step(state, b):
+        tr.state = state
+        m = tr.train_step(b)
+        return tr.state, m
+
+    tr.state = profiling.speed_report(
+        _SayLog(tr), step, tr.state, batch, units, unit=unit,
+        iters=SPEED_ITERS, warmup=SPEED_WARMUP, tracer=tr.tracer)
 
 
 def main(argv=None, group=None):
     """Run the trainer (in ``group`` if given, as ``launch.spawn`` gives
     one; else the launcher's group at world>1); returns it."""
     args = parse_args(argv)
-    tr = Trainer(args, group=group)
-    start_epoch = tr.resume()
-    if args.speed:
-        speed(tr)
-        return tr
-    stamp_world(tr, args.checkpoint_format)
-    guard = checkpoint.PreemptionGuard(group=tr.group)
-    monitor = utils.HealthMonitor(state=tr.state)
-    try:
-        for epoch in range(start_epoch, args.epochs):
-            t0 = time.time()
-            total = count = 0.0
-            with tr.train_loader.epoch(retry=tr.io_retry) as batches:
-                for batch in batches:
-                    if guard.should_stop(tr.state.step):
-                        break
-                    m = tr.train_step(batch)
-                    total += float(m['loss']) * len(batch['label'])
-                    count += len(batch['label'])
-                    monitor.update(m, step=tr.state.step - 1)
-            if guard.should_stop():
-                # tagged with the last completed epoch: the resume replays
-                # the interrupted one (the step count keeps the lr exact)
-                tag = max(epoch - 1, 0)
-                tr.save(tag)
-                tr.say(f'preempted in epoch {epoch} (step {tr.state.step}): '
-                       f'state saved as checkpoint-{tag}, exiting')
-                return tr
-            vl, va = tr.evaluate()
-            tr.say(f'epoch {epoch}: train_loss {total / max(count, 1):.4f} '
-                   f'val_loss {vl:.4f} val_acc {va:.4f} '
-                   f'({time.time() - t0:.1f}s)'
-                   f'{utils.health_suffix(monitor.epoch_flush())}')
-            if tr.scheduler is not None:
-                tr.scheduler.step(epoch + 1)
-            tr.save(epoch, block=False)
+    check_ported(args)
+    with observed(
+            args, 'imagenet', args.model, f'kfac{args.kfac_update_freq}',
+            args.kfac_name,
+            f'basis{args.kfac_basis_update_freq}'
+            if args.kfac_basis_update_freq else None,
+            'warm' if args.kfac_warm_start else None,
+            f'bs{args.batch_size}', f'nd{args.num_devices}') as (
+                log, tracer, reg, tb):
+        tr = Trainer(args, group=group, tracer=tracer)
+        tr.log = log
+        start_epoch = tr.resume()
+        if args.speed:
+            speed(tr)
+            return tr
+        stamp_world(tr, args.checkpoint_format)
+        guard = checkpoint.PreemptionGuard(group=tr.group)
+        monitor = utils.HealthMonitor(log, state=tr.state, registry=reg)
+        # each step's wall time by phase set (the epoch line's kfac_phase_ms=);
+        # with a tracer every step is also a kfac.step span
+        timers = utils.PhaseTimers(tracer=tracer, registry=reg, histogram=True)
+        lr_now = args.base_lr
+        try:
+            for epoch in range(start_epoch, args.epochs):
+                t0 = time.time()
+                tm = utils.Metric('train_loss', group=tr.group)
+                with tr.train_loader.epoch(retry=tr.io_retry) as batches:
+                    for batch in batches:
+                        if guard.should_stop(tr.state.step):
+                            break
+                        lr_now = tr.kfac_lr(tr.state.step)
+                        t_step = time.perf_counter()
+                        m = tr.train_step(batch)
+                        # the loss read waits for the step: the wall time
+                        # covers its dispatch and its device work
+                        tm.update(m['loss'], len(batch['label']))
+                        timers.record(tr.step_fn.last_phases,
+                                      time.perf_counter() - t_step)
+                        monitor.update(m, step=tr.state.step - 1)
+                if guard.should_stop():
+                    # tagged with the last completed epoch: the resume replays
+                    # the interrupted one (the step count keeps the lr exact)
+                    tag = max(epoch - 1, 0)
+                    tr.save(tag)
+                    tr.say(f'preempted in epoch {epoch} (step '
+                           f'{tr.state.step}): state saved as '
+                           f'checkpoint-{tag}, exiting')
+                    return tr
+                vl, va = tr.evaluate()
+                tl = tm.sync().avg
+                end_epoch(tr, f'epoch {epoch}: train_loss {tl:.4f} val_loss '
+                              f'{vl:.4f} val_acc {va:.4f} '
+                              f'({time.time() - t0:.1f}s)',
+                          epoch, monitor, reg, tracer)
+                summary.log_epoch_scalars(tb, epoch, tl, lr_now, vl, va)
+                if tr.scheduler is not None:
+                    tr.scheduler.step(epoch + 1)
+                tr.save(epoch, block=False)
+                checkpoint.prune_checkpoints(args.checkpoint_format,
+                                             args.keep_checkpoints)
+                if guard.should_stop():
+                    checkpoint.wait_for_checkpoints()
+                    tr.say(f'preempted after epoch {epoch}: exiting')
+                    return tr
+            checkpoint.wait_for_checkpoints()
             checkpoint.prune_checkpoints(args.checkpoint_format,
                                          args.keep_checkpoints)
-            if guard.should_stop():
-                checkpoint.wait_for_checkpoints()
-                tr.say(f'preempted after epoch {epoch}: exiting')
-                return tr
-        checkpoint.wait_for_checkpoints()
-        checkpoint.prune_checkpoints(args.checkpoint_format,
-                                     args.keep_checkpoints)
-        if group is None and tr.world > 1:
-            torch.distributed.destroy_process_group()
-    finally:
-        guard.uninstall()
-    return tr
+            if group is None and tr.world > 1:
+                torch.distributed.destroy_process_group()
+        finally:
+            guard.uninstall()
+        return tr
 
 
 if __name__ == '__main__':

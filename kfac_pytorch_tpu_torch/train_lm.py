@@ -25,6 +25,12 @@ the global batch, attention runs as the ring or Ulysses
 grid (JAX's flattened ``('data', 'seq')`` axis): each rank's loss is the
 mean over its own tokens, the gradients and factor statistics are
 reduced over every rank, and the reported losses are their mean.
+
+The numerical-health guard is on: a skipped batch is logged at its step
+and counted on the epoch line (`` [health: ...]``), and training goes
+on. ``--log-dir``, ``--trace``, ``--prom-file`` and ``--tb-dir`` as the
+JAX trainer wires them (``train_imagenet.observed``): each step a
+``kfac.dispatch`` span, no phase timers.
 """
 
 import argparse
@@ -36,14 +42,16 @@ import torch
 import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch import data as kdata
-from kfac_pytorch_tpu_torch import models, training
+from kfac_pytorch_tpu_torch import models, training, utils
 from kfac_pytorch_tpu_torch.parallel import collectives as coll
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
 from kfac_pytorch_tpu_torch.parallel.ring_attention import BLOCK_IMPLS
 from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
-                                                   add_world_flags, end_world,
-                                                   init_world, kfac_for,
-                                                   speed)
+                                                   add_obs_flags,
+                                                   add_world_flags, end_epoch,
+                                                   end_world,
+                                                   init_world, kfac_for, say,
+                                                   observed, speed)
 
 #: batches of the validation pass (as the JAX trainer's)
 VAL_BATCHES = 10
@@ -79,6 +87,7 @@ def parse_args(argv=None):
                    help='print tokens/s of warm, synchronized steps and '
                         'exit')
     add_world_flags(p)
+    add_obs_flags(p)
     return p.parse_args(argv)
 
 
@@ -98,12 +107,15 @@ class Trainer:
     default group initialized from the launcher's environment; the rank
     runs on ``cuda:local_rank`` (``LOCAL_RANK`` unless given)."""
 
-    def __init__(self, args, group=None, local_rank=None):
+    log = None
+
+    def __init__(self, args, group=None, local_rank=None, tracer=None):
         if args.kfac_mesh:
             raise NotImplementedError(
                 '--kfac-mesh is not ported yet: ROADMAP queue 1, item 21 '
                 '(parallel layers and the mesh plan)')
         self.args = args
+        self.tracer = tracer
         self.world = args.data_devices * args.seq_devices
         self.group, self.rank, self.device = init_world(
             args, group, local_rank, world=self.world)
@@ -139,13 +151,12 @@ class Trainer:
                                                sample, self.device)
         self.step_fn = training.build_train_step(model, self.tx,
                                                  self.precond, loss_fn,
-                                                 group=self.group)
+                                                 group=self.group,
+                                                 tracer=tracer)
         self.rng = np.random.RandomState(args.seed)
 
     def say(self, *args, **kw):
-        """``print`` on rank 0."""
-        if self.rank == 0:
-            print(*args, flush=True, **kw)
+        say(self, *args, **kw)
 
     def batches(self):
         """One epoch of training batches (host numpy)."""
@@ -196,22 +207,36 @@ def main(argv=None, group=None):
     """Run the trainer (in ``group`` if given, as ``launch.spawn`` gives
     one; else the launcher's group at world>1); returns it."""
     args = parse_args(argv)
-    tr = Trainer(args, group=group)
-    if args.speed:
-        batch = next(tr.batches())
-        speed(tr, batch, tr.tokens(batch), 'tokens/sec')
+    with observed(
+            args, f'longctx_L{args.seq_len}', args.kfac_name,
+            f'bs{args.batch_size}', f'sd{args.seq_devices}',
+            f'dd{args.data_devices}') as (log, tracer, reg, tb):
+        tr = Trainer(args, group=group, tracer=tracer)
+        tr.log = log
+        if args.speed:
+            batch = next(tr.batches())
+            speed(tr, batch, tr.tokens(batch), 'tokens/sec')
+            return tr
+        monitor = utils.HealthMonitor(log, state=tr.state, registry=reg)
+        for epoch in range(args.epochs):
+            t0 = time.time()
+            losses = []
+            for b in tr.batches():
+                m = tr.train_step(b)
+                losses.append(float(m['loss']))
+                monitor.update(m, step=tr.state.step - 1)
+            val = tr.evaluate()
+            ppl = math.exp(min(np.mean(losses), 20))
+            vppl = math.exp(min(val, 20))
+            end_epoch(tr, f'epoch {epoch}: train_ppl {ppl:.2f} val_ppl '
+                          f'{vppl:.2f} ({time.time() - t0:.1f}s)',
+                      epoch, monitor, reg, tracer)
+            if tb is not None:
+                tb.add_scalar('train/ppl', ppl, epoch)
+                tb.add_scalar('val/ppl', vppl, epoch)
+                tb.flush()
+        end_world(tr, group)
         return tr
-    for epoch in range(args.epochs):
-        t0 = time.time()
-        losses = [float(tr.train_step(b)['loss']) for b in tr.batches()]
-        if not np.all(np.isfinite(losses)):
-            raise FloatingPointError(f'non-finite training loss: {losses}')
-        val = tr.evaluate()
-        tr.say(f'epoch {epoch}: train_ppl '
-               f'{math.exp(min(np.mean(losses), 20)):.2f} val_ppl '
-               f'{math.exp(min(val, 20)):.2f} ({time.time() - t0:.1f}s)')
-    end_world(tr, group)
-    return tr
 
 
 if __name__ == '__main__':

@@ -36,6 +36,11 @@ each rank's own masks, from a stream seeded by ``(seed + 2, step,
 rank)`` (the JAX trainer's ``dropout_seed`` folded with the step and the
 axis index). Rank 0 prints; the run ends by checking that the replicas
 are bitwise equal.
+
+``--log-dir``, ``--trace``, ``--prom-file`` and ``--tb-dir`` as the JAX
+trainer wires them (``train_imagenet.observed``): the run log, a
+``kfac.dispatch`` span a step, the metrics registry's exports and the
+epoch's TensorBoard scalars.
 """
 
 import argparse
@@ -50,9 +55,11 @@ from kfac_pytorch_tpu_torch import training, utils
 from kfac_pytorch_tpu_torch.models import transformer, translator
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
 from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
-                                                   add_world_flags, end_world,
-                                                   init_world, kfac_for,
-                                                   speed)
+                                                   add_obs_flags,
+                                                   add_world_flags, end_epoch,
+                                                   end_world,
+                                                   init_world, kfac_for, say,
+                                                   observed, speed)
 from kfac_pytorch_tpu_torch.utils.losses import label_smoothing_cross_entropy
 
 PAD, BOS, EOS = 1, 2, 3
@@ -92,6 +99,7 @@ def parse_args(argv=None):
     p.add_argument('--synthetic-vocab', type=int, default=64)
     p.add_argument('--synthetic-size', type=int, default=2048)
     add_world_flags(p)
+    add_obs_flags(p)
     return p.parse_args(argv)
 
 
@@ -186,8 +194,11 @@ class Trainer:
     #: are, and the weights stay fp32
     dtype = torch.float32
 
-    def __init__(self, args, group=None, local_rank=None):
+    log = None
+
+    def __init__(self, args, group=None, local_rank=None, tracer=None):
         self.args = args
+        self.tracer = tracer
         self.world = args.num_devices
         self.group, self.rank, self.device = init_world(args, group,
                                                         local_rank)
@@ -229,12 +240,10 @@ class Trainer:
                                                sample, self.device)
         self.step_fn = training.build_train_step(
             model, self.tx, self.precond, self.loss_fn,
-            dropout_seed=args.seed + 2, group=self.group)
+            dropout_seed=args.seed + 2, group=self.group, tracer=tracer)
 
     def say(self, *args, **kw):
-        """``print`` on rank 0."""
-        if self.rank == 0:
-            print(*args, flush=True, **kw)
+        say(self, *args, **kw)
 
     def loss_fn(self, outputs, batch):
         return loss_fn(outputs, batch, self.args.label_smoothing)
@@ -303,25 +312,36 @@ def main(argv=None, group=None):
     """Run the trainer (in ``group`` if given, as ``launch.spawn`` gives
     one; else the launcher's group at world>1); returns it."""
     args = parse_args(argv)
-    tr = Trainer(args, group=group)
-    if args.speed:
-        batch = next(tr.batches())
-        speed(tr, batch, tr.tokens(batch), 'tokens/sec')
+    with observed(
+            args, 'multi30k', args.optimizer,
+            f'kfac{args.kfac_update_freq}', args.kfac_name,
+            f'bs{args.batch_size}', f'nd{args.num_devices}') as (
+                log, tracer, reg, tb):
+        tr = Trainer(args, group=group, tracer=tracer)
+        tr.log = log
+        if args.speed:
+            batch = next(tr.batches())
+            speed(tr, batch, tr.tokens(batch), 'tokens/sec')
+            return tr
+        monitor = utils.HealthMonitor(log, state=tr.state, registry=reg)
+        for epoch in range(args.epochs):
+            t0 = time.time()
+            losses = []
+            for batch in tr.batches(epoch):
+                m = tr.train_step(batch)
+                losses.append(float(m['loss']))
+                monitor.update(m, step=tr.state.step - 1)
+            score = tr.evaluate()
+            train_loss = np.mean(losses)
+            end_epoch(tr, f'epoch {epoch}: train_loss {train_loss:.4f} BLEU '
+                          f'{score:.2f} ({time.time() - t0:.1f}s)',
+                      epoch, monitor, reg, tracer)
+            if tb is not None:
+                tb.add_scalar('train/loss', train_loss, epoch)
+                tb.add_scalar('val/BLEU', score, epoch)
+                tb.flush()
+        end_world(tr, group)
         return tr
-    monitor = utils.HealthMonitor(state=tr.state)
-    for epoch in range(args.epochs):
-        t0 = time.time()
-        losses = []
-        for batch in tr.batches(epoch):
-            m = tr.train_step(batch)
-            losses.append(float(m['loss']))
-            monitor.update(m, step=tr.state.step - 1)
-        score = tr.evaluate()
-        tr.say(f'epoch {epoch}: train_loss {np.mean(losses):.4f} BLEU '
-               f'{score:.2f} ({time.time() - t0:.1f}s)'
-               f'{utils.health_suffix(monitor.epoch_flush())}')
-    end_world(tr, group)
-    return tr
 
 
 if __name__ == '__main__':

@@ -20,6 +20,11 @@ entropies; each epoch ends with token-level F1 and exact match on 256
 held-out examples. ``--num-devices`` > 1 runs as the Multi-30k trainer
 does (``train_multi30k``: each rank its rows of the global batch, its
 own dropout masks, the replicas checked at the end).
+
+``--log-dir``, ``--trace``, ``--prom-file`` and ``--tb-dir`` as the JAX
+trainer wires them (``train_imagenet.observed``): the run log, a
+``kfac.dispatch`` span a step, the metrics registry's exports and the
+epoch's TensorBoard scalars.
 """
 
 import argparse
@@ -35,9 +40,11 @@ from kfac_pytorch_tpu_torch import training, utils
 from kfac_pytorch_tpu_torch.models import bert
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
 from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
-                                                   add_world_flags, end_world,
-                                                   init_world, kfac_for,
-                                                   speed)
+                                                   add_obs_flags,
+                                                   add_world_flags, end_epoch,
+                                                   end_world,
+                                                   init_world, kfac_for, say,
+                                                   observed, speed)
 
 PAD, CLS, SEP, MARK = 0, 1, 2, 3
 #: the id of a word outside a SQuAD file's vocabulary
@@ -68,6 +75,7 @@ def parse_args(argv=None):
                    help='print tokens/s of warm, synchronized steps and '
                         'exit')
     add_world_flags(p)
+    add_obs_flags(p)
     return p.parse_args(argv)
 
 
@@ -176,8 +184,11 @@ class Trainer:
     #: are, and the weights stay fp32
     dtype = torch.float32
 
-    def __init__(self, args, group=None, local_rank=None):
+    log = None
+
+    def __init__(self, args, group=None, local_rank=None, tracer=None):
         self.args = args
+        self.tracer = tracer
         self.world = args.num_devices
         self.group, self.rank, self.device = init_world(args, group,
                                                         local_rank)
@@ -222,13 +233,11 @@ class Trainer:
         self.loss_fn = loss_fn
         self.step_fn = training.build_train_step(
             model, self.tx, self.precond, loss_fn,
-            dropout_seed=args.seed + 2, group=self.group)
+            dropout_seed=args.seed + 2, group=self.group, tracer=tracer)
         self.rng = np.random.RandomState(args.seed)
 
     def say(self, *args, **kw):
-        """``print`` on rank 0."""
-        if self.rank == 0:
-            print(*args, flush=True, **kw)
+        say(self, *args, **kw)
 
     def batch(self, sel, data=None):
         """The host batch of examples ``sel``: ``input`` the ``(ids,
@@ -289,25 +298,37 @@ def main(argv=None, group=None):
     """Run the trainer (in ``group`` if given, as ``launch.spawn`` gives
     one; else the launcher's group at world>1); returns it."""
     args = parse_args(argv)
-    tr = Trainer(args, group=group)
-    if args.speed:
-        batch = tr.batch(np.arange(min(args.batch_size, len(tr.train[0]))))
-        speed(tr, batch, tr.tokens(batch), 'tokens/sec')
+    with observed(
+            args, 'squad', args.model_size,
+            f'kfac{args.kfac_update_freq}', args.kfac_name,
+            f'bs{args.batch_size}', f'nd{args.num_devices}') as (
+                log, tracer, reg, tb):
+        tr = Trainer(args, group=group, tracer=tracer)
+        tr.log = log
+        if args.speed:
+            batch = tr.batch(np.arange(min(args.batch_size, len(tr.train[0]))))
+            speed(tr, batch, tr.tokens(batch), 'tokens/sec')
+            return tr
+        monitor = utils.HealthMonitor(log, state=tr.state, registry=reg)
+        for epoch in range(args.epochs):
+            t0 = time.time()
+            losses = []
+            for batch in tr.batches():
+                m = tr.train_step(batch)
+                losses.append(float(m['loss']))
+                monitor.update(m, step=tr.state.step - 1)
+            f1, em = tr.evaluate()
+            loss = np.mean(losses)
+            end_epoch(tr, f'epoch {epoch}: loss {loss:.4f} F1 {f1:.2f} EM '
+                          f'{em:.2f} ({time.time() - t0:.1f}s)',
+                      epoch, monitor, reg, tracer)
+            if tb is not None:
+                tb.add_scalar('train/loss', loss, epoch)
+                tb.add_scalar('val/F1', f1, epoch)
+                tb.add_scalar('val/EM', em, epoch)
+                tb.flush()
+        end_world(tr, group)
         return tr
-    monitor = utils.HealthMonitor(state=tr.state)
-    for epoch in range(args.epochs):
-        t0 = time.time()
-        losses = []
-        for batch in tr.batches():
-            m = tr.train_step(batch)
-            losses.append(float(m['loss']))
-            monitor.update(m, step=tr.state.step - 1)
-        f1, em = tr.evaluate()
-        tr.say(f'epoch {epoch}: loss {np.mean(losses):.4f} F1 {f1:.2f} EM '
-               f'{em:.2f} ({time.time() - t0:.1f}s)'
-               f'{utils.health_suffix(monitor.epoch_flush())}')
-    end_world(tr, group)
-    return tr
 
 
 if __name__ == '__main__':

@@ -18,6 +18,11 @@ K-FAC preconditions with their per-timestep captures, the decoder
 excluded by the vocabulary size. Reads a whitespace-tokenized text file
 from ``--data`` when it exists, else a synthetic Markov chain
 (:func:`load_corpus`).
+
+``--log-dir``, ``--trace``, ``--prom-file`` and ``--tb-dir`` as the JAX
+trainer wires them (``train_imagenet.observed``): the run log, a
+``kfac.dispatch`` span a step, the metrics registry's exports and the
+epoch's TensorBoard scalars.
 """
 
 import argparse
@@ -31,8 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch import models, training, utils
-from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags, kfac_for,
-                                                   speed)
+from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
+                                                   add_obs_flags, end_epoch,
+                                                   kfac_for, say,
+                                                   observed, speed)
 
 
 def parse_args(argv=None):
@@ -59,6 +66,7 @@ def parse_args(argv=None):
                    help='print tokens/s of warm, synchronized steps and '
                         'exit')
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
+    add_obs_flags(p)
     return p.parse_args(argv)
 
 
@@ -116,8 +124,12 @@ class Trainer:
     #: are, and the weights stay fp32
     dtype = torch.float32
 
-    def __init__(self, args, corpus=None):
+    log = None
+
+    def __init__(self, args, corpus=None, tracer=None):
         self.args = args
+        self.tracer = tracer
+        self.rank = 0
         self.device = utils.resolve_device(args.device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -144,10 +156,11 @@ class Trainer:
                                                sample, self.device)
         self.loss_fn = loss_fn
         self.step_fn = training.build_train_step(model, self.tx,
-                                                 self.precond, loss_fn)
+                                                 self.precond, loss_fn,
+                                                 tracer=tracer)
 
     def say(self, *args, **kw):
-        print(*args, flush=True, **kw)
+        say(self, *args, **kw)
 
     @staticmethod
     def windows(data, bptt, steps):
@@ -197,26 +210,36 @@ class Trainer:
 def main(argv=None):
     """Run the trainer; returns it."""
     args = parse_args(argv)
-    tr = Trainer(args)
-    if args.speed:
-        bptt = min(args.bptt, tr.train_data.shape[1] - 1)
-        batch = next(tr.windows(tr.train_data, bptt, 1))
-        speed(tr, batch, tr.tokens(batch), 'tokens/sec')
+    with observed(
+            args, 'wikitext', f'kfac{args.kfac_update_freq}',
+            args.kfac_name if args.kfac_update_freq else 'sgd',
+            f'bs{args.batch_size}') as (log, tracer, reg, tb):
+        tr = Trainer(args, tracer=tracer)
+        tr.log = log
+        if args.speed:
+            bptt = min(args.bptt, tr.train_data.shape[1] - 1)
+            batch = next(tr.windows(tr.train_data, bptt, 1))
+            speed(tr, batch, tr.tokens(batch), 'tokens/sec')
+            return tr
+        monitor = utils.HealthMonitor(log, state=tr.state, registry=reg)
+        for epoch in range(args.epochs):
+            t0 = time.time()
+            losses = []
+            for batch in tr.batches():
+                m = tr.train_step(batch)
+                losses.append(float(m['loss']))
+                monitor.update(m, step=tr.state.step - 1)
+            val = tr.evaluate()
+            ppl = math.exp(min(np.mean(losses), 20))
+            vppl = math.exp(min(val, 20))
+            end_epoch(tr, f'epoch {epoch}: train_ppl {ppl:.2f} val_ppl '
+                          f'{vppl:.2f} ({time.time() - t0:.1f}s)',
+                      epoch, monitor, reg, tracer)
+            if tb is not None:
+                tb.add_scalar('train/ppl', ppl, epoch)
+                tb.add_scalar('val/ppl', vppl, epoch)
+                tb.flush()
         return tr
-    monitor = utils.HealthMonitor(state=tr.state)
-    for epoch in range(args.epochs):
-        t0 = time.time()
-        losses = []
-        for batch in tr.batches():
-            m = tr.train_step(batch)
-            losses.append(float(m['loss']))
-            monitor.update(m, step=tr.state.step - 1)
-        val = tr.evaluate()
-        tr.say(f'epoch {epoch}: train_ppl '
-               f'{math.exp(min(np.mean(losses), 20)):.2f} val_ppl '
-               f'{math.exp(min(val, 20)):.2f} ({time.time() - t0:.1f}s)'
-               f'{utils.health_suffix(monitor.epoch_flush())}')
-    return tr
 
 
 if __name__ == '__main__':

@@ -475,6 +475,19 @@ def _warm_basis_gate(precond, seen, step, ui, ub):
     return warm
 
 
+class _Dispatch(NamedTuple):
+    """One step's host-side choice (``build_train_step``'s ``prepare``)."""
+    uf: bool
+    ui: bool
+    ub: bool
+    warm: bool
+    st: bool
+    pf: bool
+    factors_only: bool
+    phases: tuple
+    decomp: Any
+
+
 def _dispatch(precond, seen, step):
     """The JAX trainer's host-side choice for one step: ``(uf, ui, ub,
     warm, st, pf)`` (factor update, inverse update, full decomposition
@@ -552,7 +565,7 @@ def dropout_rng(seed, step, rank, device):
 def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
                      health='auto', fisher_type='Femp', fisher_loss_fn=None,
                      fisher_sample_fn=None, fisher_seed=0,
-                     dropout_seed=None, group=None):
+                     dropout_seed=None, group=None, tracer=None):
     """Return ``step_fn(state, batch, lr=None, damping=None) -> (state,
     metrics)``. ``batch`` holds this rank's shard as tensors on the
     model's device: ``'input'`` (see :func:`model_input`; cast to
@@ -569,6 +582,15 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
     preconditioned with the stored table, the fresh one published for the
     next step), and ``step_fn.last_grads`` holds the gradients it handed
     the optimizer.
+
+    ``tracer``: an ``obs.trace.TraceRecorder`` (or None). Each call is
+    then recorded as a ``kfac.dispatch`` span carrying the step and its
+    phases in the exclude_parts taxonomy (``obs.trace.taxonomy_phases``);
+    a step that publishes a gathered decomposition for the next one (a
+    staggered cohort, or a prefetched inverse update) nests the schedule
+    spans ``kfac.Precondition`` (the stored table) and
+    ``kfac.CommunicateInverse.prefetch`` in it, as the JAX trainer does.
+    The span's time is the host's: the step is not synchronized.
 
     ``health``: the numerical-health guard (``health.py``). 'auto' (the
     default) inherits the preconditioner's ``health`` (off without one);
@@ -636,7 +658,9 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
         # switch leaves a zero one) and decomposes cold
         precond.add_invalidator(lambda: seen.update(rederive=True))
 
-    def step_fn(state, batch, lr=None, damping=None):
+    def prepare(state):
+        """The host's choices for the step: a queued replan applied, then
+        the dispatch, the phases and the decomposition kind."""
         step = state.step
         uf = ui = st = pf = factors_only = False
         ub, warm = True, False
@@ -658,6 +682,62 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
             # before any decomposition exists the grads pass through while
             # the factor statistics accumulate
             factors_only = not seen['yes']
+        decomp = None
+        # the phases the preconditioner runs, its exclude_parts ablation
+        # taken out
+        stats = (('stats',) if uf and not (
+            precond is not None and precond.exclude_compute_factor) else ())
+        if (precond is None or factors_only
+                or precond.exclude_compute_inverse):
+            phases = stats
+        else:
+            phases = ('pred',) + stats
+            if ui or st:
+                phases += ('decomp',) + (
+                    ('gather',) if precond.comm_mode == 'inverse'
+                    and not precond.exclude_communicate_inverse else ())
+                decomp = ('cohort' if st else 'refresh' if not ub
+                          else 'warm' if warm else 'full')
+        return state, _Dispatch(uf, ui, ub, warm, st, pf, factors_only,
+                                phases, decomp)
+
+    def spans(step, d):
+        """The trace spans of one dispatch (JAX's): ``kfac.dispatch`` with
+        the step's phases, and around a gather published for the next step
+        (a staggered cohort, or a prefetched inverse update) the schedule
+        spans ``kfac.Precondition`` (with the stored table) and
+        ``kfac.CommunicateInverse.prefetch``."""
+        from kfac_pytorch_tpu_torch.obs.trace import taxonomy_phases
+        stack = contextlib.ExitStack()
+        stack.enter_context(tracer.span(
+            'kfac.dispatch', cat='kfac.step', step=step,
+            phases=taxonomy_phases(d.phases)))
+        if (d.pf or d.st) and precond.comm_mode == 'inverse' \
+                and 'gather' in d.phases:
+            cohort = step % precond._cohorts.num_cohorts if d.st else None
+            stack.enter_context(tracer.span(
+                'kfac.Precondition', cat='kfac.sched', step=step,
+                table='stored'))
+            stack.enter_context(tracer.span(
+                'kfac.CommunicateInverse.prefetch', cat='kfac.sched',
+                step=step, cohort=cohort, consumer_step=step + 1))
+        return stack
+
+    def step_fn(state, batch, lr=None, damping=None):
+        state, d = prepare(state)
+        step_fn.last_phases = d.phases
+        step_fn.last_decomp = d.decomp
+        step_fn.last_prefetch = d.pf
+        if tracer is None:
+            return run(state, batch, lr, damping, d)
+        with spans(state.step, d):
+            return run(state, batch, lr, damping, d)
+
+    def run(state, batch, lr, damping, d):
+        """The step's work, as ``prepare`` chose it."""
+        step = state.step
+        uf, ui, ub, warm, st, pf = d.uf, d.ui, d.ub, d.warm, d.st, d.pf
+        factors_only = d.factors_only
         # read at every step: a replan may have moved the world
         group = sgd_group if precond is None else precond.group
         params = dict(model.named_parameters())
@@ -747,25 +827,6 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
             mets.update({'health/' + k: v for k, v in
                          health_lib.metrics(hstate, ok).items()})
 
-        decomp = None
-        # the phases the preconditioner ran, its exclude_parts ablation
-        # taken out
-        stats = (('stats',) if uf and not (
-            precond is not None and precond.exclude_compute_factor) else ())
-        if (precond is None or factors_only
-                or precond.exclude_compute_inverse):
-            phases = stats
-        else:
-            phases = ('pred',) + stats
-            if ui or st:
-                phases += ('decomp',) + (
-                    ('gather',) if precond.comm_mode == 'inverse'
-                    and not precond.exclude_communicate_inverse else ())
-                decomp = ('cohort' if st else 'refresh' if not ub
-                          else 'warm' if warm else 'full')
-        step_fn.last_phases = phases
-        step_fn.last_decomp = decomp
-        step_fn.last_prefetch = pf
         step_fn.last_grads = new_grads
         state = dataclasses.replace(
             state, step=step + 1, kfac_state=kfac_state,

@@ -9,8 +9,10 @@ package.
 from kfac_pytorch_tpu_torch.utils.lr import (  # noqa: F401
     inverse_sqrt, polynomial_decay, warmup_multistep)
 from kfac_pytorch_tpu_torch.utils.metrics import (  # noqa: F401
-    HealthMonitor, accuracy)
+    HealthMonitor, Metric, PhaseTimers, accuracy, topk_accuracy)
 from kfac_pytorch_tpu_torch.utils.platform import resolve_device  # noqa: F401
+from kfac_pytorch_tpu_torch.utils.profiling import (  # noqa: F401
+    exclude_parts_breakdown, time_steps, trace)
 from kfac_pytorch_tpu_torch.utils.runlog import health_suffix  # noqa: F401
 
 _CHECKPOINT = (
@@ -28,5 +30,7 @@ def __getattr__(name):
 
 
 __all__ = ['warmup_multistep', 'polynomial_decay', 'inverse_sqrt',
-           'HealthMonitor', 'accuracy', 'resolve_device', 'health_suffix',
+           'HealthMonitor', 'Metric', 'PhaseTimers', 'accuracy',
+           'topk_accuracy', 'resolve_device', 'health_suffix', 'trace',
+           'time_steps', 'exclude_parts_breakdown',
            *_CHECKPOINT]

@@ -13,7 +13,8 @@
 5. The ImageNet trainer raises NotImplementedError, naming its ROADMAP
    item, for every flag of the JAX trainer whose feature is not ported
    (``--io-retries`` and ``--num-devices`` are ported since the elastic
-   lane and keep their cases).
+   lane, ``--trace``, ``--prom-file`` and ``--tb-dir`` since the
+   observability slice; they keep their cases).
 6. ``--kfac-name ekfac_dp`` reaches ``KFAC`` in both trainers, and
    ``--kfac-stagger`` with E-KFAC raises.
 """
@@ -275,6 +276,13 @@ def test_imagenet_unported_flags_raise(argv):
         # ported: world>1 needs the launcher's process group
         with pytest.raises(ValueError, match='WORLD_SIZE=1'):
             train_imagenet.main(['--device', 'cpu', *argv])
+    elif argv[0] in ('--trace', '--prom-file', '--tb-dir'):
+        # ported: the observability flags (obs.setup_trainer and the
+        # TensorBoard writer, train_imagenet.observed)
+        args = train_imagenet.parse_args(['--device', 'cpu', *argv])
+        train_imagenet.check_ported(args)
+        assert all(name != argv[0][2:].replace('-', '_')
+                   for name, _, _ in train_imagenet.UNPORTED)
     else:
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             train_imagenet.main(['--device', 'cpu', *argv])
