@@ -26,13 +26,13 @@ launches:
   special values;
 - slice 7: the ImageNet trainer (``train_imagenet``: ResNet-50, batch
   32, 224 x 224, bf16, ``eigen_dp`` with a decomposition every step, the
-  capture kernels) for 8 steps with K1/K2 launch counts, images/s and a
+  capture kernels) for 4 steps with K1/K2 launch counts, images/s and a
   1-step device profile; ``eigh`` ms per bucket; K1 and K2 against their
   plain versions in bf16 at every ResNet-50 factor shape (bitwise over
   two runs, timed beside one bf16 tensor-core GEMM with an fp32 result,
   the bound at the bf16 tensor-core rate); the kernels' K-FAC step in
   lockstep with ``capture_impl=None`` and an fp64-GEMM control; and a
-  checkpoint saved after step 3, restored into a fresh trainer and run 2
+  checkpoint saved after step 2, restored into a fresh trainer and run 1
   more steps, which must be bitwise equal to the uninterrupted run under
   deterministic cuDNN;
 - slice 8, the decomposition ladder, in the same phase: per bucket of the
@@ -41,9 +41,9 @@ launches:
   eigenvalue-only refresh, the Newton-Schulz inverse, and up to dim 512
   warm Jacobi sweeps), timed, each warm rung's damped inverse held to its
   fp64 twin and its gap to the exact fp64 inverse printed, and the whole
-  decomposition of a step for each rung; then the trainer for 10 more
+  decomposition of a step for each rung; then the trainer for 6 more
   steps on each of two rungs (``--kfac-decomp-impl subspace
-  --kfac-basis-update-freq 5``; ``--kfac-update-freq 10 --kfac-stagger``),
+  --kfac-basis-update-freq 5``; ``--kfac-update-freq 6 --kfac-stagger``),
   which must run the expected decomposition each step with finite losses
   and the default run's K1/K2 launches;
 - slice 9, right after slice 1: the health guard on ResNet-32
@@ -62,7 +62,7 @@ launches:
   adds one scalar all-reduce a step;
 - slice 10, after the ResNet-50 phase: E-KFAC and ``KFAC.replan``. The
   ImageNet trainer with ``--kfac-name ekfac_dp`` (ResNet-50, bs32, 224 x
-  224, bf16, the capture kernels) for 6 steps with eigen_dp's K1/K2
+  224, bf16, the capture kernels) for 3 steps with eigen_dp's K1/K2
   counts and every moments group non-zero after step 0; the moments at
   every ResNet-50 layer against the same operands in fp64 (gated at
   ``SCALES_TOL``); the moment update's device ms; step medians against
@@ -147,13 +147,13 @@ launches:
   (preconditioned gradients within GRAD_RTOL, or TRAJ_FACTOR x a control
   with fp64 factor GEMMs);
   Transformer-base and BERT-base through their trainers at
-  ``--num-devices 2`` for 3 steps with their K2 launches and replicas.
+  ``--num-devices 2`` for 2 steps with their K2 launches and replicas.
   Then K4/K5a/K5b against their plain versions at every block of the
   grids (the ring's diagonal, full and skipped blocks at their offsets,
   Ulysses' whole-sequence block on half the heads), the skipped block's
   outputs exactly (-1e30, 0, 0) and zero gradients, bitwise over two
   runs, timed beside ``scaled_dot_product_attention`` and the bound;
-- slice 17, last: observability through the trainers' ``main``. The
+- slice 17: observability through the trainers' ``main``. The
   ImageNet trainer at full width (ResNet-50, bs32, 224 x 224, bf16, the
   capture kernels; 9 steps, a decomposition every 4th) with ``--trace``,
   ``--prom-file``, ``--log-dir`` and ``--tb-dir``: the run log's epoch
@@ -169,7 +169,25 @@ launches:
   decomposition marginal is the phase timers'), the LM at both; every K1
   and K2 device kernel must lie inside a ``kfac.ComputeFactor`` range.
   Last, ResNet-32's step median with no ranges, with the ranges, and
-  with the tracer and registry on, interleaved.
+  with the tracer and registry on, interleaved;
+- slice 18, last: the control loop. The perf model's H100 constants
+  measured (``perfmodel.measure_chip``: the bf16 and fp32 GEMM rates,
+  the copy rate, the port's batched ``eigh`` at the model's two points
+  and at ResNet-50's 4608 bucket beside the fit's prediction, K4/K5
+  forward and backward at B1 H8 D64 L16384) and printed beside the
+  committed values. ResNet-32 through ``train_cifar.main --kfac-autotune
+  --trace`` with the capture and decomposition rungs explicit, long
+  enough that the tuner probes the capture rung: its decision log, its
+  ``adopted-knobs.json`` and the preconditioner's final knobs agree, K1/K2
+  launch on every factor step of the 'pallas' rung and never on the
+  'xla' rung, and the epoch line's counters are the tuner's. The LM with
+  ``--kfac-autotune`` for 3 windows (K4/K5 launched). ResNet-50 bs32
+  through ``train_imagenet.main --kfac-autotune``, drift-gated on this
+  card, for at least two judged windows: each modeled phase's drift
+  verdict, for the tuner's last window, the run's phase timers and slice
+  17's. For each tuned run, the tuner's mean interval beside the
+  CUDA-event interval between step ends and the phase timers'
+  ``step_mean``: the loop blocks once a step.
 
 After the build it prints, for the split-TF32 ``wgmma`` kernels (K1 for
 fp32 and bf16 inputs, K4, K5a and K5b at every head dim), the tensor-core
@@ -199,6 +217,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -672,12 +691,12 @@ def kernel_summary(rows, launches, names=tuple(KERNELS), suffix=''):
 # phases 4 and 5: the trainer, fused and against the unfused path
 # ---------------------------------------------------------------------------
 
-def make_trainer(capture_impl, extra=(), tracer=None):
+def make_trainer(capture_impl, extra=()):
     from kfac_pytorch_tpu_torch import train_cifar
     argv = ['--device', 'cuda'] + list(extra)
     if capture_impl is not None:
         argv += ['--kfac-capture-impl', capture_impl]
-    return train_cifar.Trainer(train_cifar.parse_args(argv), tracer=tracer)
+    return train_cifar.Trainer(train_cifar.parse_args(argv))
 
 
 def run_trainer():
@@ -2284,12 +2303,12 @@ def run_nccl():
 #: batch 32, 224 x 224, bf16, label smoothing 0.1, eigen_dp,
 #: kfac_update_freq=1) with the capture kernels, on 256 synthetic images
 R50_ARGS = ['--device', 'cuda', '--synthetic-size', '256']
-R50_STEPS = 8
+R50_STEPS = 4
 R50_PROFILE_STEPS = 1
 R50_AGREE_STEPS = 2
 #: the resume check: save after R50_SAVE_AFTER steps, restore into a fresh
 #: trainer, run R50_RESUME_MORE more
-R50_SAVE_AFTER, R50_RESUME_MORE = 3, 2
+R50_SAVE_AFTER, R50_RESUME_MORE = 2, 1
 R50_CKPT = os.path.join(OUT_DIR, 'ckpt_resnet50')
 #: each warm rung of the decomposition ladder on the card against its fp64
 #: twin (the same rung on the same inputs and seeds in fp64; Newton-Schulz
@@ -2306,14 +2325,14 @@ RUNG_TOL = 1e-3
 JACOBI_MAX_DIM = 512
 #: the ResNet-50 trainer on two more rungs of the ladder, R50_LADDER_STEPS
 #: steps each: (extra flags, the decomposition each step must run)
-R50_LADDER_STEPS = 10
+R50_LADDER_STEPS = 6
 R50_LADDER_RUNS = {
     'subspace, basis_update_freq 5': (
         ['--kfac-decomp-impl', 'subspace', '--kfac-basis-update-freq', '5'],
-        ['full'] + ['refresh'] * 4 + ['warm'] + ['refresh'] * 4),
-    'stagger, kfac_update_freq 10': (
-        ['--kfac-update-freq', '10', '--kfac-stagger'],
-        ['full'] + ['cohort'] * 9),
+        ['full'] + ['refresh'] * 4 + ['warm']),
+    'stagger, kfac_update_freq 6': (
+        ['--kfac-update-freq', '6', '--kfac-stagger'],
+        ['full'] + ['cohort'] * 5),
 }
 
 
@@ -2421,10 +2440,10 @@ def time_decomposition(tr, prev):
     seeds = engine.compute_decomposition(plan, prev.factors, damping,
                                          'cholesky', eps)['invs']
 
-    # two reps a rung and bucket: the whole run keeps inside its time
-    # limit as the script grows
+    # one rep a rung and bucket (after its warm-up call): the whole run
+    # keeps inside its time limit as the script grows
     def ms(fn):
-        return time_ms(fn, reps=2, hide_host=False)
+        return time_ms(fn, reps=1, hide_host=False)
 
     rows, bad = [], []
     for d in plan.bucket_dims:
@@ -2771,7 +2790,7 @@ LADDER_RUNGS = [0, 0, 0, 1, 2, 2, 2, 0, 0, 0]
 F1MC_STEPS = 3
 #: timed steps of the guard's cost (after GUARD_WARM untimed ones), in
 #: rounds alternating on and off
-GUARD_STEPS_R32, GUARD_STEPS_R50, GUARD_WARM = 15, 3, 2
+GUARD_STEPS_R32, GUARD_STEPS_R50, GUARD_WARM = 15, 2, 2
 #: steps of each loader-depth timing, in rounds alternating 2 and 0
 DEPTH_STEPS, DEPTH_ROUNDS = 6, 3
 
@@ -3950,24 +3969,25 @@ def run_slice12():
 S13_NETS = {
     'vgg16_cifar100': ('train_cifar', [
         '--model', 'vgg16', '--dataset', 'cifar100', '--kfac-update-freq',
-        '1', '--kfac-cov-update-freq', '1', '--damping', '0.03'], 4,
+        '1', '--kfac-cov-update-freq', '1', '--damping', '0.03'], 2,
         torch.float32),
-    'wrn28_10': ('train_cifar', ['--model', 'wrn-28-10'], 4, torch.float32),
+    'wrn28_10': ('train_cifar', ['--model', 'wrn-28-10'], 2, torch.float32),
     'densenet201': ('train_imagenet', [
         '--model', 'densenet201', '--batch-size', '16', '--synthetic-size',
-        '128'], 4, torch.bfloat16),
+        '128'], 2, torch.bfloat16),
     'inception_v4': ('train_imagenet', [
         '--model', 'inception-v4', '--batch-size', '16', '--synthetic-size',
-        '128'], 4, torch.bfloat16),
+        '128'], 2, torch.bfloat16),
 }
 #: the Inception-v4 lockstep (its non-square kernels), kernels against the
 #: plain path, in steps
 S13_LOCKSTEP_STEPS = 1
 #: the reference's time breakdown by subtraction on DenseNet-201: the
-#: trainer with each of these --exclude-parts, S13_EXCLUDE_STEPS steps
+#: trainer with each of these --exclude-parts, S13_EXCLUDE_STEPS steps of
+#: which the first S13_EXCLUDE_WARM are not timed
 S13_EXCLUDE = ('', 'ComputeFactor', 'ComputeInverse',
                'ComputeFactor,ComputeInverse')
-S13_EXCLUDE_STEPS = 3
+S13_EXCLUDE_STEPS, S13_EXCLUDE_WARM = 3, 1
 
 
 def s13_trainer(name, extra=()):
@@ -4072,7 +4092,8 @@ def s13_net(name):
 def s13_exclude_parts():
     """The reference's breakdown by subtraction on DenseNet-201: its
     trainer with each of S13_EXCLUDE (``--exclude-parts``) for
-    S13_EXCLUDE_STEPS steps, each step median printed. Without
+    S13_EXCLUDE_STEPS steps, each median of the steps after the first
+    S13_EXCLUDE_WARM printed. Without
     ComputeFactor no K1/K2 launches; without ComputeInverse no
     decomposition runs and the gradients leave the preconditioner bitwise
     as they entered it. Returns the launches and the numbers."""
@@ -4122,7 +4143,8 @@ def s13_exclude_parts():
             launches = ({k: v + run['launches'][k] for k, v in
                          launches.items()} if launches else run['launches'])
             out[label] = {**run,
-                          'step_ms_median': float(np.median(run['step_ms'])),
+                          'step_ms_median': float(np.median(
+                              run['step_ms'][S13_EXCLUDE_WARM:])),
                           'grads_untouched': same}
             del tr
             torch.cuda.empty_cache()
@@ -4134,7 +4156,9 @@ def s13_exclude_parts():
         'ComputeInverse': med['none'] - med['ComputeInverse'],
         'rest': med['ComputeFactor,ComputeInverse']}
     print(f'slice 13 exclude_parts on densenet201 (bs{batch} bf16 eigen_dp, '
-          f'{S13_EXCLUDE_STEPS} steps each): step ms medians '
+          f'{S13_EXCLUDE_WARM} warm + '
+          f'{S13_EXCLUDE_STEPS - S13_EXCLUDE_WARM} timed steps each): step '
+          f'ms medians '
           f'{json.dumps({k: round(v, 1) for k, v in med.items()})}; by '
           f'subtraction ComputeFactor {out["breakdown_ms"]["ComputeFactor"]:.1f}'
           f' ms, ComputeInverse {out["breakdown_ms"]["ComputeInverse"]:.1f} '
@@ -5063,7 +5087,9 @@ def s17_obs_cost():
     shutil.rmtree(d, ignore_errors=True)
     tracer, reg = obs.setup_trainer(trace_dir=os.path.join(d, 'trace'),
                                     prom_file=os.path.join(d, 'm.prom'))
-    on = make_trainer('auto', tracer=tracer)
+    on = make_trainer('auto')
+    on.tracer = tracer
+    on.step_fn.set_tracer(tracer)
     off = make_trainer('auto')
     timers = utils.PhaseTimers(tracer=tracer, registry=reg, histogram=True)
     monitor = utils.HealthMonitor(state=on.state, registry=reg)
@@ -5127,6 +5153,385 @@ def run_slice17():
     print(f'slice 17 phase: {out["seconds"]:.1f} s', flush=True)
     return {'resnet50_slice17': r50_launches,
             'transformer_lm_slice17': lm_launches}, out
+
+
+# ---------------------------------------------------------------------------
+# slice 18: the control loop (the knob arbiter, the online tuner, the perf
+# model on this card's constants and the drift gate)
+# ---------------------------------------------------------------------------
+
+S18_DIR = os.path.join(OUT_DIR, 'slice18')
+#: ResNet-32 with the tuner and both rungs explicit (the tuner probes a
+#: rung only when it is set), long enough that the capture rung is probed
+#: after up to three commits (each dwells two windows): 20 epochs of the
+#: synthetic set's 16 steps
+S18_R32 = ['--device', 'cuda', '--kfac-autotune', '--kfac-capture-impl',
+           'pallas', '--kfac-decomp-impl', 'xla', '--epochs', '20']
+#: the LM with the tuner, every kernel on, 3 windows (16 steps a window, 2
+#: settling)
+S18_LM = ['--kfac-capture-impl', 'pallas', '--attn-impl', 'pallas',
+          '--kfac-autotune', '--epochs', '1', '--steps-per-epoch', '56']
+#: ResNet-50 bs32 (the perf model's workload: the drift-gated tuner), one
+#: epoch of 56 steps for at least two judged windows; the prior seeds
+#: kfac_update_freq near the ladder's top, so few steps decompose
+S18_R50 = ['--device', 'cuda', '--model', 'resnet50', '--batch-size', '32',
+           '--kfac-autotune', '--kfac-capture-impl', 'pallas',
+           '--kfac-update-freq', '8', '--synthetic-size', '1792',
+           '--epochs', '1']
+#: the least windows a run's tuner must judge
+S18_WINDOWS = {'resnet32': 4, 'transformer_lm': 3, 'resnet50': 2}
+
+
+class _Tracked:
+    """A trainer's step function that records, after each call, the
+    phases, the capture rung in force, the kernels' launches the call
+    made and a CUDA event at its end (every other attribute is the step
+    function's)."""
+
+    def __init__(self, fn, seen):
+        self._fn, self._seen = fn, seen
+
+    def __call__(self, state, *args, **kw):
+        before = read_counts()
+        out = self._fn(state, *args, **kw)
+        after = read_counts()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        pre = self._fn.precond
+        self._seen.append({
+            'step': state.step, 'phases': tuple(self._fn.last_phases),
+            'capture_impl': None if pre is None else pre.capture_impl,
+            'launches': {k: after[k] - before[k] for k in after},
+            'event': ev})
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+
+@contextlib.contextmanager
+def tracking_steps():
+    """Each step function the trainers build inside is a :class:`_Tracked`
+    feeding the yielded list (and knows its preconditioner)."""
+    from kfac_pytorch_tpu_torch import training
+    seen = []
+    build = training.build_train_step
+
+    def tracked(model, tx, precond, *args, **kw):
+        fn = build(model, tx, precond, *args, **kw)
+        fn.precond = precond
+        return _Tracked(fn, seen)
+    training.build_train_step = tracked
+    try:
+        yield seen
+    finally:
+        training.build_train_step = build
+
+
+def s18_constants():
+    """``perfmodel.measure_chip`` on this card beside the committed H100
+    constants, with their ratios, and the eigh fit's prediction at
+    ResNet-50's widest bucket beside the measured time."""
+    from kfac_pytorch_tpu_torch import perfmodel
+    t0 = time.perf_counter()
+    got = perfmodel.measure_chip()
+    want = perfmodel.H100
+    pairs = {'peak_bf16': (got['peak_bf16'], want.peak_bf16),
+             'fp32_rate': (got['fp32_rate'],
+                           want.peak_bf16 / want.f32_penalty),
+             'f32_penalty': (got['f32_penalty'], want.f32_penalty),
+             'hbm_bw': (got['hbm_bw'], want.hbm_bw),
+             'attn_seconds': (got['attn_note']['seconds'],
+                              want.attn_note['seconds'])}
+    for (b, d, s), (_, _, c) in zip(got['fenced_eigh_points'],
+                                    want.fenced_eigh_points):
+        pairs[f'eigh_{b}x{d}_s'] = (s, c)
+    rows = {k: {'measured': m, 'committed': c, 'ratio': m / c}
+            for k, (m, c) in pairs.items()}
+    bad = [k for k, r in rows.items() if not np.isfinite(r['ratio'])
+           or r['ratio'] <= 0]
+    if bad:
+        fail(f'slice 18 perf model constants: {bad} not measured: {rows}')
+    _, _, fit = perfmodel.eigh_time_model()
+    check = dict(got['eigh_check'], committed_fit_s=fit(
+        got['eigh_check']['rows'], got['eigh_check']['dim']))
+    seconds = time.perf_counter() - t0
+    print(f'slice 18 perf model constants (measured, committed, ratio; '
+          f'{got["card"]}, {got["date"]}): ' + ', '.join(
+              f'{k} {r["measured"]:.6g} {r["committed"]:.6g} '
+              f'{r["ratio"]:.3f}' for k, r in rows.items()), flush=True)
+    print(f'slice 18 eigh at ResNet-50\'s bucket [{check["rows"]}, '
+          f'{check["dim"]}]: measured {check["measured_s"] * 1e3:.1f} ms, '
+          f'the two-point fit predicts {check["committed_fit_s"] * 1e3:.1f} '
+          f'ms (this run\'s points: {check["fit_s"] * 1e3:.1f} ms); '
+          f'{seconds:.1f} s', flush=True)
+    return {'measured': got, 'rows': rows, 'eigh_4608': check,
+            'seconds': seconds}
+
+
+def tuner_consistent(tr, d, label):
+    """The tuner's decision log against its decisions, the
+    preconditioner's final knobs and ``adopted-knobs.json``; returns the
+    decisions."""
+    from kfac_pytorch_tpu_torch import autotune
+    tuner = tr.tuner
+    path = os.path.join(d, 'trace', 'autotune-decisions.jsonl')
+    logged = ([json.loads(ln) for ln in open(path)]
+              if os.path.exists(path) else [])
+    if logged != list(tuner.decisions):
+        fail(f'slice 18 {label}: the decision log {logged} is not the '
+             f'tuner\'s decisions {list(tuner.decisions)}')
+    knobs = autotune._capture(tr.precond)
+    last = {}
+    for dec in logged:
+        if dec['kind'] in ('seed', 'commit', 'revert'):
+            last[dec['knob']] = dec['to']
+    wrong = {k: (v, knobs[k]) for k, v in last.items() if knobs[k] != v}
+    if tuner.state == 'probe':
+        # a probe still in flight holds its candidate
+        knob, _, new = tuner._candidate
+        wrong.pop(knob, None)
+        if knobs[knob] != new:
+            wrong[knob] = (new, knobs[knob])
+    if wrong:
+        fail(f'slice 18 {label}: decisions against the final knobs '
+             f'(decided, in force): {wrong}')
+    adopted_path = os.path.join(d, 'trace', autotune.ADOPTED_KNOBS_FILENAME)
+    if last:
+        adopted = json.load(open(adopted_path))
+        moved = {autotune.ADOPTED_KNOB_FLAGS[k]: v for k, v in last.items()}
+        if {k: adopted.get(k) for k in moved} != moved:
+            fail(f'slice 18 {label}: adopted-knobs.json {adopted} against '
+                 f'the last decisions {moved}')
+    return logged
+
+
+def epoch_lines(d, label):
+    """Every epoch line of the run log's one file under ``d``."""
+    import glob
+    logs = glob.glob(os.path.join(d, 'logs', '*.log'))
+    if len(logs) != 1:
+        fail(f'slice 18 {label}: run logs {logs}, expected one')
+    lines = [ln for ln in open(logs[0]).read().splitlines()
+             if re.search(r' epoch \d+: ', ln)]
+    if not lines:
+        fail(f'slice 18 {label}: no epoch line in {logs[0]}')
+    return lines
+
+
+def tick_timing(tr, seen, lines, label):
+    """The tuner's intervals beside the device's: the seconds it recorded
+    (a step's host inter-arrival, the loss read included), the CUDA-event
+    interval between consecutive step ends, and the phase timers'
+    ``step_mean`` (the epochs' mean, when the epoch lines have one). A
+    loop that blocks once a step gives intervals no shorter than the
+    device's."""
+    torch.cuda.synchronize()
+    events = [s['event'] for s in seen]
+    dev = [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])]
+    ticks = tr.tuner.recorded
+    out = {'tick_mean_s': float(np.mean(ticks)) if ticks else None,
+           'tick_median_s': float(np.median(ticks)) if ticks else None,
+           'device_interval_mean_s': float(np.mean(dev)),
+           'device_interval_median_s': float(np.median(dev)),
+           'step_mean_s': None}
+    means = [phase_ms(ln)['step_mean'] for ln in lines
+             if 'step_mean' in phase_ms(ln)]
+    if means:
+        out['step_mean_s'] = float(np.mean(means)) / 1e3
+    if not ticks or out['tick_mean_s'] < 0.9 * out['device_interval_mean_s']:
+        fail(f'slice 18 {label}: the tuner\'s intervals are shorter than '
+             f'the device\'s: {out}')
+    return out
+
+
+def s18_tuned(module, argv, label, d, launches_per_step=None):
+    """``module.main(argv)`` with the tuner, ``--trace`` and ``--log-dir``
+    under ``d``, every step tracked (:func:`tracking_steps`) and the
+    tuner's recorded intervals kept. Returns the trainer, the tracked
+    steps, the epoch line, the launches and the numbers."""
+    import importlib
+
+    from kfac_pytorch_tpu_torch import autotune
+    mod = importlib.import_module(f'kfac_pytorch_tpu_torch.{module}')
+    shutil.rmtree(d, ignore_errors=True)
+    argv = argv + ['--trace', os.path.join(d, 'trace'), '--log-dir',
+                   os.path.join(d, 'logs')]
+    if module == 'train_imagenet':
+        argv += ['--checkpoint-format', os.path.join(d, 'ckpt')]
+    record = autotune.KnobController.record
+
+    def recording(self, phases, seconds, step=None):
+        self.__dict__.setdefault('recorded', []).append(seconds)
+        return record(self, phases, seconds, step=step)
+    autotune.KnobController.record = recording
+    t0 = time.perf_counter()
+    try:
+        with tracking_steps() as seen:
+            reset_counts()
+            tr = mod.main(argv)
+            launches = read_counts()
+    finally:
+        autotune.KnobController.record = record
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(d, 'ckpt'), ignore_errors=True)
+    tuner = tr.tuner
+    if tuner is None or tuner.windows < S18_WINDOWS[label]:
+        fail(f'slice 18 {label}: {0 if tuner is None else tuner.windows} '
+             f'windows judged, expected {S18_WINDOWS[label]}')
+    tuner.__dict__.setdefault('recorded', [])
+    lines = epoch_lines(d, label)
+    decisions = tuner_consistent(tr, d, label)
+    # the tuner's counters on the epoch lines (each an epoch's deltas)
+    counts = {}
+    for ln in lines:
+        for k, v in re.findall(r'(autotune_\w+)=(\d+)', ln):
+            counts[k] = counts.get(k, 0) + int(v)
+    want = {k: v for k, v in tuner.counts().items() if v}
+    if counts != want:
+        fail(f'slice 18 {label}: the epoch lines count {counts}, the tuner '
+             f'{want}: {lines}')
+    timing = tick_timing(tr, seen, lines, label)
+    return tr, seen, lines, launches, {
+        'seconds': seconds, 'windows': tuner.windows, 'state': tuner.state,
+        'decisions': decisions, 'counts': tuner.counts(),
+        'knobs': autotune._capture(tr.precond), 'launches': launches,
+        'timing': timing, 'epoch_lines': lines}
+
+
+def s18_resnet32():
+    """ResNet-32 with the tuner: K1/K2 on every factor step of the
+    'pallas' rung and never on the 'xla' rung, which the tuner must
+    have probed."""
+    label = 'resnet32'
+    tr, seen, _, launches, out = s18_tuned(
+        'train_cifar', S18_R32, label, os.path.join(S18_DIR, label))
+    per, _, _ = launches_wanted(tr, 1)
+    rungs, bad = {}, []
+    for s in seen:
+        got = {k: s['launches'][k] for k in ('K1 conv_a', 'K2 stat_rows')}
+        if s['capture_impl'] == 'xla' or 'stats' not in s['phases']:
+            want = {k: 0 for k in got}
+        else:
+            want = {k: per[k] for k in got}
+        rungs[s['capture_impl']] = rungs.get(s['capture_impl'], 0) + 1
+        if got != want:
+            bad.append((s['step'], s['capture_impl'], s['phases'], got))
+    if bad:
+        fail(f'slice 18 {label}: K1/K2 launches against the capture rung '
+             f'(step, rung, phases, launches): {bad[:5]}')
+    if not rungs.get('xla') or not rungs.get('pallas'):
+        fail(f'slice 18 {label}: steps by capture rung {rungs}: the tuner '
+             f'never probed the plain path; decisions {out["decisions"]}')
+    out['steps_by_capture_rung'] = rungs
+    print(f'slice 18 {label} (train_cifar.main --kfac-autotune, capture '
+          f'pallas, decomposition xla): {len(seen)} steps, '
+          f'{out["windows"]} windows ({out["state"]}), steps by capture '
+          f'rung {rungs}, K1/K2 on the pallas rung only, counts '
+          f'{out["counts"]}, knobs {out["knobs"]}, intervals '
+          f'{json.dumps(out["timing"])}, {out["seconds"]:.1f} s; decisions '
+          f'{json.dumps(out["decisions"])}', flush=True)
+    return tr, launches, out
+
+
+def s18_lm():
+    """The LM with the tuner for 3 windows: K4/K5 launched."""
+    label = 'transformer_lm'
+    tr, seen, _, launches, out = s18_tuned(
+        'train_lm', S18_LM, label, os.path.join(S18_DIR, 'lm'))
+    missing = [k for k in ('K2 stat_rows', 'K4 flash_fwd',
+                           'K5a flash_bwd_dq', 'K5b flash_bwd_dkv')
+               if not launches[k]]
+    if missing:
+        fail(f'slice 18 {label}: {missing} not launched: {launches}')
+    print(f'slice 18 {label} (train_lm.main --kfac-autotune): {len(seen)} '
+          f'steps, {out["windows"]} windows ({out["state"]}), launches '
+          f'{launches}, counts {out["counts"]}, knobs {out["knobs"]}, '
+          f'intervals {json.dumps(out["timing"])}, {out["seconds"]:.1f} s; '
+          f'decisions {json.dumps(out["decisions"])}', flush=True)
+    return tr, launches, out
+
+
+def drift_verdicts(measured_s, tr, label, source):
+    """``obs.drift.drift_block`` of ``measured_s`` (ledger-taxonomy
+    seconds) against the perf model on this card, printed phase by
+    phase."""
+    from kfac_pytorch_tpu_torch import autotune, perfmodel
+    from kfac_pytorch_tpu_torch.obs import drift
+    pre = tr.precond
+    block = drift.drift_block(
+        {k: v for k, v in measured_s.items()
+         if k not in ('step_mean', 'step_max')},
+        perfmodel.predict_block(),
+        platform=autotune.device_platform(pre.device), variant=pre.variant,
+        comm_precision=pre.comm_precision, decomp_impl=pre.decomp_impl,
+        capture_impl=pre.capture_impl, source=source)
+    if 'error' in block or not block['comparable']:
+        fail(f'slice 18 {label} drift ({source}): {block}')
+    print(f'slice 18 {label} drift ({source}): verdict '
+          f'{block["gate"]["verdict"]}; ' + '; '.join(
+              f'{name} measured {e["measured_s"]} s, band {e.get("band_s")}'
+              f' s, within {e["within_band"]}'
+              for name, e in block['phases'].items()), flush=True)
+    return block
+
+
+def s18_resnet50(slice17_phase_ms):
+    """ResNet-50 bs32 with the tuner, drift-gated (this card is the
+    modeled one): at least two judged windows, K1/K2 launched, the drift
+    verdicts of the tuner's last window, of this run's phase timers and
+    of slice 17's (``slice17_phase_ms``, its epoch line's marginals)."""
+    from kfac_pytorch_tpu_torch.obs import drift
+    label = 'resnet50'
+    tr, seen, lines, launches, out = s18_tuned(
+        'train_imagenet', S18_R50, label, os.path.join(S18_DIR, label))
+    line = lines[0]
+    if tr.tuner.predicted is None or tr.tuner.platform != \
+            torch.cuda.get_device_name(0):
+        fail(f'slice 18 {label}: the tuner is not drift-gated on this card '
+             f'(platform {tr.tuner.platform})')
+    if not (launches['K1 conv_a'] and launches['K2 stat_rows']):
+        fail(f'slice 18 {label}: K1/K2 not launched: {launches}')
+    out['drift'] = {
+        'last_window': drift_verdicts(tr.tuner.last_window['measured'], tr,
+                                      label, 'the tuner\'s last window'),
+        'phase_timers': drift_verdicts(
+            drift.measured_from_phase_timers(phase_ms(line)), tr, label,
+            'this run\'s phase timers'),
+        'slice17_phase_timers': drift_verdicts(
+            drift.measured_from_phase_timers(slice17_phase_ms), tr, label,
+            'slice 17\'s phase timers (--kfac-update-freq 4)')}
+    print(f'slice 18 {label} (train_imagenet.main --kfac-autotune, bs32 '
+          f'224 bf16, drift-gated): {len(seen)} steps, {out["windows"]} '
+          f'windows ({out["state"]}), launches {launches}, counts '
+          f'{out["counts"]}, knobs {out["knobs"]}, kfac_phase_ms '
+          f'{json.dumps(phase_ms(line))}, intervals '
+          f'{json.dumps(out["timing"])}, {out["seconds"]:.1f} s; decisions '
+          f'{json.dumps(out["decisions"])}', flush=True)
+    return tr, launches, out
+
+
+def run_slice18(slice17_phase_ms):
+    """The slice-18 phase: the perf model's constants (:func:`s18_constants`),
+    then ResNet-32, the LM and ResNet-50 through their trainers with the
+    tuner (:func:`s18_resnet32`, :func:`s18_lm`, :func:`s18_resnet50`).
+    Returns the launches by path and the numbers."""
+    t0 = time.perf_counter()
+    out = {'constants': s18_constants()}
+    r32, r32_launches, out['resnet32'] = s18_resnet32()
+    del r32
+    release_memory()
+    lm, lm_launches, out['transformer_lm'] = s18_lm()
+    del lm
+    release_memory()
+    r50, r50_launches, out['resnet50'] = s18_resnet50(slice17_phase_ms)
+    del r50
+    release_memory()
+    out['seconds'] = time.perf_counter() - t0
+    print(f'slice 18 phase: {out["seconds"]:.1f} s', flush=True)
+    return {'resnet32_slice18': r32_launches,
+            'transformer_lm_slice18': lm_launches,
+            'resnet50_slice18': r50_launches}, out
 
 
 def main():
@@ -5226,15 +5631,23 @@ def main():
 
     # slice 17: the trainers' observability, the step split by range
     s17_launches, slice17 = run_slice17()
+    release_memory()
+
+    # slice 18: the control loop (tuner, arbiter, perf model, drift gate)
+    s18_launches, slice18 = run_slice18(slice17['resnet50']['kfac_phase_ms'])
 
     kernels = kernel_summary(rows, {
         'resnet32': launches, 'transformer_lm': lm_launches, **w2_launches,
         **s12_launches, 'transformer_lm_slice17':
-        s17_launches['transformer_lm_slice17']})
+        s17_launches['transformer_lm_slice17'],
+        'resnet32_slice18': s18_launches['resnet32_slice18'],
+        'transformer_lm_slice18': s18_launches['transformer_lm_slice18']})
     kernels += kernel_summary(r50_rows, {'resnet50': r50_launches,
                                          'resnet50_slice12_world2': s12_r50,
                                          'resnet50_slice17':
-                                         s17_launches['resnet50_slice17']},
+                                         s17_launches['resnet50_slice17'],
+                                         'resnet50_slice18':
+                                         s18_launches['resnet50_slice18']},
                               names=('K1 conv_a', 'K2 stat_rows'),
                               suffix=' (resnet50 bf16)')
     for name, (_, _, _, dtype) in S13_NETS.items():
@@ -5266,6 +5679,7 @@ def main():
                    'slice10': slice10, 'slice12': slice12,
                    'slice13': slice13, 'slice14': slice14,
                    'slice15': slice15, 'slice17': slice17,
+                   'slice18': slice18,
                    'resnet50': {'decomposition': decomp,
                                 'resume': {k: v for k, v in resume.items()
                                            if k != 'differ'},

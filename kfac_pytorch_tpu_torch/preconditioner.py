@@ -145,8 +145,6 @@ def _warn_ekfac_damping_once(damping):
 _REPLAN_LATER = {
     'mesh_axes': 'replan(mesh_axes=) is not ported yet: ROADMAP queue 1, '
                  'slice E (composed meshes)',
-    'arbiter': 'the knob arbiter is not ported yet: ROADMAP queue 1, '
-               'slice F item 22 (autotune)',
 }
 
 #: ``replan``'s default ``group``: keep the current one
@@ -323,7 +321,14 @@ class KFAC:
         # plan.build_cohorts' bucket_freq), set by replan; empty = uniform
         self.bucket_stagger_freq = {}
         self._pending_replan = None
-        self._invalidators = []
+        # the single writer of the runtime knobs (autotune.arbiter_for),
+        # made on first use; it also holds the step invalidators
+        self._knob_arbiter = None
+        # the plan's factor-wise split (setup/replan), read by the tuner's
+        # comm-mode candidates
+        self._distributed = None
+        # the device of the state (init): the tuner's platform
+        self.device = None
 
     def _check_prefetch(self, comm_prefetch):
         """Keep ``comm_prefetch``, with the JAX constructor's errors."""
@@ -425,6 +430,7 @@ class KFAC:
                                assignment=self.assignment,
                                distribute_layer_factors=bool(distribute),
                                bucket_fn=self.bucket_fn)
+        self._distributed = bool(distribute)
         self._cohorts = self._shard_plan = None
         if self.stagger:
             self.rebase_cohorts()
@@ -464,13 +470,6 @@ class KFAC:
 
     # -- live replanning --------------------------------------------------
 
-    def add_invalidator(self, fn):
-        """Register ``fn()``, called once by every replan that changes
-        what a step computes (``training.build_train_step`` registers
-        one that makes its next step re-derive from the state whether a
-        decomposition exists, and decompose cold)."""
-        self._invalidators.append(fn)
-
     @property
     def pending_replan(self):
         """The queued :meth:`request_replan` spec, or None; the trainer
@@ -479,12 +478,14 @@ class KFAC:
 
     def request_replan(self, _invalidate=True, **spec):
         """Queue a replan for the next step boundary; later requests merge
-        key by key. ``_invalidate=False`` (the JAX knob arbiter's call,
-        which fires the invalidators itself) is not ported."""
-        if not _invalidate:
-            raise NotImplementedError(_REPLAN_LATER['arbiter'])
-        pend = dict(self._pending_replan or {})
+        key by key. ``_invalidate=False`` records that the caller already
+        fired the invalidators (the knob arbiter does, once, when it
+        commits a ``comm_mode``); the flag ORs across merged requests, so
+        a caller that still needs the invalidation keeps it armed."""
+        pend = dict(self._pending_replan or {'_invalidate': False})
+        invalidate = bool(pend.get('_invalidate', False)) or _invalidate
         pend.update(spec)
+        pend['_invalidate'] = invalidate
         self._pending_replan = pend
         return pend
 
@@ -532,16 +533,20 @@ class KFAC:
         group; the whole list when the new world has no group).
 
         The new plan and state are built before any attribute changes, so
-        a failed replan leaves the preconditioner as it was. A replan
-        that changes what a step computes calls the invalidators once.
-        ``mesh_axes`` and ``_invalidate=False`` raise NotImplementedError
-        naming their ROADMAP item."""
+        a failed replan leaves the preconditioner as it was. The
+        ``comm_mode`` write is the knob arbiter's (under its applying
+        guard, then ``sync_knobs``); a replan that changes what a step
+        computes fires the arbiter's invalidators once, unless
+        ``_invalidate=False`` (the arbiter's queued replan: it fired them
+        when it committed). ``mesh_axes`` raises NotImplementedError
+        naming its ROADMAP item."""
         assert self.plan is not None, 'call setup() first'
         if mesh_axes is not None:
             raise NotImplementedError(_REPLAN_LATER['mesh_axes'])
-        if not _invalidate:
-            raise NotImplementedError(_REPLAN_LATER['arbiter'])
         old_plan = self.plan
+        # the mode the state is held in: the plan's (the knob arbiter
+        # writes ``comm_mode`` when it commits and queues this replan)
+        old_mode = old_plan.comm_mode
 
         # -- the target configuration
         new_variant = self.variant if variant is None else variant
@@ -625,39 +630,81 @@ class KFAC:
                 # only on a lossy MPD reduce
                 and (not (self.ekfac or new_ekfac)
                      or (self.ekfac == new_ekfac
-                         and self.comm_mode == new_mode))
+                         and old_mode == new_mode))
                 and self.tracks_comm_err == clone.tracks_comm_err
                 and ((first.comm_err is None)
                      == (not clone.tracks_comm_err)))
             if not verbatim:
                 new_state = self._transport(clone, kfac_state)
+            elif old_mode != new_mode and new_P > 1:
+                new_state = self._regather_decomp(kfac_state, old_mode,
+                                                  new_mode)
 
         # -- commit every attribute together
         trace_changed = (
-            not same_layout or new_mode != self.comm_mode
+            not same_layout or new_mode != old_mode
             or new_method != self.method or new_reduce != self.stats_reduce
             or new_ekfac != self.ekfac or new_group is not self.group
             or new_overrides != self.bucket_stagger_freq)
         if new_ekfac and not self.ekfac:
             _warn_ekfac_damping_once(self.damping)
+        from kfac_pytorch_tpu_torch import autotune
+        with autotune._applying():
+            # a knob: written under the arbiter's guard, and re-based on
+            # it below so it is never adopted as a foreign write
+            self.comm_mode = new_mode
         self.variant, self.stats_reduce = new_variant, new_reduce
-        self.method, self.comm_mode = new_method, new_mode
+        self.method = new_method
         self.ekfac, self.plan = new_ekfac, new_plan
         self.num_devices, self.group = new_P, new_group
+        self._distributed = distribute
         self.bucket_stagger_freq = new_overrides
         self._cohorts = self._shard_plan = None
         if self.stagger:
             self.rebase_cohorts()
+        if self._knob_arbiter is not None:
+            self._knob_arbiter.sync_knobs(comm_mode=new_mode)
         log.info('kfac: replan applied variant=%s comm_mode=%s world=%d%s '
                  '(layout %s, state %s)', new_variant, new_mode, new_P,
                  f' bucket_overrides={new_overrides}' if new_overrides
                  else '', 'unchanged' if same_layout else 'rebuilt',
                  'carried verbatim' if verbatim else
                  ('transported' if kfac_state is not None else 'none'))
-        if trace_changed:
-            for fn in self._invalidators:
-                fn()
+        if _invalidate and trace_changed:
+            autotune.arbiter_for(self).invalidate()
         return new_state
+
+    def _regather_decomp(self, kfac_state, old_mode, new_mode):
+        """``kfac_state`` with its decomposition rows moved from
+        ``old_mode``'s holding to ``new_mode``'s at the same row layout:
+        at world > 1 comm_mode 'inverse' holds every row on every rank,
+        'pred' a rank's own (``KFACState``), where JAX's global arrays
+        carry over as they are. The factors and the residual are carried
+        as they are. With a live group the state is this rank's (pred ->
+        inverse gathers the rows over the group), else the list of every
+        rank's."""
+        plan = self.plan
+        states = kfac_state if isinstance(kfac_state, list) else None
+        rank = None if states is not None else coll.axis_index(self.group)
+
+        def moved(st, r):
+            decomp = {}
+            for part, tree in st.decomp.items():
+                decomp[part] = {}
+                for k, v in tree.items():
+                    per = plan.buckets[int(k)].per_dev
+                    if new_mode == 'pred':
+                        v = v[r * per:(r + 1) * per]
+                    elif states is not None:
+                        v = torch.cat([s.decomp[part][k] for s in states])
+                    else:
+                        v = coll.all_gather_rows(v, self.group)
+                    decomp[part][k] = v
+            return dataclasses.replace(st, decomp=decomp)
+
+        if states is None:
+            return moved(kfac_state, rank)
+        return [moved(st, r) for r, st in enumerate(states)]
 
     def _transport(self, clone, kfac_state):
         """``kfac_state`` carried from this preconditioner's layout into
@@ -746,6 +793,7 @@ class KFAC:
         ``device`` (the GPU unless ``device='cpu'`` is asked for)."""
         assert self.plan is not None, 'call setup() first'
         device = resolve_device(device)
+        self.device = device
         plan = self.plan
         factors = {str(d): torch.eye(d, device=device).repeat(
             plan.buckets[d].per_dev, 1, 1) for d in plan.bucket_dims}

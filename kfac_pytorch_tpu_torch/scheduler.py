@@ -2,12 +2,15 @@
 ``kfac_pytorch_tpu/scheduler.py``): multiplicative decay of the damping
 and of the factor/inverse update frequencies at listed epochs.
 
-The JAX scheduler proposes its factors to a knob arbiter shared with the
-straggler governor and the autotuner; neither exists in the port yet, so
-this one applies them directly, with the arbiter's rule: damping
-``base * factor``, frequencies ``max(1, int(base * factor))``, and a
-staggered preconditioner's cohort layout rebased to the new window.
+The scheduler is a proposer, not a writer: it hands the epoch's factors
+to the preconditioner's knob arbiter (``autotune.arbiter_for``), which
+composes them with the tuner's overrides (and a straggler stretch) over
+the construction-time base and applies the result once: damping ``base *
+factor``, frequencies ``max(1, int(base * factor))``, and a staggered
+preconditioner's cohort layout rebased to the new window.
 """
+
+from kfac_pytorch_tpu_torch import autotune
 
 
 class KFACParamScheduler:
@@ -15,9 +18,9 @@ class KFACParamScheduler:
                  update_freq_alpha=1, update_freq_schedule=None,
                  start_epoch=0):
         self.kfac = kfac
-        self.base = {'damping': kfac.damping,
-                     'fac_update_freq': kfac.fac_update_freq,
-                     'kfac_update_freq': kfac.kfac_update_freq}
+        # the bases the factors apply to live in the arbiter
+        # (autotune.arbiter_for(kfac).base): this class holds no knob
+        # state of its own
         self.damping_factor_func = self._factor_func(
             damping_schedule, damping_alpha)
         self.update_freq_factor_func = self._factor_func(
@@ -40,12 +43,10 @@ class KFACParamScheduler:
         return factor
 
     def _apply(self):
-        self.kfac.damping = (self.base['damping']
-                             * self.damping_factor_func(self.epoch))
-        f = self.update_freq_factor_func(self.epoch)
-        for k in ('fac_update_freq', 'kfac_update_freq'):
-            setattr(self.kfac, k, max(1, int(self.base[k] * f)))
-        self.kfac.rebase_cohorts()   # a no-op unless the window changed
+        autotune.arbiter_for(self.kfac).propose(
+            'schedule',
+            damping_factor=self.damping_factor_func(self.epoch),
+            freq_factor=self.update_freq_factor_func(self.epoch))
 
     def step(self, epoch=None):
         """Advance to ``epoch`` (or by one) and update the wrapped KFAC's

@@ -35,7 +35,13 @@ start). ``--io-retries`` retries checkpoint I/O and the next batch;
 ``--log-dir``, ``--trace``, ``--prom-file`` and ``--tb-dir``: the run
 log, trace spans and metric exports of the ImageNet trainer
 (``train_imagenet.observed``), with each step's time split by phase
-set on the epoch line (`` kfac_phase_ms=``). A world change::
+set on the epoch line (`` kfac_phase_ms=``). ``--kfac-autotune``: the
+online tuner (``autotune.KnobController``) hill-climbs the runtime knobs
+from measured step times, its decisions in
+``<--trace>/autotune-decisions.jsonl`` and ``adopted-knobs.json``; the
+rungs of ``--kfac-capture-impl`` and ``--kfac-decomp-impl`` are tuned only
+when the flag is given. ``--step-deadline`` and ``--straggler-budget``
+raise NotImplementedError naming their ROADMAP item. A world change::
 
   python -m kfac_pytorch_tpu_torch.launch --nproc 2 -- train_cifar \\
       --checkpoint-dir D --epochs 2
@@ -53,13 +59,11 @@ import kfac_pytorch_tpu_torch as kfac
 from kfac_pytorch_tpu_torch import data as kdata
 from kfac_pytorch_tpu_torch import models, training, utils
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
-from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
-                                                   add_obs_flags, end_epoch,
-                                                   init_world,
-                                                   io_retry, kfac_for,
-                                                   resume_from, say,
-                                                   observed, speed,
-                                                   stamp_world)
+from kfac_pytorch_tpu_torch.train_imagenet import (
+    add_autotune_flag, add_kfac_flags, add_obs_flags,
+    add_unported_flags, check_ported, end_epoch, gate_tuner, init_world,
+    io_retry, kfac_for, observed, resume_from, say, speed, stamp_world,
+    tuner_for)
 from kfac_pytorch_tpu_torch.utils import checkpoint, summary
 
 
@@ -80,6 +84,7 @@ def parse_args(argv=None):
     p.add_argument('--wd', type=float, default=5e-4)
     p.add_argument('--momentum', type=float, default=0.9)
     add_kfac_flags(p, update_freq=10, damping=0.003)
+    add_autotune_flag(p, ', with perf-model drift-band vetoes')
     p.add_argument('--kfac-type', '--fisher-type', default='Femp',
                    choices=['Femp', 'F1mc'],
                    help='Fisher estimator: empirical-gradient (Femp) or '
@@ -116,6 +121,9 @@ def parse_args(argv=None):
                         'transients (0 = fail fast)')
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
     add_obs_flags(p)
+    # the watchdog's and the straggler governor's flags, refused
+    # (check_ported) until they are ported
+    add_unported_flags(p)
     return p.parse_args(argv)
 
 
@@ -136,9 +144,11 @@ class Trainer:
 
     log = None
 
-    def __init__(self, args, group=None, local_rank=None, tracer=None):
+    def __init__(self, args, group=None, local_rank=None, log=None):
+        check_ported(args)
         self.args = args
-        self.tracer = tracer
+        self.tracer = None
+        self.log = log
         world = args.num_devices
         self.group, self.rank, self.device = init_world(args, group,
                                                         local_rank)
@@ -179,10 +189,13 @@ class Trainer:
         sample = torch.zeros((args.batch_size // world, 32, 32, 3))
         self.state = training.init_train_state(model, self.tx, self.precond,
                                                sample, self.device)
+        # no perf-model block: the model describes the ImageNet ResNet-50,
+        # so the tuner's decisions here are measurement-only
+        self.tuner = tuner_for(self, args)
         self.step_fn = training.build_train_step(
             model, self.tx, self.precond, loss_fn,
             fisher_type=args.kfac_type, fisher_seed=args.seed,
-            group=self.group, tracer=tracer)
+            group=self.group, autotune=self.tuner)
 
     def say(self, *args, **kw):
         say(self, *args, **kw)
@@ -250,6 +263,7 @@ def main(argv=None, group=None):
     one; else the launcher's group at world>1); returns it, its final
     state in ``.state``."""
     args = parse_args(argv)
+    check_ported(args)
     with observed(
             args, args.dataset, args.model, f'kfac{args.kfac_update_freq}',
             args.kfac_name,
@@ -258,10 +272,9 @@ def main(argv=None, group=None):
             if args.kfac_basis_update_freq else None,
             'warm' if args.kfac_warm_start else None,
             'stagger' if args.kfac_stagger else None,
-            f'bs{args.batch_size}', f'nd{args.num_devices}') as (
-                log, tracer, reg, tb):
-        tr = Trainer(args, group=group, tracer=tracer)
-        tr.log = log
+            f'bs{args.batch_size}', f'nd{args.num_devices}',
+            trainer=lambda log: Trainer(args, group=group, log=log)) as (
+                tr, log, tracer, reg, tb):
         start_epoch, done = tr.resume()
         if args.speed:
             speed(tr)
@@ -275,6 +288,7 @@ def main(argv=None, group=None):
         # skipped batches and ladder climbs as WARNINGs at their step, and a
         # per-epoch suffix
         monitor = utils.HealthMonitor(log, state=tr.state, registry=reg)
+        gate_tuner(tr, monitor)
         # each step's wall time by phase set (the epoch line's kfac_phase_ms=);
         # with a tracer every step is also a kfac.step span
         timers = utils.PhaseTimers(tracer=tracer, registry=reg, histogram=True)

@@ -40,6 +40,13 @@ suffix); ``--trace DIR`` writes Chrome-trace spans (``kfac.step``,
 registry to ``DIR/metrics.jsonl``; ``--prom-file`` exports the registry
 as a Prometheus textfile, ``--tb-dir`` as TensorBoard scalars beside the
 epoch's loss, lr and validation scalars.
+
+``--kfac-autotune`` (in every trainer, :func:`tuner_for`): the online
+tuner hill-climbs the runtime knobs through the knob arbiter from measured
+step times, its decisions in ``<--trace>/autotune-decisions.jsonl``; on
+ResNet-50 at batch 32, the workload ``perfmodel`` describes, a commit
+whose measured phases leave the perf model's band is vetoed on an H100
+(the gate is advisory elsewhere).
 """
 
 import argparse
@@ -51,7 +58,8 @@ import torch
 
 import kfac_pytorch_tpu_torch as kfac
 from kfac_pytorch_tpu_torch import data as kdata
-from kfac_pytorch_tpu_torch import models, obs, resilience, training, utils
+from kfac_pytorch_tpu_torch import (autotune, models, obs, perfmodel,
+                                    resilience, training, utils)
 from kfac_pytorch_tpu_torch.parallel import collectives as coll
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
 from kfac_pytorch_tpu_torch.utils import checkpoint, profiling, runlog, summary
@@ -60,7 +68,6 @@ from kfac_pytorch_tpu_torch.utils.losses import label_smoothing_cross_entropy
 #: flags of the JAX trainer the port does not honour yet: (flag, the value
 #: that leaves the feature off, the ROADMAP item that brings it)
 UNPORTED = [
-    ('kfac_autotune', False, 'queue 1, slice F2 (autotune)'),
     ('step_deadline', 0, 'queue 1, slice G item 23 (resilience: the step '
                          'watchdog)'),
     ('straggler_budget', 0, 'queue 1, slice G item 23 (resilience: the '
@@ -117,11 +124,56 @@ def parse_args(argv=None):
                         'whole training set)')
     p.add_argument('--device', default='cuda', choices=['cuda', 'cpu'])
     add_obs_flags(p)
-    # the JAX trainer's flags whose features are not ported (UNPORTED)
-    p.add_argument('--kfac-autotune', action='store_true')
+    add_autotune_flag(p, '; on the modeled workload (resnet50 bs32) every '
+                      'commit is vetoed by the perf-model drift band')
+    add_unported_flags(p)
+    return p.parse_args(argv)
+
+
+#: ``--kfac-autotune``'s help in the JAX trainers, with the words each says
+#: of the drift gate in its slot
+AUTOTUNE_HELP = ('closed-loop autotuning: one online controller '
+                 'hill-climbs kfac/fac_update_freq and the comm wire dtype '
+                 'from measured step times through the knob arbiter{} '
+                 '(defaults on when $KFAC_AUTOTUNE=1; see README '
+                 '"Closed-loop autotuning")')
+
+
+def add_autotune_flag(p, gate=''):
+    """``--kfac-autotune``, the JAX trainers' flag (on by default when
+    ``KFAC_AUTOTUNE=1``), its help saying ``gate`` of the drift gate."""
+    p.add_argument('--kfac-autotune', action='store_true',
+                   default=os.environ.get('KFAC_AUTOTUNE', '') == '1',
+                   help=AUTOTUNE_HELP.format(gate))
+
+
+def add_unported_flags(p):
+    """The JAX trainers' ``--step-deadline`` and ``--straggler-budget``
+    (their defaults, 0 = off), whose features are not ported
+    (:data:`UNPORTED`: :func:`check_ported` refuses them)."""
     p.add_argument('--step-deadline', type=float, default=0)
     p.add_argument('--straggler-budget', type=float, default=0)
-    return p.parse_args(argv)
+
+
+def tuner_for(tr, args, predicted=None):
+    """Trainer ``tr``'s online tuner, as the JAX trainers build it
+    (``autotune.controller_from_args``: the decision log under
+    ``--trace``, the run log, the platform from the preconditioner's
+    device), or None without ``--kfac-autotune`` or a preconditioner.
+    ``predicted``: the perf model's block, only for the workload it
+    describes (the drift gate)."""
+    return autotune.controller_from_args(
+        tr.precond, enabled=args.kfac_autotune, trace_dir=args.trace,
+        predicted=predicted, variant=args.kfac_name, log=tr.log)
+
+
+def predicted_for(args):
+    """The perf model's block when this run is the workload it describes
+    (ResNet-50 at its batch, ``perfmodel.BATCH``), else None: the tuner
+    then runs without the drift gate."""
+    if args.model == 'resnet50' and args.batch_size == perfmodel.BATCH:
+        return perfmodel.predict_block()
+    return None
 
 
 def add_obs_flags(p):
@@ -145,30 +197,49 @@ def add_obs_flags(p):
 
 
 @contextlib.contextmanager
-def observed(args, *parts):
+def observed(args, *parts, trainer):
     """The JAX trainers' observability around a run, from
-    :func:`add_obs_flags`' flags. Yields ``(log, tracer, registry, tb)``:
-    the run log (``runlog.setup_run_logging``: its file under
-    ``--log-dir`` named by ``parts``, on rank 0) with the flags logged,
-    the trace recorder and the metrics registry (``obs.setup_trainer``;
-    ``tracer`` None without ``--trace``), and on rank 0 with ``--tb-dir`` a
-    TensorBoard writer exporting the registry (else None). On the way out,
-    however the run ends, the trace is flushed, the exporters closed and
-    the run log's flush hooks removed (SIGTERM's handler as it was)."""
+    :func:`add_obs_flags`' flags, in the JAX trainers' order: the run log
+    (``runlog.setup_run_logging``: its file under ``--log-dir`` named by
+    ``parts``, on rank 0) with the flags logged; the trainer,
+    ``trainer(log)`` (its preconditioner and tuner: :func:`tuner_for`);
+    the trace recorder and the metrics registry with the tuner's counts
+    and gauges (``obs.setup_trainer(tuner=)``; ``tracer`` None without
+    ``--trace``), handed to the trainer's step (``step_fn.set_tracer``); on
+    rank 0 with ``--tb-dir`` a TensorBoard writer exporting the registry
+    (else None). Yields ``(trainer, log, tracer, registry, tb)``. On the
+    way out, however the run ends, the trace is flushed, the exporters
+    closed and the run log's flush hooks removed (SIGTERM's handler as it
+    was)."""
     log, _ = runlog.setup_run_logging(args.log_dir, *parts)
     log.info('args: %s', vars(args))
-    tracer, reg = obs.setup_trainer(trace_dir=args.trace,
-                                    prom_file=args.prom_file)
-    tb = summary.maybe_writer(args.tb_dir)
-    if tb is not None:
-        reg.add_exporter(obs.metrics.TensorBoardExporter(tb))
+    tracer = reg = None
     try:
-        yield log, tracer, reg, tb
+        tr = trainer(log)
+        tracer, reg = obs.setup_trainer(trace_dir=args.trace,
+                                        prom_file=args.prom_file,
+                                        tuner=tr.tuner)
+        tr.tracer = tracer
+        tr.step_fn.set_tracer(tracer)
+        tb = summary.maybe_writer(args.tb_dir)
+        if tb is not None:
+            reg.add_exporter(obs.metrics.TensorBoardExporter(tb))
+        yield tr, log, tracer, reg, tb
     finally:
         if tracer is not None:
             tracer.flush()
-        reg.close()
+        if reg is not None:
+            reg.close()
         runlog.uninstall_flush_hooks()
+
+
+def gate_tuner(tr, monitor):
+    """Late-bind the health monitor's ``quality_signal`` as trainer
+    ``tr``'s tuner's quality gate (the JAX trainers build the tuner before
+    the monitor): a probe window that skipped batches or fell back to the
+    raw gradients never commits."""
+    if tr.tuner is not None:
+        tr.tuner.quality_gate = monitor.quality_signal
 
 
 def end_epoch(tr, line, epoch, monitor, reg, tracer):
@@ -334,9 +405,15 @@ def resume_from(tr, base_dir):
     def on_world_change(old_world, new_world):
         # the loaders yield the GLOBAL batch at any world: it is the
         # invariant, and the lr stays (lr_factor 1)
-        tr.say(training.world_change_rescale(
+        res = training.world_change_rescale(
             old_world, new_world, lr=args.base_lr,
-            global_batch=args.batch_size).log_line())
+            global_batch=args.batch_size)
+        tr.say(res.log_line())
+        # provenance: the verdict rides the knob arbiter's records
+        # (composes nothing: the lr schedule stays the trainer's)
+        if tr.precond is not None:
+            autotune.arbiter_for(tr.precond).propose('elastic',
+                                                     **res._asdict())
 
     restored, epoch, old_world = resilience.elastic_resume(
         base_dir, args.epochs, tr.precond, tr.state,
@@ -416,10 +493,11 @@ class Trainer:
 
     log = None
 
-    def __init__(self, args, group=None, local_rank=None, tracer=None):
+    def __init__(self, args, group=None, local_rank=None, log=None):
         check_ported(args)
         self.args = args
-        self.tracer = tracer
+        self.tracer = None
+        self.log = log
         self.group, self.rank, self.device = init_world(args, group,
                                                         local_rank)
         self.world = args.num_devices
@@ -461,9 +539,10 @@ class Trainer:
                               args.img_size, 3))
         self.state = training.init_train_state(model, self.tx, self.precond,
                                                sample, self.device)
+        self.tuner = tuner_for(self, args, predicted_for(args))
         self.step_fn = training.build_train_step(
             model, self.tx, self.precond, self.loss_fn,
-            input_dtype=self.dtype, group=self.group, tracer=tracer)
+            input_dtype=self.dtype, group=self.group, autotune=self.tuner)
 
     def say(self, *args, **kw):
         say(self, *args, **kw)
@@ -570,10 +649,9 @@ def main(argv=None, group=None):
             f'basis{args.kfac_basis_update_freq}'
             if args.kfac_basis_update_freq else None,
             'warm' if args.kfac_warm_start else None,
-            f'bs{args.batch_size}', f'nd{args.num_devices}') as (
-                log, tracer, reg, tb):
-        tr = Trainer(args, group=group, tracer=tracer)
-        tr.log = log
+            f'bs{args.batch_size}', f'nd{args.num_devices}',
+            trainer=lambda log: Trainer(args, group=group, log=log)) as (
+                tr, log, tracer, reg, tb):
         start_epoch = tr.resume()
         if args.speed:
             speed(tr)
@@ -581,6 +659,7 @@ def main(argv=None, group=None):
         stamp_world(tr, args.checkpoint_format)
         guard = checkpoint.PreemptionGuard(group=tr.group)
         monitor = utils.HealthMonitor(log, state=tr.state, registry=reg)
+        gate_tuner(tr, monitor)
         # each step's wall time by phase set (the epoch line's kfac_phase_ms=);
         # with a tracer every step is also a kfac.step span
         timers = utils.PhaseTimers(tracer=tracer, registry=reg, histogram=True)

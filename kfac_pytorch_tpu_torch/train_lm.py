@@ -46,12 +46,10 @@ from kfac_pytorch_tpu_torch import models, training, utils
 from kfac_pytorch_tpu_torch.parallel import collectives as coll
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
 from kfac_pytorch_tpu_torch.parallel.ring_attention import BLOCK_IMPLS
-from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
-                                                   add_obs_flags,
-                                                   add_world_flags, end_epoch,
-                                                   end_world,
-                                                   init_world, kfac_for, say,
-                                                   observed, speed)
+from kfac_pytorch_tpu_torch.train_imagenet import (
+    add_autotune_flag, add_kfac_flags, add_obs_flags, add_world_flags,
+    end_epoch, end_world, gate_tuner, init_world, kfac_for, observed, say,
+    speed, tuner_for)
 
 #: batches of the validation pass (as the JAX trainer's)
 VAL_BATCHES = 10
@@ -77,6 +75,7 @@ def parse_args(argv=None):
                    help='composed-mesh spec (not ported yet)')
     p.add_argument('--base-lr', type=float, default=3e-2)
     add_kfac_flags(p, update_freq=10, damping=0.003)
+    add_autotune_flag(p)
     p.add_argument('--attn-impl', default='auto', choices=list(BLOCK_IMPLS),
                    help="attention blocks: 'xla' = plain torch ops; "
                         "'pallas'/'auto' = the CUDA flash-attention kernels")
@@ -109,13 +108,14 @@ class Trainer:
 
     log = None
 
-    def __init__(self, args, group=None, local_rank=None, tracer=None):
+    def __init__(self, args, group=None, local_rank=None, log=None):
         if args.kfac_mesh:
             raise NotImplementedError(
                 '--kfac-mesh is not ported yet: ROADMAP queue 1, item 21 '
                 '(parallel layers and the mesh plan)')
         self.args = args
-        self.tracer = tracer
+        self.tracer = None
+        self.log = log
         self.world = args.data_devices * args.seq_devices
         self.group, self.rank, self.device = init_world(
             args, group, local_rank, world=self.world)
@@ -149,10 +149,11 @@ class Trainer:
                            args.seq_len // args.seq_devices), np.int64)
         self.state = training.init_train_state(model, self.tx, self.precond,
                                                sample, self.device)
+        self.tuner = tuner_for(self, args)
         self.step_fn = training.build_train_step(model, self.tx,
                                                  self.precond, loss_fn,
                                                  group=self.group,
-                                                 tracer=tracer)
+                                                 autotune=self.tuner)
         self.rng = np.random.RandomState(args.seed)
 
     def say(self, *args, **kw):
@@ -210,14 +211,15 @@ def main(argv=None, group=None):
     with observed(
             args, f'longctx_L{args.seq_len}', args.kfac_name,
             f'bs{args.batch_size}', f'sd{args.seq_devices}',
-            f'dd{args.data_devices}') as (log, tracer, reg, tb):
-        tr = Trainer(args, group=group, tracer=tracer)
-        tr.log = log
+            f'dd{args.data_devices}',
+            trainer=lambda log: Trainer(args, group=group, log=log)) as (
+                tr, log, tracer, reg, tb):
         if args.speed:
             batch = next(tr.batches())
             speed(tr, batch, tr.tokens(batch), 'tokens/sec')
             return tr
         monitor = utils.HealthMonitor(log, state=tr.state, registry=reg)
+        gate_tuner(tr, monitor)
         for epoch in range(args.epochs):
             t0 = time.time()
             losses = []

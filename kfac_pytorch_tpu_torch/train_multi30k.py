@@ -54,12 +54,10 @@ import torch
 from kfac_pytorch_tpu_torch import training, utils
 from kfac_pytorch_tpu_torch.models import transformer, translator
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
-from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
-                                                   add_obs_flags,
-                                                   add_world_flags, end_epoch,
-                                                   end_world,
-                                                   init_world, kfac_for, say,
-                                                   observed, speed)
+from kfac_pytorch_tpu_torch.train_imagenet import (
+    add_autotune_flag, add_kfac_flags, add_obs_flags, add_world_flags,
+    end_epoch, end_world, gate_tuner, init_world, kfac_for, observed, say,
+    speed, tuner_for)
 from kfac_pytorch_tpu_torch.utils.losses import label_smoothing_cross_entropy
 
 PAD, BOS, EOS = 1, 2, 3
@@ -89,6 +87,7 @@ def parse_args(argv=None):
     p.add_argument('--warmup-steps', type=int, default=4000)
     p.add_argument('--lr-decay', nargs='+', type=int, default=[40, 80])
     add_kfac_flags(p, update_freq=10, damping=0.03)
+    add_autotune_flag(p)
     p.add_argument('--num-devices', type=int, default=1)
     p.add_argument('--seed', type=int, default=42)
     p.add_argument('--speed', action='store_true',
@@ -196,9 +195,10 @@ class Trainer:
 
     log = None
 
-    def __init__(self, args, group=None, local_rank=None, tracer=None):
+    def __init__(self, args, group=None, local_rank=None, log=None):
         self.args = args
-        self.tracer = tracer
+        self.tracer = None
+        self.log = log
         self.world = args.num_devices
         self.group, self.rank, self.device = init_world(args, group,
                                                         local_rank)
@@ -238,9 +238,10 @@ class Trainer:
                   self.train_trg[:bs].astype(np.int64))
         self.state = training.init_train_state(model, self.tx, self.precond,
                                                sample, self.device)
+        self.tuner = tuner_for(self, args)
         self.step_fn = training.build_train_step(
             model, self.tx, self.precond, self.loss_fn,
-            dropout_seed=args.seed + 2, group=self.group, tracer=tracer)
+            dropout_seed=args.seed + 2, group=self.group, autotune=self.tuner)
 
     def say(self, *args, **kw):
         say(self, *args, **kw)
@@ -315,15 +316,15 @@ def main(argv=None, group=None):
     with observed(
             args, 'multi30k', args.optimizer,
             f'kfac{args.kfac_update_freq}', args.kfac_name,
-            f'bs{args.batch_size}', f'nd{args.num_devices}') as (
-                log, tracer, reg, tb):
-        tr = Trainer(args, group=group, tracer=tracer)
-        tr.log = log
+            f'bs{args.batch_size}', f'nd{args.num_devices}',
+            trainer=lambda log: Trainer(args, group=group, log=log)) as (
+                tr, log, tracer, reg, tb):
         if args.speed:
             batch = next(tr.batches())
             speed(tr, batch, tr.tokens(batch), 'tokens/sec')
             return tr
         monitor = utils.HealthMonitor(log, state=tr.state, registry=reg)
+        gate_tuner(tr, monitor)
         for epoch in range(args.epochs):
             t0 = time.time()
             losses = []

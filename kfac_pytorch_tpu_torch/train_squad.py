@@ -39,12 +39,10 @@ import torch.nn.functional as F
 from kfac_pytorch_tpu_torch import training, utils
 from kfac_pytorch_tpu_torch.models import bert
 from kfac_pytorch_tpu_torch.parallel import mesh as kmesh
-from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
-                                                   add_obs_flags,
-                                                   add_world_flags, end_epoch,
-                                                   end_world,
-                                                   init_world, kfac_for, say,
-                                                   observed, speed)
+from kfac_pytorch_tpu_torch.train_imagenet import (
+    add_autotune_flag, add_kfac_flags, add_obs_flags, add_world_flags,
+    end_epoch, end_world, gate_tuner, init_world, kfac_for, observed, say,
+    speed, tuner_for)
 
 PAD, CLS, SEP, MARK = 0, 1, 2, 3
 #: the id of a word outside a SQuAD file's vocabulary
@@ -68,6 +66,7 @@ def parse_args(argv=None):
     p.add_argument('--base-lr', type=float, default=0.04)
     p.add_argument('--warmup-frac', type=float, default=0.1)
     add_kfac_flags(p, update_freq=10, damping=0.003)
+    add_autotune_flag(p)
     p.add_argument('--num-devices', type=int, default=1)
     p.add_argument('--seed', type=int, default=42)
     p.add_argument('--synthetic-size', type=int, default=1024)
@@ -186,9 +185,10 @@ class Trainer:
 
     log = None
 
-    def __init__(self, args, group=None, local_rank=None, tracer=None):
+    def __init__(self, args, group=None, local_rank=None, log=None):
         self.args = args
-        self.tracer = tracer
+        self.tracer = None
+        self.log = log
         self.world = args.num_devices
         self.group, self.rank, self.device = init_world(args, group,
                                                         local_rank)
@@ -231,9 +231,10 @@ class Trainer:
             model, self.tx, self.precond,
             self.batch(np.arange(bs))['input'], self.device)
         self.loss_fn = loss_fn
+        self.tuner = tuner_for(self, args)
         self.step_fn = training.build_train_step(
             model, self.tx, self.precond, loss_fn,
-            dropout_seed=args.seed + 2, group=self.group, tracer=tracer)
+            dropout_seed=args.seed + 2, group=self.group, autotune=self.tuner)
         self.rng = np.random.RandomState(args.seed)
 
     def say(self, *args, **kw):
@@ -301,15 +302,15 @@ def main(argv=None, group=None):
     with observed(
             args, 'squad', args.model_size,
             f'kfac{args.kfac_update_freq}', args.kfac_name,
-            f'bs{args.batch_size}', f'nd{args.num_devices}') as (
-                log, tracer, reg, tb):
-        tr = Trainer(args, group=group, tracer=tracer)
-        tr.log = log
+            f'bs{args.batch_size}', f'nd{args.num_devices}',
+            trainer=lambda log: Trainer(args, group=group, log=log)) as (
+                tr, log, tracer, reg, tb):
         if args.speed:
             batch = tr.batch(np.arange(min(args.batch_size, len(tr.train[0]))))
             speed(tr, batch, tr.tokens(batch), 'tokens/sec')
             return tr
         monitor = utils.HealthMonitor(log, state=tr.state, registry=reg)
+        gate_tuner(tr, monitor)
         for epoch in range(args.epochs):
             t0 = time.time()
             losses = []

@@ -36,10 +36,9 @@ import torch
 import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch import models, training, utils
-from kfac_pytorch_tpu_torch.train_imagenet import (add_kfac_flags,
-                                                   add_obs_flags, end_epoch,
-                                                   kfac_for, say,
-                                                   observed, speed)
+from kfac_pytorch_tpu_torch.train_imagenet import (
+    add_autotune_flag, add_kfac_flags, add_obs_flags, end_epoch, gate_tuner,
+    kfac_for, observed, say, speed, tuner_for)
 
 
 def parse_args(argv=None):
@@ -59,6 +58,7 @@ def parse_args(argv=None):
     p.add_argument('--clip', type=float, default=0.25)
     p.add_argument('--vocab-limit', type=int, default=10000)
     add_kfac_flags(p, update_freq=0, damping=0.003)
+    add_autotune_flag(p)
     p.add_argument('--seed', type=int, default=42)
     p.add_argument('--synthetic-vocab', type=int, default=256)
     p.add_argument('--synthetic-tokens', type=int, default=100000)
@@ -126,9 +126,10 @@ class Trainer:
 
     log = None
 
-    def __init__(self, args, corpus=None, tracer=None):
+    def __init__(self, args, corpus=None, log=None):
         self.args = args
-        self.tracer = tracer
+        self.tracer = None
+        self.log = log
         self.rank = 0
         self.device = utils.resolve_device(args.device)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -155,9 +156,10 @@ class Trainer:
         self.state = training.init_train_state(model, self.tx, self.precond,
                                                sample, self.device)
         self.loss_fn = loss_fn
+        self.tuner = tuner_for(self, args)
         self.step_fn = training.build_train_step(model, self.tx,
                                                  self.precond, loss_fn,
-                                                 tracer=tracer)
+                                                 autotune=self.tuner)
 
     def say(self, *args, **kw):
         say(self, *args, **kw)
@@ -213,15 +215,16 @@ def main(argv=None):
     with observed(
             args, 'wikitext', f'kfac{args.kfac_update_freq}',
             args.kfac_name if args.kfac_update_freq else 'sgd',
-            f'bs{args.batch_size}') as (log, tracer, reg, tb):
-        tr = Trainer(args, tracer=tracer)
-        tr.log = log
+            f'bs{args.batch_size}',
+            trainer=lambda log: Trainer(args, log=log)) as (
+                tr, log, tracer, reg, tb):
         if args.speed:
             bptt = min(args.bptt, tr.train_data.shape[1] - 1)
             batch = next(tr.windows(tr.train_data, bptt, 1))
             speed(tr, batch, tr.tokens(batch), 'tokens/sec')
             return tr
         monitor = utils.HealthMonitor(log, state=tr.state, registry=reg)
+        gate_tuner(tr, monitor)
         for epoch in range(args.epochs):
             t0 = time.time()
             losses = []

@@ -565,7 +565,8 @@ def dropout_rng(seed, step, rank, device):
 def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
                      health='auto', fisher_type='Femp', fisher_loss_fn=None,
                      fisher_sample_fn=None, fisher_seed=0,
-                     dropout_seed=None, group=None, tracer=None):
+                     dropout_seed=None, group=None, tracer=None,
+                     autotune=None):
     """Return ``step_fn(state, batch, lr=None, damping=None) -> (state,
     metrics)``. ``batch`` holds this rank's shard as tensors on the
     model's device: ``'input'`` (see :func:`model_input`; cast to
@@ -591,6 +592,16 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
     spans ``kfac.Precondition`` (the stored table) and
     ``kfac.CommunicateInverse.prefetch`` in it, as the JAX trainer does.
     The span's time is the host's: the step is not synchronized.
+    ``step_fn.set_tracer(recorder)`` hands the step its recorder later (a
+    trainer that builds its step before its recorder, as the JAX trainers
+    build the tuner before theirs).
+
+    ``autotune``: an ``autotune.KnobController`` (or None), ticked at the
+    top of every call, before a queued replan is applied: the interval
+    that just ended timed the previous call, so it is attributed to
+    ``step_fn.last_phases`` as it still stands, as the JAX trainer does.
+    The step adds no synchronization: the interval holds whatever the
+    trainer's loop blocks on (its loss read).
 
     ``health``: the numerical-health guard (``health.py``). 'auto' (the
     default) inherits the preconditioner's ``health`` (off without one);
@@ -635,8 +646,9 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
     step that decomposed.
 
     A replan queued on the preconditioner (``KFAC.request_replan``) is
-    applied at the top of the next step. After any replan that changes the
-    step (the invalidator this registers, JAX's), the next step forgets
+    applied at the top of the next step. After any replan or committed
+    knob that changes the step (the invalidator this registers on the
+    preconditioner's knob arbiter, JAX's), the next step forgets
     ``'last_full'`` and ``'warm_streak'`` and re-derives
     ``state.decomposed`` from the K-FAC state (:func:`has_decomposition`),
     so its next full decomposition is cold and, after a cross-method
@@ -653,10 +665,13 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
     seen = {}
     sgd_group = group
     if precond is not None:
-        # after a replan that changes the step, the next step re-derives
-        # from the state whether a decomposition exists (a cross-method
-        # switch leaves a zero one) and decomposes cold
-        precond.add_invalidator(lambda: seen.update(rederive=True))
+        # after a replan or a committed knob that changes the step, the
+        # next step re-derives from the state whether a decomposition
+        # exists (a cross-method switch leaves a zero one) and decomposes
+        # cold
+        from kfac_pytorch_tpu_torch.autotune import arbiter_for
+        arbiter_for(precond).add_invalidator(
+            lambda: seen.update(rederive=True))
 
     def prepare(state):
         """The host's choices for the step: a queued replan applied, then
@@ -724,6 +739,11 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
         return stack
 
     def step_fn(state, batch, lr=None, damping=None):
+        if autotune is not None:
+            # the interval that just ended covered the previous call's
+            # phase set: attribute it there, before this call's dispatch
+            # (and a queued replan) changes anything
+            autotune.tick(state.step, step_fn.last_phases)
         state, d = prepare(state)
         step_fn.last_phases = d.phases
         step_fn.last_decomp = d.decomp
@@ -834,6 +854,11 @@ def build_train_step(model, tx, precond, loss_fn, input_dtype=None, *,
             health=hstate if guard else state.health)
         return state, mets
 
+    def set_tracer(recorder):
+        nonlocal tracer
+        tracer = recorder
+
+    step_fn.set_tracer = set_tracer
     step_fn.last_phases = ()
     step_fn.last_decomp = None
     step_fn.last_prefetch = False

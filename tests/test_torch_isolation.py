@@ -2,7 +2,8 @@
 
 1. Every module of kfac_pytorch_tpu_torch (and chip_smoke.py) imports in
    a process where jax, flax and optax cannot be imported, and no module
-   of the JAX package ends up loaded.
+   of the JAX package ends up loaded (the control loop's ``autotune``,
+   ``perfmodel`` and ``obs.drift`` among them).
 2. Entry points asked for no device go to the GPU: without one they
    raise instead of running on the CPU.
 3. The capture- and attention-kernel wrappers run their plain versions
@@ -14,7 +15,8 @@
    item, for every flag of the JAX trainer whose feature is not ported
    (``--io-retries`` and ``--num-devices`` are ported since the elastic
    lane, ``--trace``, ``--prom-file`` and ``--tb-dir`` since the
-   observability slice; they keep their cases).
+   observability slice, ``--kfac-autotune`` since the control loop's;
+   they keep their cases).
 6. ``--kfac-name ekfac_dp`` reaches ``KFAC`` in both trainers, and
    ``--kfac-stagger`` with E-KFAC raises.
 """
@@ -61,6 +63,11 @@ def test_port_imports_without_jax_or_the_jax_package():
             'models.rnn', 'models.gpt', 'parallel.ring_attention',
             'parallel.collectives', 'parallel.mesh')}
         assert seq <= set(mods) and seq <= set(sys.modules), seq
+        # the control loop: the arbiter and tuner, the perf model and the
+        # drift gate, each the port's own copy
+        ctl = {pkg.__name__ + '.' + m for m in (
+            'autotune', 'perfmodel', 'obs.drift')}
+        assert ctl <= set(mods) and ctl <= set(sys.modules), ctl
         print(len(mods))
     ''')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
@@ -276,6 +283,12 @@ def test_imagenet_unported_flags_raise(argv):
         # ported: world>1 needs the launcher's process group
         with pytest.raises(ValueError, match='WORLD_SIZE=1'):
             train_imagenet.main(['--device', 'cpu', *argv])
+    elif argv[0] == '--kfac-autotune':
+        # ported: the online tuner (autotune.controller_from_args)
+        args = train_imagenet.parse_args(['--device', 'cpu', *argv])
+        train_imagenet.check_ported(args)
+        assert args.kfac_autotune and all(
+            name != 'kfac_autotune' for name, _, _ in train_imagenet.UNPORTED)
     elif argv[0] in ('--trace', '--prom-file', '--tb-dir'):
         # ported: the observability flags (obs.setup_trainer and the
         # TensorBoard writer, train_imagenet.observed)

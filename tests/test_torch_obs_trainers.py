@@ -10,7 +10,8 @@ profiler ranges of the K-FAC step.
   ``step_fn.last_phases`` in the exclude_parts taxonomy, step by step;
   the Prometheus and JSONL exports parse; the TensorBoard file holds the
   JAX trainer's scalars.
-- The flags left in ``UNPORTED`` still raise, naming their items.
+- The flags left in ``UNPORTED`` still raise, naming their items
+  (``--kfac-autotune`` is accepted since the control loop's slice).
 - Every profiler range the port opens is named after a
   ``jax.named_scope`` of the JAX package, and a CPU ``torch.profiler``
   run of an ``eigen_dp`` step opens ComputeFactor, ComputeInverse and
@@ -212,8 +213,15 @@ def test_trainer_observability_on_cpu(trainer, tmp_path, record_phases,
 def test_flags_left_unported_still_raise(flag, value, item):
     from kfac_pytorch_tpu_torch import train_imagenet
     names = [n for n, _, _ in train_imagenet.UNPORTED]
-    assert names == ['kfac_autotune', 'step_deadline', 'straggler_budget']
+    assert names == ['step_deadline', 'straggler_budget']
     argv = CPU + [flag] + ([value] if value else [])
+    if flag == '--kfac-autotune':
+        # ported with slice F2: accepted (the tuner's wiring is
+        # tests/test_torch_autotune_trainers.py's)
+        args = train_imagenet.parse_args(argv)
+        train_imagenet.check_ported(args)
+        assert args.kfac_autotune
+        return
     with pytest.raises(NotImplementedError, match=f'ROADMAP.*{item}'):
         train_imagenet.main(argv)
 

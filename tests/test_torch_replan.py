@@ -16,8 +16,10 @@ same layers.
 - ``bucket_overrides`` under stagger rebuild the cohorts with the
   stretched period;
 - the validation errors are JAX's (type and message), a host replan to
-  another world equals JAX's reshard, and the not-ported moves raise
-  NotImplementedError naming their ROADMAP item;
+  another world equals JAX's reshard, the knob arbiter's replan
+  (``_invalidate=False``) fires no invalidator and its requests merge as
+  JAX's, and the not-ported move (``mesh_axes``) raises
+  NotImplementedError naming its ROADMAP item;
 - ``same_row_layout`` and ``reshard_kfac_state`` (with and without
   ``carry_decomp``) equal JAX's at 1 -> 1, 2 -> 1 and 1 -> 2 ranks.
 """
@@ -36,7 +38,7 @@ from kfac_pytorch_tpu.utils import checkpoint as jckpt
 import kfac_pytorch_tpu_torch as tkfac
 from kfac_pytorch_tpu_torch import capture as tcapture
 from kfac_pytorch_tpu_torch import plan as tplan
-from kfac_pytorch_tpu_torch import training
+from kfac_pytorch_tpu_torch import autotune, training
 from kfac_pytorch_tpu_torch.preconditioner import KFACState
 from kfac_pytorch_tpu_torch.utils import checkpoint as tckpt
 
@@ -117,7 +119,7 @@ def test_replan_to_identical_plan_is_bitwise_noop(variant):
     state, _ = _run(step, state, 3)
     statec, _ = _run(stepc, statec, 3)
     fired = []
-    pre.add_invalidator(lambda: fired.append(1))
+    autotune.arbiter_for(pre).add_invalidator(lambda: fired.append(1))
     plan = pre.plan
     carried = pre.replan(state.kfac_state, comm_mode=pre.comm_mode)
     assert carried is state.kfac_state
@@ -194,7 +196,9 @@ def test_trainer_rearms_after_cross_method_replan():
     state, _ = _run(step, state, 5)          # last decomposition at step 4
     assert state.decomposed
     pre.request_replan(variant='inverse_dp')
-    assert pre.pending_replan == {'variant': 'inverse_dp'}
+    # JAX's queued spec: a direct request keeps the invalidation armed
+    assert pre.pending_replan == {'variant': 'inverse_dp',
+                                  '_invalidate': True}
     state, _ = _run(step, state, 1, start=5)  # applied at the top; no
     assert pre.pending_replan is None          # inverse update at step 5
     assert pre.method == 'cholesky'
@@ -325,12 +329,30 @@ def test_unported_replans_name_their_roadmap_item(spec, item):
             assert g.step == w.step == 7
             _assert_equal(g.factors, w.factors)
             _assert_equal(g.decomp, w.decomp)
+    elif '_invalidate' in spec:
+        # ported with slice F2 (the knob arbiter's replan): the plan is
+        # rebuilt and no invalidator fires, as in JAX
+        fired = []
+        autotune.arbiter_for(pre).add_invalidator(lambda: fired.append(1))
+        plan = pre.plan
+        assert pre.replan(None, comm_mode='inverse', **spec) is None
+        assert pre.comm_mode == 'inverse' and pre.plan is not plan
+        assert not fired
     else:
         with pytest.raises(NotImplementedError, match=item):
             pre.replan(None, **spec)
-    with pytest.raises(NotImplementedError, match='slice F'):
-        pre.request_replan(_invalidate=False, comm_mode='inverse')
-    assert pre.pending_replan is None
+    # the arbiter's request merges as JAX's: the flag ORs across requests
+    jpre = jkfac.KFAC(variant='eigen_dp', bucket_fn=workers.bucket_tiny)
+    for p in (pre, jpre):
+        assert p.pending_replan is None
+        p.request_replan(_invalidate=False, comm_mode='inverse')
+    assert pre.pending_replan == jpre.pending_replan == {
+        'comm_mode': 'inverse', '_invalidate': False}
+    for p in (pre, jpre):
+        p.request_replan(comm_mode='pred')
+        p.request_replan(_invalidate=False, bucket_overrides={})
+    assert pre.pending_replan == jpre.pending_replan == {
+        'comm_mode': 'pred', 'bucket_overrides': {}, '_invalidate': True}
 
 
 # ---------------------------------------------------------------------------

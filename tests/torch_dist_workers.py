@@ -7,9 +7,12 @@ oracles in the parent process and hand the inputs over as numpy arrays.
 """
 
 import functools
+import json
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from kfac_pytorch_tpu_torch import capture, engine
@@ -592,3 +595,167 @@ def trainer_main_runs(rank, world, group, runs):
     ``runs``, one after the other in the same group."""
     return {name: trainer_main_run(rank, world, group, module, argv)
             for name, (module, argv) in runs.items()}
+
+
+# ---------------------------------------------------------------------------
+# The control loop: knob commits applied at the step boundary at world>1
+# ---------------------------------------------------------------------------
+
+#: the boundaries (steps before which) of :func:`autotune_switches`' moves
+AUTOTUNE_MOVES = {3: ('comm_mode', 'pred'), 5: ('comm_precision', 'bf16'),
+                  7: ('comm_mode', 'inverse')}
+AUTOTUNE_STEPS = 9
+
+
+def autotune_switches(rank, world, group, route):
+    """The MLP under MPD ``eigen`` with the capture kernels' plain versions
+    (``capture_impl='pallas'``), :data:`AUTOTUNE_STEPS` steps of
+    ``training.build_train_step`` with :data:`AUTOTUNE_MOVES` made before
+    their steps: by the knob arbiter's tuner proposals (``route`` 'tuner':
+    a ``comm_mode`` commit queues the replan the step applies) or the
+    direct way (``route`` 'direct': ``KFAC.replan`` on the state, the wire
+    dtype written on the preconditioner). Returns per step the loss, the
+    parameters, the factors, the decomposition and the residual (numpy),
+    the pending replan seen before the step, the invalidator calls and the
+    calls of K3's plain version; on the direct route a comm-mode move also
+    returns the decomposition before and after ``replan`` and each
+    bucket's rows a rank (``per_dev``)."""
+    import dataclasses
+
+    from kfac_pytorch_tpu_torch import autotune, training
+    torch.set_num_threads(1)
+    rng = np.random.RandomState(0)
+    xs = rng.randn(AUTOTUNE_STEPS, 8, 5).astype(np.float32)
+    ys = rng.randn(AUTOTUNE_STEPS, 8, 3).astype(np.float32)
+    per = 8 // world
+
+    def batch(i):
+        rows = slice(rank * per, (rank + 1) * per)
+        return {'input': torch.from_numpy(xs[i, rows]),
+                'label': torch.from_numpy(ys[i, rows])}
+
+    def loss_fn(out, b):
+        return ((out - b['label']) ** 2).mean()
+
+    torch.manual_seed(0)
+    model = MLP()
+    model.input_layout = 'tokens'   # plain rows, as they come
+    pre = KFAC(variant='eigen', num_devices=world, group=group,
+               bucket_fn=bucket16, capture_impl='pallas', kfac_update_freq=2)
+    tx = training.sgd(0.1)
+    state = training.init_train_state(model, tx, pre, batch(0)['input'],
+                                      device='cpu')
+    step = training.build_train_step(model, tx, pre, loss_fn, group=group)
+    fired = [0]
+    autotune.arbiter_for(pre).add_invalidator(
+        lambda: fired.__setitem__(0, fired[0] + 1))
+    plain, calls = ck._ef_quantize_plain, [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return plain(*args, **kw)
+
+    ck._ef_quantize_plain = counted
+    out = []
+    try:
+        for i in range(AUTOTUNE_STEPS):
+            carried = None
+            if i in AUTOTUNE_MOVES:
+                knob, value = AUTOTUNE_MOVES[i]
+                if route == 'tuner':
+                    autotune.arbiter_for(pre).propose('tuner', **{knob: value})
+                elif knob == 'comm_mode':
+                    before = _np_tree(state.kfac_state.decomp)
+                    rows = {k: pre.plan.buckets[int(k)].per_dev
+                            for tree in before.values() for k in tree}
+                    state = dataclasses.replace(
+                        state, kfac_state=pre.replan(state.kfac_state,
+                                                     comm_mode=value))
+                    carried = {'before': before, 'per': rows,
+                               'after': _np_tree(state.kfac_state.decomp)}
+                else:
+                    pre.comm_precision = value
+            pending = pre.pending_replan
+            state, m = step(state, batch(i))
+            ks = state.kfac_state
+            out.append({
+                'loss': float(m['loss']), 'pending': pending,
+                'comm_mode': pre.comm_mode,
+                'comm_precision': pre.comm_precision,
+                'params': {k: v.detach().numpy().copy()
+                           for k, v in model.named_parameters()},
+                'factors': {k: v.numpy().copy()
+                            for k, v in ks.factors.items()},
+                'decomp': _np_tree(ks.decomp),
+                'comm_err': (None if ks.comm_err is None else
+                             {k: v.numpy().copy()
+                              for k, v in ks.comm_err.items()}),
+                'fired': fired[0], 'k3_calls': calls[0],
+                'carried': carried})
+    finally:
+        ck._ef_quantize_plain = plain
+    return out
+
+
+def autotune_switch_routes(rank, world, group):
+    """:func:`autotune_switches` by both routes, in one process group."""
+    return {route: autotune_switches(rank, world, group, route)
+            for route in ('tuner', 'direct')}
+
+
+class KnobStandIn:
+    """The knob attributes a tuner reads and the hooks its arbiter calls,
+    on a live process group."""
+
+    def __init__(self, group):
+        self.fac_update_freq, self.kfac_update_freq = 1, 10
+        self.damping, self.comm_precision = 0.03, None
+        self.decomp_impl = self.capture_impl = self.comm_mode = None
+        self.group, self.num_devices, self._distributed = group, 2, False
+
+    def rebase_cohorts(self):
+        pass
+
+
+#: :func:`autotune_ranks_agree`'s window and number of windows
+AGREE_WINDOW, AGREE_WINDOWS = 4, 6
+
+
+def autotune_ranks_agree(rank, world, group, log_dir):
+    """Two tuners fed through ``record`` with times (and, in the 'quality'
+    case, health counters) that differ by rank, each deciding on its own
+    rank: in 'time' rank 0 sees a doubled ``kfac_update_freq`` halve its
+    step and rank 1 a 2% gain, under the 3% margin; in 'quality' both see
+    the gain and only rank 1's counter rises. Returns by case the knobs
+    after every window, the decisions and, in 'time', the decision log
+    (written under ``log_dir``)."""
+    from kfac_pytorch_tpu_torch import autotune
+    torch.set_num_threads(1)
+    out = {}
+    for case in ('time', 'quality'):
+        pre = KnobStandIn(group)
+        bad = [0]
+
+        def gate():
+            if rank == 1 and case == 'quality':
+                bad[0] += 1
+            return bad[0]
+
+        log = (os.path.join(log_dir, 'autotune-decisions.jsonl')
+               if case == 'time' else None)
+        ctl = autotune.KnobController(
+            pre, window=AGREE_WINDOW, settle=0, tune=('kfac_update_freq',),
+            decision_log=log, quality_gate=gate)
+        knobs = []
+        for w in range(AGREE_WINDOWS):
+            for _ in range(AGREE_WINDOW):
+                kf = pre.kfac_update_freq
+                gain = 0.5 if rank == 0 or case == 'quality' else 0.98
+                ctl.record(('pred',), 1.0 * (gain if kf > 10 else 1.0)
+                           + 0.001 * rank)
+            knobs.append(pre.kfac_update_freq)
+        out[case] = {'knobs': knobs, 'decisions': list(ctl.decisions)}
+        if log is not None:
+            dist.barrier(group)
+            out[case]['log'] = [json.loads(ln) for ln in open(log)]
+    return out
